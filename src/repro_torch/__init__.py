@@ -1,0 +1,12 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
+
+The package mirrors ``repro``'s subpackage layout.  It imports ``torch`` and
+numpy and never ``jax`` or any ``repro`` module: framework-neutral code is
+copied here.  The JAX package stays the reference the tests hold this one
+against.
+
+Ported so far: the olmo-1b continuous-batching serve path with CRCH request
+replication (``repro_torch.launch.serve``), on two hand-written CUDA kernels
+(``kernels/csrc``): pairwise distances for the triplet clustering and
+causal GQA flash attention for prefill.
+"""
