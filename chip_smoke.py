@@ -9,26 +9,34 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 2. build: ``nvcc`` compiles every ``kernels/csrc/*.cu`` for sm_90a, in
    parallel, into ``build/kernels``;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the JAX package's test shapes, at the serve path's shapes and at large
+   at the JAX package's test shapes, at the serve paths' shapes and at large
    ones, with times (CUDA events, median of 25 after warm-up) beside the
    plain version's, a library call's and the card's bound;
-4. serve: the port's launcher on olmo-1b at full width (random seeded
-   weights, bf16) with CRCH replication under the ``unstable`` failure
-   environment; every request must complete, failures must have been
-   recovered, and both kernels must have been launched (their launch counts
-   are zeroed just before this phase and read just after);
-5. fault transparency: the same requests with no failures give the same
-   tokens, token for token (paper: checkpointed resubmission does not
-   change the output);
-6. reference parity: engine tokens against the batch=1 greedy reference;
-   where they part, the reference's logit gap between the two tokens must
-   be below a bound derived from measured logit differences.
+4. then, for each family the port serves (olmo-1b, rwkv6-3b,
+   recurrentgemma-2b), at full width (random seeded weights, bf16):
+
+   a. serve: the port's launcher with CRCH replication under the
+      ``unstable`` failure environment; every request must complete,
+      failures must have been recovered from snapshots, and every kernel of
+      the family's path must have been launched (all launch counts are
+      zeroed just before this phase and read just after);
+   b. profile: one prefill and a few batched decode steps of that engine
+      under ``torch.profiler``;
+   c. fault transparency: the same requests with no failures give the same
+      tokens, token for token (paper: checkpointed resubmission does not
+      change the output);
+   d. reference parity: engine tokens against the batch=1 greedy reference;
+      where they part, the reference's logit gap between the two tokens must
+      be below a bound derived from measured logit differences.
+
+   Each family's engines are freed before the next family starts.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -49,14 +57,36 @@ FA_TEST_SHAPES = [(1, 4, 2, 128, 128), (2, 8, 8, 256, 128),
 FA_BIG_SHAPES = [(1, 16, 16, 512, 128), (4, 16, 16, 2048, 128)]
 # fp32: the JAX tests' limit.  bf16: both sides accumulate in fp32 and
 # round the output to bf16 once, so they may differ by the output's own
-# rounding, one bf16 ulp (<= 2^-7 |x|), and no more
+# rounding, one bf16 ulp (<= 2^-7 |x|), and no more.  The same holds for
+# WKV6 on bf16 r, k, v (its fp32 limit is the one tests/test_kernels.py
+# gives the model's chunked path)
 FA_TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
           "bfloat16": dict(atol=4e-3, rtol=1e-2)}
+WKV_TOL = {"float32": dict(atol=2e-4, rtol=1e-3),
+           "bfloat16": dict(atol=4e-3, rtol=1e-2)}
+LRU_TOL = dict(atol=2e-4, rtol=2e-4)
 PA_TOL = dict(atol=3e-3, rtol=1e-3)
+# the JAX test shapes of the two scans (tests/test_kernels.py)
+WKV_TEST_SHAPES = [(1, 2, 32, 64), (2, 3, 48, 64), (1, 1, 20, 64),
+                   (1, 2, 64, 128)]
+LRU_TEST_SHAPES = [(2, 128, 128), (3, 100, 96), (8, 256, 256), (1, 17, 130)]
 
-SERVE_ARGS = ["--arch", "olmo-1b", "--requests", "8", "--prompt-len", "384",
-              "--new-tokens", "32", "--workers", "2", "--slots-per-worker",
-              "2", "--policy", "crch", "--seed", "0", "--device", "cuda"]
+# the families served, each with its prompt length and the kernels its
+# serve path must launch
+FAMILIES = {
+    "olmo-1b": (384, ("pairwise_distance", "flash_attention")),
+    "rwkv6-3b": (384, ("pairwise_distance", "wkv6")),
+    # prompts draw from 1536..3072 tokens: most exceed the 2048 window
+    "recurrentgemma-2b": (3072, ("pairwise_distance", "flash_attention",
+                                 "lru_scan")),
+}
+
+
+def serve_args(arch):
+    return ["--arch", arch, "--requests", "8", "--prompt-len",
+            str(FAMILIES[arch][0]), "--new-tokens", "32", "--workers", "2",
+            "--slots-per-worker", "2", "--policy", "crch", "--seed", "0",
+            "--device", "cuda"]
 
 
 class SmokeFailure(RuntimeError):
@@ -66,6 +96,17 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def wrappers():
+    """Kernel name -> its wrapper, which carries the launch count."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.pairwise_affinity import ops as pa_ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wk_ops
+    return {"pairwise_distance": pa_ops.pairwise_distance,
+            "flash_attention": fa_ops.flash_attention,
+            "wkv6": wk_ops.wkv6, "lru_scan": lru_ops.lru_scan}
 
 
 def time_ms(fn, iters=25, warmup=3):
@@ -91,6 +132,13 @@ def bound_ms(bytes_, flops, dtype):
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def _timing_text(rec, library):
+    lib = (f"{library} {rec['library_ms']:.4f} ms"
+           if rec["library_ms"] is not None else f"{library}: none")
+    return (f" | kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
+            f"{lib} bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
 
 
 # ---------------------------------------------------------------------------
@@ -129,110 +177,232 @@ def pairwise_case(n, f, *, timed):
     print(f"  pairwise_distance {n}x{f}: max_abs_err {err:.3g} "
           f"(off-diagonal atol 3e-3 rtol 1e-3; diagonal <= sqrt(8 eps "
           f"|x|^2)) {'ok' if ok else 'FAIL'}"
-          + (f" | kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
-             f"cdist {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.5f}"
-             f" ms ({rec['bound_by']})" if timed else ""))
+          + (_timing_text(rec, "cdist") if timed else ""))
     check(ok, f"pairwise_distance {n}x{f} disagrees with its plain version")
     return rec
 
 
-def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed):
+def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     dt = getattr(torch, dtype_name)
-    rng = np.random.default_rng(b * 7 + h * 5 + s + d)
+    rng = np.random.default_rng(b * 7 + h * 5 + s + d + window)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                .to("cuda", dt)
                for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
-    got = ops.flash_attention(q, k, v, causal=causal)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    want = ref.attention(q, k, v, causal=causal)
+    want = ref.attention(q, k, v, causal=causal, window=window)
     err = float((got.float() - want.float()).abs().max())
     ok = bool(torch.allclose(got.float(), want.float(), **FA_TOL[dtype_name]))
     rec = {"shape": [b, h, kv, s, d], "dtype": dtype_name, "causal": causal,
-           "max_abs_err": err, "ok": ok}
+           "window": window, "max_abs_err": err, "ok": ok}
     if timed:
-        rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v,
-                                                        causal=causal))
-        rec["plain_ms"] = time_ms(lambda: ref.attention(q, k, v,
-                                                        causal=causal))
+        rec["ms"] = time_ms(lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window))
+        rec["plain_ms"] = time_ms(lambda: ref.attention(
+            q, k, v, causal=causal, window=window))
         gqa = {"enable_gqa": True} if h != kv else {}
-        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, **gqa))
-        pairs = s * (s + 1) // 2 if causal else s * s
+        if window:
+            diff = (torch.arange(s, device="cuda")[:, None]
+                    - torch.arange(s, device="cuda")[None, :])
+            mask = (diff >= 0) & (diff < window)
+            rec["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, **gqa))
+            pairs = sum(min(i + 1, window) for i in range(s))
+        else:
+            rec["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, **gqa))
+            pairs = s * (s + 1) // 2 if causal else s * s
         item = q.element_size()
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             item * (2 * b * h * s * d + 2 * b * kv * s * d),
             4 * b * h * pairs * d, dtype_name)
     tol = FA_TOL[dtype_name]
-    print(f"  flash_attention {(b, h, kv, s, d)} {dtype_name} "
-          f"{'causal' if causal else 'bidir'}: max_abs_err {err:.3g} "
-          f"(atol {tol['atol']} rtol {tol['rtol']}) {'ok' if ok else 'FAIL'}"
-          + (f" | kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
-             f"sdpa {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.5f} "
-             f"ms ({rec['bound_by']})" if timed else ""))
+    mode = (f"window {window}" if window else
+            "causal" if causal else "bidir")
+    print(f"  flash_attention {(b, h, kv, s, d)} {dtype_name} {mode}: "
+          f"max_abs_err {err:.3g} (atol {tol['atol']} rtol {tol['rtol']}) "
+          f"{'ok' if ok else 'FAIL'}"
+          + (_timing_text(rec, "sdpa") if timed else ""))
     check(ok, f"flash_attention {(b, h, kv, s, d)} {dtype_name} "
-              f"causal={causal} disagrees with its plain version")
+              f"{mode} disagrees with its plain version")
     return rec
 
 
-def main_path_shapes():
-    """The shapes the serve phase gives each kernel: B1 sees the request
-    sample after PCA, B2 each prompt bucket's causal prefill."""
+def wkv6_case(b, h, t, n, dtype_name, with_s0, *, timed):
+    """The kernel on (B, H, T, N) inputs in ``dtype_name`` (r, k, v) against
+    the plain version in fp32 on the same rounded inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rwkv6_scan import ops, ref
+    dt = getattr(torch, dtype_name)
+    rng = np.random.default_rng(b * 3 + h * 11 + t + n)
+
+    def dev(a, dtype=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+
+    r, k, v = (dev(0.5 * rng.normal(size=(b, h, t, n)), dt)
+               for _ in range(3))
+    lw = dev(-rng.uniform(0.01, 2.5, (b, h, t, n)))
+    u = dev(0.2 * rng.normal(size=(h, n)))
+    S0 = dev(0.3 * rng.normal(size=(b, h, n, n))) if with_s0 else None
+    o, S = ops.wkv6(r, k, v, lw, u, S0)
+    torch.cuda.synchronize()
+    want_o, want_S = ref.wkv6(r.float(), k.float(), v.float(), lw, u, S0)
+    err = max(float((o.float() - want_o).abs().max()),
+              float((S - want_S).abs().max()))
+    ok = bool(torch.allclose(o.float(), want_o, **WKV_TOL[dtype_name])
+              and torch.allclose(S, want_S, **WKV_TOL["float32"]))
+    rec = {"shape": [b, h, t, n], "dtype": dtype_name, "s0": with_s0,
+           "max_abs_err": err, "ok": ok}
+    if timed:
+        rec["ms"] = time_ms(lambda: ops.wkv6(r, k, v, lw, u, S0))
+        rec["plain_ms"] = time_ms(lambda: ref.wkv6(r, k, v, lw, u, S0))
+        rec["library_ms"] = None   # no single PyTorch call computes WKV6
+        item = r.element_size()
+        state = (2 if with_s0 else 1) * 4 * b * h * n * n
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            (4 * item + 4) * b * h * t * n + 4 * h * n + state,
+            b * h * t * (4 * n * n + 3 * n), dtype_name)
+    tol = WKV_TOL[dtype_name]
+    print(f"  wkv6 {(b, h, t, n)} {dtype_name} "
+          f"{'S0' if with_s0 else 'zero state'}: max_abs_err {err:.3g} "
+          f"(o atol {tol['atol']} rtol {tol['rtol']}; S fp32 limit) "
+          f"{'ok' if ok else 'FAIL'}"
+          + (_timing_text(rec, "library") if timed else ""))
+    check(ok, f"wkv6 {(b, h, t, n)} {dtype_name} disagrees with its plain "
+              f"version")
+    return rec
+
+
+def lru_case(b, s, w, with_h0, *, timed):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rglru_scan import ops, ref
+    rng = np.random.default_rng(b * 13 + s + w)
+
+    def dev(x):
+        return torch.from_numpy(x.astype(np.float32)).cuda()
+
+    a = dev(rng.uniform(0.8, 0.999, (b, s, w)))
+    x = dev(0.1 * rng.normal(size=(b, s, w)))
+    h0 = dev(rng.normal(size=(b, w))) if with_h0 else None
+    h, last = ops.lru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    want, want_last = ref.lru_scan(a, x, h0)
+    err = max(float((h - want).abs().max()),
+              float((last - want_last).abs().max()))
+    ok = bool(torch.allclose(h, want, **LRU_TOL)
+              and torch.allclose(last, want_last, **LRU_TOL))
+    rec = {"shape": [b, s, w], "h0": with_h0, "max_abs_err": err, "ok": ok}
+    if timed:
+        rec["ms"] = time_ms(lambda: ops.lru_scan(a, x, h0))
+        rec["plain_ms"] = time_ms(lambda: ref.lru_scan(a, x, h0))
+        rec["library_ms"] = None   # no single PyTorch call computes it
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            4 * (3 * b * s * w + (2 if with_h0 else 1) * b * w),
+            2 * b * s * w, "float32")
+    print(f"  lru_scan {(b, s, w)} {'h0' if with_h0 else 'zero state'}: "
+          f"max_abs_err {err:.3g} (atol 2e-4 rtol 2e-4) "
+          f"{'ok' if ok else 'FAIL'}"
+          + (_timing_text(rec, "library") if timed else ""))
+    check(ok, f"lru_scan {(b, s, w)} disagrees with its plain version")
+    return rec
+
+
+def family_requests(arch):
     from repro_torch.configs import get_config
-    from repro_torch.core.pca import fit_pca
     from repro_torch.launch.serve import build_parser, make_requests
+    args = build_parser().parse_args(serve_args(arch))
+    cfg = get_config(args.arch, tiny=args.tiny)
+    return cfg, make_requests(cfg, args.requests, args.prompt_len,
+                              args.new_tokens, args.seed)
+
+
+def main_path_shapes():
+    """The shapes each serve phase gives each kernel: B1 sees the request
+    sample after PCA, B2 olmo's prompt buckets (causal) and
+    recurrentgemma's longest prompt (window), B3 rwkv's longest prompt of a
+    length that is not a multiple of 16, B4 recurrentgemma's longest."""
+    from repro_torch.core.pca import fit_pca
     from repro_torch.serve import prompt_bucket, request_features
-    args = build_parser().parse_args(SERVE_ARGS)
-    cfg = get_config(args.arch)
-    reqs = make_requests(cfg, args.requests, args.prompt_len,
-                         args.new_tokens, args.seed)
+    cfg, reqs = family_requests("olmo-1b")
     k = fit_pca(request_features(reqs), device="cuda").projected.shape[1]
-    buckets = sorted({prompt_bucket(r.prompt_len) for r in reqs})
-    return (len(reqs), k), [(1, cfg.n_heads, cfg.n_kv_heads, s, cfg.head_dim)
-                            for s in buckets]
+    fa = [(1, cfg.n_heads, cfg.n_kv_heads, s, cfg.head_dim)
+          for s in sorted({prompt_bucket(r.prompt_len) for r in reqs})]
+    rcfg, rreqs = family_requests("rwkv6-3b")
+    t = max(r.prompt_len for r in rreqs if r.prompt_len % 16)
+    wkv = (1, rcfg.d_model // 64, t, 64)
+    gcfg, greqs = family_requests("recurrentgemma-2b")
+    s = max(r.prompt_len for r in greqs)
+    window = ((1, gcfg.n_heads, gcfg.n_kv_heads, s, gcfg.head_dim),
+              gcfg.window)
+    return (len(reqs), k), fa, wkv, window, (1, s, gcfg.lru_width)
 
 
 def phase_kernels():
-    pa_main, fa_main = main_path_shapes()
-    print(f"main-path shapes: pairwise {pa_main}, flash {fa_main} bf16 causal")
-    pa_recs = [pairwise_case(n, f, timed=False) for n, f in PA_SHAPES]
-    fa_recs = [flash_case(*shape, dt, causal, timed=False)
-               for shape in FA_TEST_SHAPES
-               for dt in ("float32", "bfloat16") for causal in (True, False)]
-    pa_main_rec = pairwise_case(*pa_main, timed=True)
-    fa_main_recs = [flash_case(*shape, "bfloat16", True, timed=True)
-                    for shape in fa_main]
+    pa_main, fa_main, wkv_main, (fw_shape, window), lru_main = \
+        main_path_shapes()
+    print(f"main-path shapes: pairwise {pa_main}, flash {fa_main} bf16 "
+          f"causal, flash {fw_shape} bf16 window {window}, wkv6 {wkv_main} "
+          f"bf16, lru_scan {lru_main} fp32")
+    for n, f in PA_SHAPES:
+        pairwise_case(n, f, timed=False)
+    for shape in FA_TEST_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            for causal in (True, False):
+                flash_case(*shape, dt, causal, timed=False)
+            flash_case(*shape, dt, True, timed=False, window=64)
+    for shape in WKV_TEST_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            wkv6_case(*shape, dt, True, timed=False)
+    wkv6_case(*wkv_main, "float32", True, timed=False)
+    for shape in LRU_TEST_SHAPES:
+        for with_h0 in (False, True):
+            lru_case(*shape, with_h0, timed=False)
+    recs = {"pairwise_distance": pairwise_case(*pa_main, timed=True)}
+    fa_recs = [flash_case(*shape, "bfloat16", True, timed=True)
+               for shape in fa_main]
+    recs["flash_attention"] = max(fa_recs, key=lambda r: r["shape"][3])
     # the fp32 instance of the same template, at the tight limit
     for shape in fa_main:
         flash_case(*shape, "float32", True, timed=False)
+    recs["flash_attention_window"] = flash_case(
+        *fw_shape, "bfloat16", True, timed=True, window=window)
+    flash_case(*fw_shape, "float32", True, timed=False, window=window)
+    flash_case(*fw_shape, "bfloat16", True, timed=False, window=16)
+    recs["wkv6"] = wkv6_case(*wkv_main, "bfloat16", True, timed=True)
+    lru_case(*lru_main, False, timed=False)
+    recs["lru_scan"] = lru_case(*lru_main, True, timed=True)
     pairwise_case(4096, 10, timed=True)
     for shape in FA_BIG_SHAPES:
         flash_case(*shape, "bfloat16", True, timed=True)
-    return pa_main_rec, max(fa_main_recs, key=lambda r: r["shape"][3])
+    return recs
 
 
 # ---------------------------------------------------------------------------
-# phases 4-6: the serve path at full width
+# phase 4: each family's serve path at full width
 # ---------------------------------------------------------------------------
 
-def phase_serve():
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.pairwise_affinity import ops as pa_ops
+def phase_serve(arch):
     from repro_torch.launch import serve as launch
-    pa_ops.pairwise_distance.launches = 0
-    fa_ops.flash_attention.launches = 0
+    counted = wrappers()
+    for fn in counted.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    res = launch.main(SERVE_ARGS + ["--env", "unstable"])
+    res = launch.main(serve_args(arch) + ["--env", "unstable"])
     wall = time.perf_counter() - t0
-    launches = {"pairwise_distance": pa_ops.pairwise_distance.launches,
-                "flash_attention": fa_ops.flash_attention.launches}
+    launches = {name: fn.launches for name, fn in counted.items()}
     s, eng = res["summary"], res["engine"]
     tm = eng.timing
+    plens = [r.prompt_len for r in res["requests"]]
     serve_rec = {
-        "tok_s": res["tok_s"], "wall_s": res["wall_s"],
+        "arch": arch, "tok_s": res["tok_s"], "wall_s": res["wall_s"],
         "steps": eng.step_no,
         "prefill_ms": 1e3 * tm["prefill_s"] / max(tm["prefill_calls"], 1),
         "prefill_calls": tm["prefill_calls"],
@@ -243,31 +413,51 @@ def phase_serve():
         "resubmissions": int(s["resubmissions"]),
         "restores": int(s["restores"]),
         "by_class": {str(c): r for c, r in res["policy"].by_class.items()},
-        "launches": launches}
-    print(f"serve (unstable): {json.dumps(serve_rec)} (phase {wall:.1f} s)")
+        "prompt_lens": plens, "launches": launches}
+    print(f"serve {arch} (unstable): {json.dumps(serve_rec)} "
+          f"(phase {wall:.1f} s)")
+    cfg = eng.cfg
+    if cfg.rwkv or cfg.rglru:
+        odd = [p for p in plens if p % 16]
+        print(f"  exact-length prefill: {len(odd)}/{len(plens)} prompt "
+              f"lengths not a multiple of 16 (e.g. {odd[:3]})")
+        check(odd, "no prompt length off the 16-token grid")
+    if cfg.rglru:
+        over = sum(p > cfg.window for p in plens)
+        print(f"  {over}/{len(plens)} prompts exceed the {cfg.window}-token "
+              f"window (longest {max(plens)})")
+        check(over, "no prompt exceeds the local-attention window")
     n = len(res["requests"])
     check(serve_rec["completed"] == n,
-          f"{serve_rec['completed']}/{n} requests completed")
-    check(serve_rec["failures"] >= 1, "the unstable run saw no failure")
-    check(serve_rec["restores"] + serve_rec["resubmissions"] >= 1,
-          "no restore or resubmission in the unstable run")
-    for name, count in launches.items():
-        check(count > 0, f"the serve path never launched {name}")
+          f"{arch}: {serve_rec['completed']}/{n} requests completed")
+    check(serve_rec["failures"] >= 1, f"{arch}: the unstable run saw no "
+                                      f"failure")
+    check(serve_rec["restores"] >= 1,
+          f"{arch}: no snapshot restore in the unstable run")
+    for name in FAMILIES[arch][1]:
+        check(launches[name] > 0, f"the {arch} serve path never launched "
+                                  f"{name}")
     return res, serve_rec, launches
 
 
+def _prefill_len(cfg, plen):
+    from repro_torch.serve import prompt_bucket
+    return plen if (cfg.rwkv or cfg.rglru) else prompt_bucket(plen)
+
+
 def profile_engine(res, steps=8):
-    """Where the time goes: torch.profiler over one prefill at the largest
-    prompt bucket and ``steps`` batched decode steps at the last cache
-    position, of the serve phase's engine (all slots live), after warm-up.  Prints host wall time, device busy time (sum of
-    kernel times; one stream, so no overlap), the device's idle share and
-    the top kernels by device time."""
+    """Where the time goes: torch.profiler over one prefill at the longest
+    prompt's prefill length (its bucket for dense, exact for the recurrent
+    families) and ``steps`` batched decode steps at the last cache position,
+    of the serve phase's engine (all slots live), after warm-up.  Prints
+    host wall time, device busy time (sum of kernel times; one stream, so
+    no overlap), the device's idle share and the top kernels by device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve import prompt_bucket
     eng = res["engine"]
     n = eng.pool.n_slots
-    seq = max(prompt_bucket(r.prompt_len) for r in res["requests"])
+    seq = max(_prefill_len(eng.cfg, r.prompt_len) for r in res["requests"])
     prompt = torch.ones((1, seq), dtype=torch.int32, device="cuda")
     last = torch.tensor([seq - 1], device="cuda")
     toks = torch.ones((n, 1), dtype=torch.int32, device="cuda")
@@ -303,64 +493,71 @@ def profile_engine(res, steps=8):
         out[name] = {"wall_ms": wall, "device_busy_ms": busy,
                      "idle_share": max(0.0, 1 - busy / wall),
                      "kernels_per_call": launches}
-        print(f"profile {name}: host wall {wall:.3f} ms/call, device busy "
-              f"{busy:.3f} ms/call, idle share {out[name]['idle_share']:.3f}"
-              f", {launches:.0f} kernels/call; top by device time:")
+        print(f"profile {eng.cfg.name} {name} (length {seq}): host wall "
+              f"{wall:.3f} ms/call, device busy {busy:.3f} ms/call, idle "
+              f"share {out[name]['idle_share']:.3f}, {launches:.0f} "
+              f"kernels/call; top by device time:")
         for e in top:
             print(f"    {e.self_device_time_total / 1e3 / reps:9.4f} ms  "
                   f"x{e.count / reps:5.0f}  {e.key[:90]}")
     return out
 
 
-def phase_fault_transparency(res):
+def phase_fault_transparency(arch, res):
     import torch
     from repro_torch.launch import serve as launch
-    clean = launch.main(SERVE_ARGS + ["--env", "none"])
+    clean = launch.main(serve_args(arch) + ["--env", "none"])
     check(clean["summary"]["failures"] == 0, "the --env none run failed")
     diff = [r.rid for r in res["requests"]
             if res["engine"].output(r.rid) != clean["engine"].output(r.rid)]
-    print(f"fault transparency: {len(res['requests']) - len(diff)}/"
+    print(f"fault transparency {arch}: {len(res['requests']) - len(diff)}/"
           f"{len(res['requests'])} requests token-identical to the "
           f"failure-free run" + (f" (DIFFER: {diff})" if diff else ""))
-    check(not diff, f"failures changed the tokens of requests {diff}")
+    check(not diff, f"{arch}: failures changed the tokens of requests "
+                    f"{diff}")
     del clean
     torch.cuda.empty_cache()
 
 
 def phase_reference(res):
     """Engine tokens against the batch=1 reference.  The two paths differ
-    in prompt padding and decode batch width, so the matrix products may
-    round differently; a divergence is accepted only where the reference's
-    logit gap between the two tokens is below BOUND = 4 * delta, delta the
-    largest logit difference measured between the two paths' prefill
-    (bucket-padded vs exact) and first decode step (batch 4 vs batch 1)
-    (2 for the two logits, 2 for growth over the decode steps)."""
+    in prompt padding (dense only: the recurrent families prefill at the
+    exact length on both) and decode batch width, so the matrix products
+    may round differently; a divergence is accepted only where the
+    reference's logit gap between the two tokens is below BOUND = 4 * delta,
+    delta the largest logit difference measured between the two paths'
+    prefill (engine length vs exact) and first decode step (batch 4 vs
+    batch 1) (2 for the two logits, 2 for growth over the decode steps)."""
     import torch
     from repro_torch.distributed.steps import (make_prefill_step,
                                                make_serve_step)
-    from repro_torch.serve import greedy_decode, prompt_bucket
+    from repro_torch.serve import greedy_decode
+    from repro_torch.serve.snapshot import cache_batch_axes
     eng, cfg = res["engine"], res["engine"].cfg
     params, cache_len = eng.params, res["cache_len"]
+    axes = cache_batch_axes(cfg, cache_len)
     pre = make_prefill_step(cfg, cache_len)
     serve = make_serve_step(cfg)
+    n = eng.pool.n_slots
     delta = 0.0
     for r in res["requests"]:
         p = r.prompt_len
-        toks = torch.zeros((1, prompt_bucket(p)), dtype=torch.int32)
+        toks = torch.zeros((1, _prefill_len(cfg, p)), dtype=torch.int32)
         toks[0, :p] = torch.as_tensor(r.prompt)
         lp, _ = pre(params, {"tokens": toks.cuda()},
-                        torch.tensor([p - 1], device="cuda"))
+                    torch.tensor([p - 1], device="cuda"))
         le, cache = pre(params, {"tokens": toks[:, :p].cuda()})
         delta = max(delta, float((lp - le).abs().max()))
         tok = torch.argmax(le, -1).to(torch.int32)[:, None]
-        wide = {k: v.expand(-1, eng.pool.n_slots, -1, -1, -1).clone()
+        wide = {k: v.repeat_interleave(n, dim=axes[k])
                 for k, v in cache.items()}
         _, l1, _ = serve(params, cache, tok, p)
-        _, l4, _ = serve(params, wide, tok.expand(eng.pool.n_slots, 1), p)
+        _, l4, _ = serve(params, wide, tok.expand(n, 1), p)
         delta = max(delta, float((l4 - l1).abs().max()))
+        del cache, wide
     bound = 4 * delta
-    print(f"reference parity: measured path logit difference delta "
-          f"{delta:.4g}, divergence bound 4*delta = {bound:.4g}")
+    print(f"reference parity {cfg.name}: measured path logit difference "
+          f"delta {delta:.4g}, divergence bound 4*delta = {bound:.4g}")
     exact, worst = 0, 0.0
     for r in res["requests"]:
         ref_toks, logits = greedy_decode(params, cfg, r, cache_len,
@@ -379,9 +576,58 @@ def phase_reference(res):
               f"{gap:.4g} {'<=' if gap <= bound else '>'} bound")
         check(gap <= bound, f"rid {r.rid}: divergence at step {t} with "
                             f"logit gap {gap:.4g} > bound {bound:.4g}")
-    print(f"reference parity: {exact}/{len(res['requests'])} token-exact, "
-          f"largest divergence gap {worst:.4g} (bound {bound:.4g})")
+    print(f"reference parity {cfg.name}: {exact}/{len(res['requests'])} "
+          f"token-exact, largest divergence gap {worst:.4g} (bound "
+          f"{bound:.4g})")
     return {"exact": exact, "delta": delta, "bound": bound, "worst_gap": worst}
+
+
+def phase_family(arch):
+    """Serve, profile, fault transparency and reference parity of one
+    family; frees its engines before returning the launch counts."""
+    import torch
+    res, _, launches = phase_serve(arch)
+    profile_engine(res)
+    phase_fault_transparency(arch, res)
+    phase_reference(res)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+KERNEL_SOURCES = {
+    "pairwise_distance": ("src/repro_torch/kernels/csrc/pairwise_distance.cu",
+                          "src/repro/kernels/pairwise_affinity/kernel.py:22"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:24"),
+    "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6_scan/kernel.py:27"),
+    "lru_scan": ("src/repro_torch/kernels/csrc/lru_scan.cu",
+                 "src/repro/kernels/rglru_scan/kernel.py:20"),
+}
+TIMED_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms")
+
+
+def kernel_records(recs, by_path):
+    """One JSON record per kernel: its main-path timing, its launches summed
+    over the serve paths and per path.  flash_attention's record is olmo's
+    causal prefill; its windowed (recurrentgemma) case rides along."""
+    out = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        paths = {arch: counts[name] for arch, counts in by_path.items()
+                 if counts[name]}
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": sum(paths.values()),
+               "launches_by_path": paths,
+               **{k: recs[name][k] for k in TIMED_KEYS}}
+        if name == "flash_attention":
+            rec["window_case"] = {"window": recs[name + "_window"]["window"],
+                                  **{k: recs[name + "_window"][k]
+                                     for k in TIMED_KEYS}}
+        out.append(rec)
+    return out
 
 
 def main() -> int:
@@ -421,32 +667,22 @@ def main() -> int:
 
     # 3. kernels
     print("kernels against their plain versions on the card:")
-    pa_rec, fa_rec = phase_kernels()
-    # 4-6. serve, fault transparency, reference parity
-    res, _, launches = phase_serve()
-    profile_engine(res)
-    phase_fault_transparency(res)
-    phase_reference(res)
-    kernels = [
-        {"name": "pairwise_distance", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/pairwise_distance.cu",
-         "replaces": "src/repro/kernels/pairwise_affinity/kernel.py:22",
-         "launches": launches["pairwise_distance"], "shape": pa_rec["shape"],
-         **{k: pa_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
-         "launches": launches["flash_attention"], "shape": fa_rec["shape"],
-         **{k: fa_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}},
-    ]
-    print("kernels: " + "; ".join(
-        f"{k['name']} launches={k['launches']} ms={k['ms']:.4f} "
-        f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
-        f"bound_ms={k['bound_ms']:.5f} ({k['bound_by']}) "
-        f"max_abs_err={k['max_abs_err']:.3g} at {k['shape']}"
-        for k in kernels))
+    recs = phase_kernels()
+    print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
+    # 4. each family: serve, profile, fault transparency, reference parity
+    by_path = {}
+    for arch in FAMILIES:
+        by_path[arch] = phase_family(arch)
+        print(f"{arch} done at {time.perf_counter() - t_start:.1f} s")
+    kernels = kernel_records(recs, by_path)
+    for k in kernels:
+        lib = (f"{k['library_ms']:.4f}" if k["library_ms"] is not None
+               else "none")
+        print(f"kernel {k['name']}: launches={k['launches']} "
+              f"{k['launches_by_path']} ms={k['ms']:.4f} "
+              f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+              f"bound_ms={k['bound_ms']:.5f} ({k['bound_by']}) "
+              f"max_abs_err={k['max_abs_err']:.3g} at {k['shape']}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ numpy and never ``jax`` or any ``repro`` module: framework-neutral code is
 copied here.  The JAX package stays the reference the tests hold this one
 against.
 
-Ported so far: the olmo-1b continuous-batching serve path with CRCH request
-replication (``repro_torch.launch.serve``), on two hand-written CUDA kernels
-(``kernels/csrc``): pairwise distances for the triplet clustering and
-causal GQA flash attention for prefill.
+Ported so far: the continuous-batching serve path with CRCH request
+replication (``repro_torch.launch.serve``) for olmo-1b, rwkv6-3b and
+recurrentgemma-2b, on four hand-written CUDA kernels (``kernels/csrc``):
+pairwise distances for the triplet clustering, GQA flash attention (causal
+or sliding-window) for prefill, the WKV6 recurrence and the RG-LRU scan.
 """

@@ -9,16 +9,17 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("olmo_1b",)
+ARCHS = ("olmo_1b", "rwkv6_3b", "recurrentgemma_2b")
 
 # CLI ids (--arch <id>) -> module names
-ALIASES = {"olmo-1b": "olmo_1b"}
+ALIASES = {"olmo-1b": "olmo_1b", "rwkv6-3b": "rwkv6_3b",
+           "recurrentgemma-2b": "recurrentgemma_2b"}
 
 # families of the JAX package that the port does not run yet
 NOT_PORTED = (
     "deepseek_coder_33b", "command_r_plus_104b", "granite_20b",
-    "phi35_moe_42b", "granite_moe_1b", "recurrentgemma_2b",
-    "llava_next_mistral_7b", "rwkv6_3b", "whisper_small",
+    "phi35_moe_42b", "granite_moe_1b", "llava_next_mistral_7b",
+    "whisper_small",
 )
 
 

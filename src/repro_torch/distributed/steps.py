@@ -21,19 +21,16 @@ def make_serve_step(cfg: ModelConfig, *, cache_axes=None):
     Python int (static batch) or a (B,) tensor (continuous batching).
 
     A ``live`` (B,) bool argument commits cache writes for live rows only.
-    The commit is made **in place**: the decode writes the new K/V entry of
-    each live row into the cache and never touches an idle row, so a freed
-    slot keeps its previous row bit-identical (JAX computes every row and
-    selects with ``where``; the result is the same).  ``cache_axes`` (the
-    per-leaf batch axes from ``repro_torch.serve.snapshot.cache_batch_axes``)
-    is checked against the axis that commit writes."""
-    if cache_axes is not None:
-        other = {k: a for k, a in cache_axes.items()
-                 if a != lm.CACHE_BATCH_AXIS}
-        if other:
-            raise ValueError(f"the in-place commit writes batch axis "
-                             f"{lm.CACHE_BATCH_AXIS}; cache leaves {other} "
-                             f"differ")
+    The commit is made **in place**: the decode writes the new K/V entry or
+    recurrent state of each live row into the cache along that leaf's batch
+    axis and never touches an idle row, so a freed slot keeps its previous
+    row bit-identical (JAX computes every row and selects with ``where``;
+    the result is the same).  ``cache_axes`` (the per-leaf batch axes from
+    ``repro_torch.serve.snapshot.cache_batch_axes``) is checked against the
+    axes that commit writes (``lm.commit_axes``)."""
+    if cache_axes is not None and dict(cache_axes) != lm.commit_axes(cfg):
+        raise ValueError(f"the in-place commit writes batch axes "
+                         f"{lm.commit_axes(cfg)}; the cache has {cache_axes}")
 
     def serve_step(params, cache, tokens, pos, live=None):
         logits, cache = lm.decode_step(params, cfg, cache, tokens, pos,

@@ -1,4 +1,5 @@
-// Flash attention forward (GQA, causal or full) on Hopper.
+// Flash attention forward (GQA, causal or full, optionally a sliding
+// window) on Hopper.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py: _flash_kernel
@@ -6,7 +7,10 @@
 // Same function: online softmax over KV tiles with a running max m, a
 // running denominator l and an fp32 output accumulator; causal mask
 // q_pos >= k_pos with the masked score -1e30; output acc / max(l, 1e-30) in
-// q's dtype; query head h reads KV head h / (H / KV).
+// q's dtype; query head h reads KV head h / (H / KV).  The Pallas kernel has
+// no window; the port adds one for RecurrentGemma's local attention
+// (src/repro/models/layers.py, mode="local"): with window > 0 a causal
+// query also needs q_pos - k_pos < window.
 //
 // What bounds it on the H100: causal attention does ~S/4 flop per byte of
 // bf16 q/k/v/o, so at the serve path's prefill buckets (S = 256..512,
@@ -23,7 +27,11 @@
 //   * the query tile is staged once; K/V tiles (Bk = 64, 32 at D = 256 to
 //     fit shared memory) are staged per step, converted to fp32 on load,
 //     rows padded so that the column reads hit distinct banks;
-//   * under `causal` the KV loop stops at the diagonal tile;
+//   * under `causal` the KV loop stops at the diagonal tile, and under a
+//     window it starts at the first tile that holds a key at or right of
+//     q_tile_start - window + 1: tiles wholly outside the band are skipped;
+//   * a masked score's probability is exactly 0, so a row whose first
+//     visited tile lies wholly left of its window adds nothing;
 //   * both ragged edges (Sq, Sk) are masked in the kernel: the wrapper pads
 //     nothing, and arbitrary strides are taken, so (B, S, H, D) tensors
 //     from the projections are read in place;
@@ -89,7 +97,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int group,
-                 int Sq, int Sk, int causal, float scale, Strides qst,
+                 int Sq, int Sk, int causal, int window, float scale,
+                 Strides qst,
                  Strides kst, Strides vst, Strides ost) {
   using C = Cfg<D>;
   constexpr int Bk = C::kBk;
@@ -132,8 +141,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q_last = min(q0 + kBq, Sq) - 1;
     n_tiles = min(n_tiles, q_last / Bk + 1);
   }
+  // the first key any row of this block may see is q0 - window + 1
+  const int t_first = window > 0 ? max(q0 - window + 1, 0) / Bk : 0;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * Bk;
     __syncthreads();  // the previous tile's PV reads are done
     for (int idx = tid; idx < Bk * D; idx += kThreads) {
@@ -169,7 +180,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < C::kCols; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool valid = kj < Sk && (!causal || qi >= kj);
+        const bool valid = kj < Sk && (!causal || qi >= kj) &&
+                           (window <= 0 || qi - kj < window);
         const float x = valid ? s[i][j] * scale : kNegInf;
         s[i][j] = x;
         rmax = fmaxf(rmax, x);
@@ -178,7 +190,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rsum = 0.f;
 #pragma unroll
       for (int j = 0; j < C::kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = s[i][j] == kNegInf ? 0.f : expf(s[i][j] - m_new);
         s[i][j] = p;
         rsum += p;
       }
@@ -220,8 +232,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Sk, int causal, float scale, Strides qst,
-           Strides kst, Strides vst, Strides ost, cudaStream_t stream) {
+           int KV, int Sq, int Sk, int causal, int window, float scale,
+           Strides qst, Strides kst, Strides vst, Strides ost,
+           cudaStream_t stream) {
   const size_t smem = Cfg<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -230,25 +243,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((Sq + kBq - 1) / kBq, B * H);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, H, H / KV, Sq, Sk,
-      causal, scale, qst, kst, vst, ost);
+      causal, window, scale, qst, kst, vst, ost);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int H, int KV, int Sq, int Sk, int causal, float scale,
-               Strides qst, Strides kst, Strides vst, Strides ost,
+               int B, int H, int KV, int Sq, int Sk, int causal, int window,
+               float scale, Strides qst, Strides kst, Strides vst, Strides ost,
                cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, scale, qst,
-                           kst, vst, ost, stream);
+      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+                           scale, qst, kst, vst, ost, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, scale, qst,
-                            kst, vst, ost, stream);
+      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+                            scale, qst, kst, vst, ost, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, scale, qst,
-                            kst, vst, ost, stream);
+      return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+                            scale, qst, kst, vst, ost, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -258,22 +271,24 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 
 // q: (B, H, Sq, D), k/v: (B, KV, Sk, D), o: (B, H, Sq, D), each addressed by
 // its (batch, head, seq) element strides with a contiguous head dim; all of
-// one dtype (is_bf16 ? bf16 : fp32).  D must be 64, 128 or 256.  Launches on
+// one dtype (is_bf16 ? bf16 : fp32).  D must be 64, 128 or 256.  window > 0
+// (causal only) keeps the keys with q_pos - k_pos < window.  Launches on
 // `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
-    int H, int KV, int Sq, int Sk, int D, int causal, float scale,
+    int H, int KV, int Sq, int Sk, int D, int causal, int window, float scale,
     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
     int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
     int64_t o_sh, int64_t o_ss, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0)
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const Strides qst{q_sb, q_sh, q_ss}, kst{k_sb, k_sh, k_ss},
       vst{v_sb, v_sh, v_ss}, ost{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Sk, causal,
-                                     scale, qst, kst, vst, ost, s);
-  return dispatch_d<float>(D, q, k, v, o, B, H, KV, Sq, Sk, causal, scale, qst,
-                           kst, vst, ost, s);
+                                     window, scale, qst, kst, vst, ost, s);
+  return dispatch_d<float>(D, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+                           scale, qst, kst, vst, ost, s);
 }

@@ -1,2 +1,2 @@
-"""Flash attention (forward, GQA, causal or full)."""
+"""Flash attention (forward, GQA, causal, sliding-window or full)."""
 from . import ops, ref  # noqa: F401

@@ -29,7 +29,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _fn():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float] + [ctypes.c_int64] * 12
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -52,12 +52,17 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, KV, Sk, D) -> (B, H, Sq, D) in q's
-    dtype.  Both ragged sequence edges are masked by the kernel."""
+    dtype.  Both ragged sequence edges are masked by the kernel.
+    ``window > 0`` (causal only) keeps the keys with ``q - k < window``."""
     _check(q, k, v)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window} needs causal attention and must "
+                         f"be >= 0")
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal)
+        return ref.attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
     b, h, sq, d = q.shape
@@ -76,7 +81,7 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
         err = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, kv, sq, sk, d,
-            int(causal), 1.0 / math.sqrt(d),
+            int(causal), int(window), 1.0 / math.sqrt(d),
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

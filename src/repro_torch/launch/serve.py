@@ -10,6 +10,8 @@ token-for-token against the batch=1 reference.  Runs on the GPU unless
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --tiny --device cpu --requests 6 --policy crch --env normal
+
+``--arch`` takes olmo-1b, rwkv6-3b or recurrentgemma-2b.
 """
 from __future__ import annotations
 
@@ -63,7 +65,8 @@ def add_chaos_args(ap: argparse.ArgumentParser) -> None:
 
 def make_requests(cfg, n: int, prompt_len: int, new_tokens: int,
                   seed: int) -> list[Request]:
-    """The launcher's seeded request mix (the JAX launcher's, dense only)."""
+    """The launcher's seeded request mix: the JAX launcher's for the
+    text-only families (no encoder frames or image embeddings)."""
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
@@ -84,6 +87,9 @@ def continuous_main(cfg, args) -> dict:
                          args.new_tokens, args.seed)
     cache_len = max(prompt_bucket(r.prompt_len) + r.max_new_tokens
                     for r in reqs)
+    if cfg.rglru:
+        # the engine refuses a cache shorter than the rolling window
+        cache_len = max(cache_len, cfg.window)
     if args.policy == "crch":
         policy = crch_policy(reqs, device=device)
     elif args.policy == "all":

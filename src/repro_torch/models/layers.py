@@ -1,12 +1,13 @@
-"""Model primitives of the dense family: norm, rotary, GQA attention, MLP.
+"""Model primitives: norms, rotary, GQA attention, MLP.
 
-Counterpart of ``repro.models.layers`` for the olmo-1b path.  Parameters are
-plain dicts of tensors; compute runs in the input's dtype with fp32 softmax
-and normalisation.  Layouts at the public functions are the JAX package's:
+Counterpart of ``repro.models.layers`` for the families the port serves
+(olmo-1b, rwkv6-3b, recurrentgemma-2b).  Parameters are plain dicts of
+tensors; compute runs in the input's dtype with fp32 softmax and
+normalisation.  Layouts at the public functions are the JAX package's:
 activations ``(B, S, D)``, q/k/v ``(B, S, H, D)``, caches
-``(B, S_cache, KV, D)``.  Causal prefill attention runs on the flash
-attention kernel; one-token decode attention is plain torch ops (the JAX
-package has no kernel there either).
+``(B, S_cache, KV, D)``.  Causal and local (sliding-window) prefill
+attention run on the flash attention kernel; one-token decode attention is
+plain torch ops (the JAX package has no kernel there either).
 """
 from __future__ import annotations
 
@@ -40,18 +41,33 @@ def dense_init(shape, generator: torch.Generator, in_axis: int = 0):
 
 
 def init_norm(cfg: ModelConfig, d: int):
+    if cfg.norm_type in ("rmsnorm", "layernorm"):
+        p = {"scale": torch.ones((d,), dtype=torch.float32)}
+        if cfg.norm_type == "layernorm" and cfg.use_bias:
+            p["bias"] = torch.zeros((d,), dtype=torch.float32)
+        return p
     if cfg.norm_type == "nonparametric_ln":   # OLMo
         return {}
-    raise ValueError(f"norm {cfg.norm_type!r} is not ported yet")
+    raise ValueError(f"unknown norm {cfg.norm_type!r}")
 
 
 def apply_norm(cfg: ModelConfig, params, x, eps: float = 1e-6):
-    if cfg.norm_type != "nonparametric_ln":
-        raise ValueError(f"norm {cfg.norm_type!r} is not ported yet")
+    """The scale (and bias) multiply in fp32, as in JAX: they are leaves
+    that ``lm.cast_params`` keeps in their stored dtype."""
     xf = x.to(torch.float32)
+    if cfg.norm_type == "rmsnorm":
+        nrm = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (nrm * params["scale"]).to(x.dtype)
+    if cfg.norm_type not in ("layernorm", "nonparametric_ln"):
+        raise ValueError(f"unknown norm {cfg.norm_type!r}")
     mean = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, correction=0)   # population, as jnp.var
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    nrm = (xf - mean) * torch.rsqrt(var + eps)
+    if cfg.norm_type == "layernorm":
+        nrm = nrm * params["scale"]
+        if "bias" in params:
+            nrm = nrm + params["bias"]
+    return nrm.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -98,22 +114,27 @@ def _project_qkv(p, x, cfg: ModelConfig, n_heads, n_kv, dtype):
 
 
 def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
-                      return_kv: bool = False):
-    """Full-sequence attention; ``mode="causal"`` only in this port.
+                      window: int = 0, return_kv: bool = False):
+    """Full-sequence attention: ``mode="causal"``, or ``"local"`` (causal
+    within ``window`` keys: ``q - k < window``).  Other modes of the JAX
+    function (bidir, cross) wait for the families that use them.
 
     The flash kernel takes the ``(B, S, H, D)`` projections as strided
     ``(B, H, S, D)`` views and returns a view whose transpose is the
     contiguous ``(B, S, H, D)`` output, so no layout copy is made.
     """
-    if mode != "causal":
+    if mode not in ("causal", "local"):
         raise ValueError(f"attention mode {mode!r} is not ported yet")
+    if mode == "local" and window <= 0:
+        raise ValueError("local attention needs window > 0")
     dtype = x.dtype
     h, kv = cfg.n_heads, cfg.n_kv_heads
     q, k, v = _project_qkv(p, x, cfg, h, kv, dtype)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True)
+                                 v.transpose(1, 2), causal=True,
+                                 window=window if mode == "local" else 0)
     out = out.transpose(1, 2).reshape(*x.shape[:2], h * cfg.head_dim)
     out = out @ p["wo"].to(dtype)
     if return_kv:
@@ -121,10 +142,14 @@ def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
     return out
 
 
-def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, rows=None):
-    """One-token decode over a dense cache ``{"k","v"}: (B, S_cache, KV,
-    D)``.  ``pos`` is the absolute position: a Python int shared by the
-    batch, or a per-row ``(B,)`` int tensor (continuous batching).
+def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, window: int = 0,
+                     rows=None):
+    """One-token decode over a cache ``{"k","v"}: (B, S_cache, KV, D)``.
+    ``pos`` is the absolute position: a Python int shared by the batch, or
+    a per-row ``(B,)`` int tensor (continuous batching).  With
+    ``window > 0`` the cache is a rolling ring of ``window`` slots: the new
+    entry goes to slot ``pos % window``, and a slot is valid once written
+    (every slot once ``pos >= window``).
 
     Unlike the JAX function, the new K/V entry is written into ``cache``
     **in place**, and only for the batch rows in ``rows`` (a 1-d index
@@ -145,11 +170,14 @@ def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, rows=None):
     q = rope(q, posb, cfg.rope_theta)
     k_new = rope(k_new, posb, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
+    slot = posb % window if window else posb
     r = torch.arange(b, device=x.device) if rows is None else rows
-    ck[r, posb[r, 0]] = k_new[r, 0].to(ck.dtype)
-    cv[r, posb[r, 0]] = v_new[r, 0].to(cv.dtype)
-    s_cache = ck.shape[1]
-    valid = (torch.arange(s_cache, device=x.device)[None] <= posb)  # (B, S)
+    ck[r, slot[r, 0]] = k_new[r, 0].to(ck.dtype)
+    cv[r, slot[r, 0]] = v_new[r, 0].to(cv.dtype)
+    idx = torch.arange(ck.shape[1], device=x.device)[None]
+    valid = idx <= slot                                          # (B, S)
+    if window:
+        valid = (valid | (posb >= window)) & (idx < window)
     g = h // kv
     qg = q.reshape(b, kv, g, hd).to(torch.float32)
     # bf16 operands, fp32 products and sums: preferred_element_type=f32

@@ -1,6 +1,7 @@
-"""Model assembly for the dense decoder family (olmo-1b), serving half.
+"""Model assembly of the families the port serves, serving half.
 
-Counterpart of ``repro.models.lm`` (dense branch):
+Counterpart of ``repro.models.lm`` for the dense (olmo-1b), RWKV-6
+(rwkv6-3b) and RG-LRU hybrid (recurrentgemma-2b) branches:
 
   init_params(cfg, generator, device)            -> params dict
   params_from_jax(np_tree, cfg, device)          -> params dict
@@ -9,18 +10,23 @@ Counterpart of ``repro.models.lm`` (dense branch):
   prefill(params, cfg, batch, cache_len)         -> (last_logits, cache)
   decode_step(params, cfg, cache, tokens, pos)   -> (logits, cache)
 
-The params dict has the JAX pytree's structure and leaf shapes: the layer
-leaves are stacked along a leading ``L`` axis and a Python loop walks the
-layers.  Weights are stored in ``param_dtype`` and cast to the compute dtype
-at every use, as in JAX; :func:`cast_params` makes the cast once, after
-which every ``.to(dtype)`` is a no-op.  Training (``forward_train``) waits
-for a later slice.
+The params dict has the JAX pytree's structure and leaf shapes: layer
+leaves are stacked along leading axes (``layers``: ``(L, ...)``; the hybrid's
+``super`` block: ``(n_super, ...)`` with its ``rec`` stack
+``(n_super, rec_per_attn, ...)``; ``tail``: ``(n_tail, ...)``) and Python
+loops walk them.  Weights are stored in ``param_dtype`` and cast to the
+compute dtype at every use, as in JAX; :func:`cast_params` makes that cast
+once, after which every ``.to(dtype)`` is a no-op.  The leaves JAX reads in
+fp32 (:data:`FP32_READ`) keep their stored dtype.  Training
+(``forward_train``) waits for a later slice.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import rglru as rg
+from . import rwkv6 as rw
 from .config import ModelConfig
 from .layers import (apply_norm, attention_decode, attention_forward,
                      dense_init, init_attention, init_mlp, init_norm,
@@ -28,19 +34,50 @@ from .layers import (apply_norm, attention_decode, attention_forward,
 
 __all__ = ["init_params", "params_from_jax", "cast_params", "init_cache",
            "prefill", "decode_step", "output_weights", "check_family",
-           "CACHE_BATCH_AXIS"]
+           "hybrid_layout", "commit_axes", "CACHE_BATCH_AXIS", "FP32_READ"]
 
 #: batch axis of every leaf of the dense cache (L, B, S, KV, D)
 CACHE_BATCH_AXIS = 1
 
+#: leaves the JAX model reads in fp32 (no ``.astype(dtype)`` at use): the
+#: RWKV decay base, bonus and group-norm scale, the RG-LRU gate biases and
+#: Lambda, and the norms' scale and bias
+FP32_READ = frozenset({"ww", "u", "ln_scale", "ba", "bx", "lam", "scale",
+                       "bias"})
+
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` for a family the port does not run yet."""
-    if (cfg.family != "dense" or cfg.rwkv or cfg.rglru or cfg.is_encdec
-            or cfg.is_moe or cfg.n_image_tokens or cfg.use_bias
-            or cfg.block_type != "llama"):
-        raise ValueError(f"{cfg.name}: only the dense llama-block family is "
-                         f"ported so far")
+    if (cfg.is_encdec or cfg.is_moe or cfg.n_image_tokens or cfg.use_bias
+            or cfg.block_type != "llama" or cfg.mlp_type != "swiglu"
+            or not (cfg.rwkv or cfg.rglru or cfg.family == "dense")):
+        raise ValueError(f"{cfg.name}: the port runs the dense llama-block, "
+                         f"RWKV-6 and RG-LRU hybrid families so far")
+    if cfg.rwkv:
+        rw.n_heads(cfg)          # raises unless d_model % 64 == 0
+    if cfg.rglru and cfg.window <= 0:
+        raise ValueError(f"{cfg.name}: the RG-LRU hybrid needs a local-"
+                         f"attention window > 0")
+
+
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(#super blocks of [rec]*k+[attn], #tail rec layers)."""
+    span = cfg.rec_per_attn + 1
+    return cfg.n_layers // span, cfg.n_layers % span
+
+
+def commit_axes(cfg: ModelConfig) -> dict[str, int]:
+    """Batch axis of each cache leaf, as :func:`decode_step` writes it in
+    place (the dense and RWKV leaves on axis 1; the hybrid's per-block
+    ``h``/``conv`` stacks ``(n_super, rec_per_attn, B, ...)`` on axis 2)."""
+    if cfg.rwkv:
+        return {"S": 1, "x_tm": 1, "x_cm": 1}
+    if cfg.rglru:
+        axes = {"h": 2, "conv": 2, "k": 1, "v": 1}
+        if hybrid_layout(cfg)[1]:
+            axes.update(tail_h=1, tail_conv=1)
+        return axes
+    return {"k": CACHE_BATCH_AXIS, "v": CACHE_BATCH_AXIS}
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -63,6 +100,27 @@ def _stack(layers: list):
     return torch.stack(layers)
 
 
+def _init_dense_layer(generator, cfg: ModelConfig):
+    d = cfg.d_model
+    return {"ln1": init_norm(cfg, d), "attn": init_attention(generator, cfg),
+            "ln2": init_norm(cfg, d), "mlp": init_mlp(generator, cfg)}
+
+
+def _init_rec_layer(generator, cfg: ModelConfig):
+    d = cfg.d_model
+    return {"ln1": init_norm(cfg, d),
+            "rec": rg.init_rglru_block(generator, cfg),
+            "ln2": init_norm(cfg, d), "mlp": init_mlp(generator, cfg)}
+
+
+def _init_rwkv_layer(generator, cfg: ModelConfig):
+    d = cfg.d_model
+    return {"ln1": init_norm(cfg, d),
+            "tm": rw.init_time_mix(generator, cfg),
+            "ln2": init_norm(cfg, d),
+            "cm": rw.init_channel_mix(generator, cfg)}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Seeded init with the JAX package's structure, shapes and scales.
 
@@ -76,19 +134,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
               "final_norm": init_norm(cfg, d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((d, cfg.vocab_size), generator)
-    params["layers"] = _stack([
-        {"ln1": init_norm(cfg, d), "attn": init_attention(generator, cfg),
-         "ln2": init_norm(cfg, d), "mlp": init_mlp(generator, cfg)}
-        for _ in range(cfg.n_layers)])
+    if cfg.rwkv:
+        params["ln_in"] = init_norm(cfg, d)
+        params["layers"] = _stack([_init_rwkv_layer(generator, cfg)
+                                   for _ in range(cfg.n_layers)])
+    elif cfg.rglru:
+        n_super, n_tail = hybrid_layout(cfg)
+        params["super"] = _stack([
+            {"rec": _stack([_init_rec_layer(generator, cfg)
+                            for _ in range(cfg.rec_per_attn)]),
+             "attn": _init_dense_layer(generator, cfg)}
+            for _ in range(n_super)])
+        if n_tail:
+            params["tail"] = _stack([_init_rec_layer(generator, cfg)
+                                     for _ in range(n_tail)])
+    else:
+        params["layers"] = _stack([_init_dense_layer(generator, cfg)
+                                   for _ in range(cfg.n_layers)])
     pdt = getattr(torch, cfg.param_dtype)
     device = device if device is not None else generator.device
     return _tree_map(lambda t: t.to(device=device, dtype=pdt), params)
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
-    """Map a JAX params pytree, converted to numpy (stacked ``layers``
-    leaves of shape ``(L, ...)``), onto the port's params.  bf16 leaves go
-    through float32, since torch cannot read numpy's bf16."""
+    """Map a JAX params pytree, converted to numpy (stacked layer leaves),
+    onto the port's params.  bf16 leaves go through float32, since torch
+    cannot read numpy's bf16."""
     check_family(cfg)
 
     def conv(a):
@@ -103,9 +174,17 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
 
 def cast_params(params, cfg: ModelConfig):
     """The params in the compute dtype: the once-only form of the JAX
-    package's per-use ``.astype(dtype)`` (identical values)."""
+    package's per-use ``.astype(dtype)`` (identical values).  The leaves of
+    :data:`FP32_READ`, which JAX reads without that cast, keep their stored
+    dtype."""
     dtype = compute_dtype(cfg)
-    return _tree_map(lambda t: t.to(dtype), params)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict)
+                else v if k in FP32_READ else v.to(dtype)
+                for k, v in tree.items()}
+
+    return walk(params)
 
 
 def _layer(layers, i: int):
@@ -129,12 +208,104 @@ def _embed(params, tokens, dtype):
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    """Zero cache covering positions [0, cache_len): ``{"k", "v"}`` each
-    ``(L, B, cache_len, KV, D)``.  ``device="meta"`` allocates nothing."""
+    """Zero cache covering positions [0, cache_len), with the JAX layouts:
+
+    * dense: ``{"k", "v"}`` each ``(L, B, cache_len, KV, D)``;
+    * RWKV: ``S`` fp32 ``(L, B, H, 64, 64)``, ``x_tm``/``x_cm`` ``(L, B, D)``;
+    * hybrid: ``h`` fp32 ``(n_super, rec_per_attn, B, W)``, ``conv``
+      ``(n_super, rec_per_attn, B, conv_width - 1, W)``, ``k``/``v``
+      ``(n_super, B, min(window, cache_len), KV, D)`` (a rolling ring), and
+      ``tail_h``/``tail_conv`` ``(n_tail, B, ...)`` when layers are left over.
+
+    ``device="meta"`` allocates nothing."""
     check_family(cfg)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    f32 = torch.float32
+    if cfg.rwkv:
+        L, h = cfg.n_layers, rw.n_heads(cfg)
+        return {"S": zeros((L, batch, h, rw.HEAD_N, rw.HEAD_N), f32),
+                "x_tm": zeros((L, batch, cfg.d_model)),
+                "x_cm": zeros((L, batch, cfg.d_model))}
+    kv = (cfg.n_kv_heads, cfg.head_dim)
+    if cfg.rglru:
+        n_super, n_tail = hybrid_layout(cfg)
+        k, w = cfg.rec_per_attn, cfg.lru_width
+        ring = min(cfg.window, cache_len)
+        conv = (cfg.conv_width - 1, w)
+        cache = {"h": zeros((n_super, k, batch, w), f32),
+                 "conv": zeros((n_super, k, batch, *conv)),
+                 "k": zeros((n_super, batch, ring, *kv)),
+                 "v": zeros((n_super, batch, ring, *kv))}
+        if n_tail:
+            cache["tail_h"] = zeros((n_tail, batch, w), f32)
+            cache["tail_conv"] = zeros((n_tail, batch, *conv))
+        return cache
+    shape = (cfg.n_layers, batch, cache_len, *kv)
+    return {"k": zeros(shape), "v": zeros(shape)}
+
+
+def _commit(cache, cfg: ModelConfig, name: str, index: tuple, new, rows):
+    """Write ``new`` (batch first) into ``cache[name][index]`` in place,
+    along that leaf's batch axis (:func:`commit_axes`), for the batch rows
+    in ``rows`` only (every row when None)."""
+    dst = cache[name][index]
+    axis = commit_axes(cfg)[name] - len(index)
+    new = new.to(dst.dtype)
+    if rows is None:
+        dst.copy_(new.movedim(0, axis))
+    else:
+        dst.index_copy_(axis, rows, new.index_select(0, rows).movedim(0, axis))
+
+
+def _rec_decode(rp, x, cfg: ModelConfig, state):
+    hh = apply_norm(cfg, rp["ln1"], x)
+    r, st = rg.rglru_block_decode(rp["rec"], hh, state, cfg)
+    x = x + r
+    return x + mlp_forward(rp["mlp"], apply_norm(cfg, rp["ln2"], x)), st
+
+
+def _decode_rwkv(params, cfg: ModelConfig, cache, x, rows):
+    x = apply_norm(cfg, params["ln_in"], x)
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        hh = apply_norm(cfg, p["ln1"], x)
+        t, (S, x_tm) = rw.time_mix_decode(
+            p["tm"], hh, (cache["S"][i], cache["x_tm"][i]), cfg)
+        x = x + t
+        hh = apply_norm(cfg, p["ln2"], x)
+        c, x_cm = rw.channel_mix_decode(p["cm"], hh, cache["x_cm"][i])
+        x = x + c
+        for name, new in (("S", S), ("x_tm", x_tm), ("x_cm", x_cm)):
+            _commit(cache, cfg, name, (i,), new, rows)
+    return x
+
+
+def _decode_hybrid(params, cfg: ModelConfig, cache, x, pos, rows):
+    n_super, _ = hybrid_layout(cfg)
+    for si in range(n_super):
+        sp = _layer(params["super"], si)
+        for ri in range(cfg.rec_per_attn):
+            x, st = _rec_decode(_layer(sp["rec"], ri), x, cfg,
+                                {"h": cache["h"][si, ri],
+                                 "conv": cache["conv"][si, ri]})
+            _commit(cache, cfg, "h", (si, ri), st["h"], rows)
+            _commit(cache, cfg, "conv", (si, ri), st["conv"], rows)
+        ap = sp["attn"]
+        a = attention_decode(ap["attn"], apply_norm(cfg, ap["ln1"], x),
+                             {"k": cache["k"][si], "v": cache["v"][si]}, cfg,
+                             pos=pos, window=cfg.window, rows=rows)
+        x = x + a
+        x = x + mlp_forward(ap["mlp"], apply_norm(cfg, ap["ln2"], x))
+    for ti in range(hybrid_layout(cfg)[1]):
+        x, st = _rec_decode(_layer(params["tail"], ti), x, cfg,
+                            {"h": cache["tail_h"][ti],
+                             "conv": cache["tail_conv"][ti]})
+        _commit(cache, cfg, "tail_h", (ti,), st["h"], rows)
+        _commit(cache, cfg, "tail_conv", (ti,), st["conv"], rows)
+    return x
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, live=None):
@@ -148,18 +319,78 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, live=None):
     dtype = compute_dtype(cfg)
     x = _embed(params, tokens, dtype)
     rows = None if live is None else torch.nonzero(live.to(x.device))[:, 0]
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        p = _layer(layers, i)
-        hh = apply_norm(cfg, p["ln1"], x)
-        a = attention_decode(p["attn"], hh,
-                             {"k": cache["k"][i], "v": cache["v"][i]}, cfg,
-                             pos=pos, rows=rows)
-        x = x + a
-        x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+    if cfg.rwkv:
+        x = _decode_rwkv(params, cfg, cache, x, rows)
+    elif cfg.rglru:
+        x = _decode_hybrid(params, cfg, cache, x, pos, rows)
+    else:
+        for i in range(cfg.n_layers):
+            p = _layer(params["layers"], i)
+            hh = apply_norm(cfg, p["ln1"], x)
+            a = attention_decode(p["attn"], hh,
+                                 {"k": cache["k"][i], "v": cache["v"][i]},
+                                 cfg, pos=pos, rows=rows)
+            x = x + a
+            x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
     h = apply_norm(cfg, params["final_norm"], x)
     logits = (h[:, 0] @ output_weights(params, cfg, dtype)).to(torch.float32)
     return logits, cache
+
+
+def _rec_prefill(rp, x, cfg: ModelConfig):
+    hh = apply_norm(cfg, rp["ln1"], x)
+    r, st = rg.rglru_block_forward(rp["rec"], hh, cfg, return_state=True)
+    x = x + r
+    return x + mlp_forward(rp["mlp"], apply_norm(cfg, rp["ln2"], x)), st
+
+
+def _prefill_rwkv(params, cfg: ModelConfig, cache, x):
+    dtype = x.dtype
+    x = apply_norm(cfg, params["ln_in"], x)
+    zeros = torch.zeros_like(x[:, 0])
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        hh = apply_norm(cfg, p["ln1"], x)
+        t, (S, x_tm) = rw.time_mix_forward(p["tm"], hh, zeros, cfg)
+        x = x + t
+        hh = apply_norm(cfg, p["ln2"], x)
+        c, x_cm = rw.channel_mix_forward(p["cm"], hh, zeros)
+        x = x + c
+        cache["S"][i] = S
+        cache["x_tm"][i] = x_tm.to(dtype)
+        cache["x_cm"][i] = x_cm.to(dtype)
+    return x
+
+
+def _prefill_hybrid(params, cfg: ModelConfig, cache, x, positions):
+    """The ring holds the last ``w`` keys: position ``p`` at slot
+    ``p % w``, as the decode step will continue it."""
+    dtype = x.dtype
+    s = x.shape[1]
+    w = cache["k"].shape[2]
+    slots = (torch.arange(s - w, s, device=x.device) % w if s >= w
+             else torch.arange(s, device=x.device))
+    n_super, n_tail = hybrid_layout(cfg)
+    for si in range(n_super):
+        sp = _layer(params["super"], si)
+        for ri in range(cfg.rec_per_attn):
+            x, st = _rec_prefill(_layer(sp["rec"], ri), x, cfg)
+            cache["h"][si, ri] = st["h"]
+            cache["conv"][si, ri] = st["conv"]
+        ap = sp["attn"]
+        a, (k, v) = attention_forward(
+            ap["attn"], apply_norm(cfg, ap["ln1"], x), cfg,
+            positions=positions, mode="local", window=cfg.window,
+            return_kv=True)
+        x = x + a
+        x = x + mlp_forward(ap["mlp"], apply_norm(cfg, ap["ln2"], x))
+        cache["k"][si][:, slots] = k[:, -w:].to(dtype)
+        cache["v"][si][:, slots] = v[:, -w:].to(dtype)
+    for ti in range(n_tail):
+        x, st = _rec_prefill(_layer(params["tail"], ti), x, cfg)
+        cache["tail_h"][ti] = st["h"]
+        cache["tail_conv"][ti] = st["conv"]
+    return x
 
 
 def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
@@ -168,9 +399,11 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
     cache primed for position S, in the compute dtype).
 
     ``last_idx`` (optional (B,) int) selects a per-row logits position
-    instead of ``S - 1``: the engine right-pads prompts to a bucket length.
-    Causality keeps right padding out of positions ``<= last_idx``, and the
-    decode loop overwrites each padded KV entry before the mask admits it.
+    instead of ``S - 1``: the engine right-pads dense prompts to a bucket
+    length.  Causality keeps right padding out of positions ``<= last_idx``,
+    and the decode loop overwrites each padded KV entry before the mask
+    admits it.  The recurrent families take every position as a state
+    update, so the engine prefills them at the exact prompt length.
     """
     dtype = compute_dtype(cfg)
     tokens = batch["tokens"]
@@ -180,17 +413,21 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
     x = _embed(params, tokens, dtype)
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = init_cache(cfg, b, cache_len, dtype=dtype, device=x.device)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        p = _layer(layers, i)
-        hh = apply_norm(cfg, p["ln1"], x)
-        a, (k, v) = attention_forward(p["attn"], hh, cfg,
-                                      positions=positions, mode="causal",
-                                      return_kv=True)
-        x = x + a
-        x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
-        cache["k"][i, :, :s] = k.to(dtype)
-        cache["v"][i, :, :s] = v.to(dtype)
+    if cfg.rwkv:
+        x = _prefill_rwkv(params, cfg, cache, x)
+    elif cfg.rglru:
+        x = _prefill_hybrid(params, cfg, cache, x, positions)
+    else:
+        for i in range(cfg.n_layers):
+            p = _layer(params["layers"], i)
+            hh = apply_norm(cfg, p["ln1"], x)
+            a, (k, v) = attention_forward(p["attn"], hh, cfg,
+                                          positions=positions, mode="causal",
+                                          return_kv=True)
+            x = x + a
+            x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+            cache["k"][i, :, :s] = k.to(dtype)
+            cache["v"][i, :, :s] = v.to(dtype)
     h = apply_norm(cfg, params["final_norm"], x)
     if last_idx is None:
         h_last = h[:, -1]

@@ -8,8 +8,9 @@ package's docstring for the paper mapping):
                  the pairwise-distance kernel -> replication counts) and the
                  failing ``WorkerPool``;
 ``snapshot.py``  checksummed decode snapshots of one slot's cache row;
-``engine.py``    the slot-based engine: bucket-padded prefill on the
-                 flash-attention kernel, one batched decode per step,
+``engine.py``    the slot-based engine: prefill (bucket-padded for dense
+                 prompts, exact-length for the recurrent families) on the
+                 model's kernels, one batched decode per step,
                  resubmission from snapshots (Algorithm 3);
 ``reference.py`` the batch=1 greedy parity oracle;
 ``metrics.py``   usage / wastage / goodput counters (copy).

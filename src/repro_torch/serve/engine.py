@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.serve.engine`` on the port's PyTorch model.  The
 engine holds one batched cache on its device and updates it in place; the
-weights are cast to the compute dtype once at construction.  Only the dense
-family is ported, so every prompt prefills into its power-of-two bucket.
+weights are cast to the compute dtype once at construction.  Dense prompts
+prefill into their power-of-two bucket; the recurrent families (RWKV-6,
+RG-LRU hybrid) prefill at the exact prompt length, since their state would
+take every padded position as an update.
 
 The serving counterpart of the CheckpointHEFT runtime (paper Algorithm 3):
 
@@ -66,7 +68,8 @@ __all__ = ["EngineConfig", "ServeEngine", "engine_supported"]
 
 def engine_supported(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the port's engine can drive ``cfg``: the families the
-    port's model runs (dense only, so far), with the reason if not."""
+    port's model runs (dense, RWKV-6 with d_model a multiple of the 64 head
+    size, RG-LRU hybrid), with the reason if not."""
     try:
         lm.check_family(cfg)
     except ValueError as e:
@@ -121,6 +124,11 @@ class ServeEngine:
             raise ValueError(f"{cfg.name}: {why}")
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
+        if cfg.rglru and self.ecfg.cache_len < cfg.window:
+            raise ValueError(
+                f"{cfg.name}: cache_len {self.ecfg.cache_len} < local-"
+                f"attention window {cfg.window}; the rolling KV ring and the "
+                f"decode slot index (pos % window) would disagree")
         self.device = torch.device(device)
         self.pool = pool
         self.chaos = chaos   # repro_torch.chaos.ChaosEngine | None
@@ -365,7 +373,11 @@ class ServeEngine:
                               banked=len(snap.tokens))
         else:
             p = req.prompt_len
-            seq = prompt_bucket(p)
+            # recurrent state treats every position as a state update, so
+            # pad positions are not maskable after the fact: prefill at the
+            # exact prompt length instead of the padded bucket
+            exact = self.cfg.rwkv or self.cfg.rglru
+            seq = p if exact else prompt_bucket(p)
             t0 = time.perf_counter()
             with self.tracer.span("serve.prefill", rid=req.rid, seq=seq,
                                   step=t):

@@ -43,7 +43,8 @@ def greedy_reference(params, cfg: ModelConfig, requests, cache_len: int, *,
     """Greedy tokens for each request, rid -> tokens, batch=1 static decode.
 
     ``cache_len`` should match the engine's so both paths attend over the
-    same cache geometry.
+    same cache geometry (the same rolling-window ring for the RG-LRU
+    hybrid).
     """
     params = lm.cast_params(params, cfg)
     return {req.rid: greedy_decode(params, cfg, req, cache_len,

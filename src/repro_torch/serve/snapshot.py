@@ -7,7 +7,8 @@ request resumes from its last snapshot on any free slot.
 
 The slot helpers work on cache dicts of tensors.  The per-leaf batch axis is
 found by building ``lm.init_cache`` on the ``meta`` device at batch sizes 2
-and 3 (no allocation).  Rows go to the host as CPU tensors; since numpy has
+and 3 (no allocation), so the same code handles the dense (L, B, S, KV, D),
+RWKV (L, B, ...) and hybrid (n_super, rec_per_attn, B, ...) layouts.  Rows go to the host as CPU tensors; since numpy has
 no bf16, the checksum hashes each leaf's raw bytes.
 """
 from __future__ import annotations

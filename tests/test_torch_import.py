@@ -23,6 +23,11 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     mods = list(_port_modules())
     assert "repro_torch.serve.engine" in mods
+    assert {"repro_torch.models.rwkv6", "repro_torch.models.rglru",
+            "repro_torch.kernels.rwkv6_scan.ops",
+            "repro_torch.kernels.rglru_scan.ops",
+            "repro_torch.configs.rwkv6_3b",
+            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -12,15 +12,27 @@ from repro.kernels.flash_attention import ops as jfa_ops  # noqa: E402
 from repro.kernels.flash_attention import ref as jfa_ref  # noqa: E402
 from repro.kernels.pairwise_affinity import ops as jpa_ops  # noqa: E402
 from repro.kernels.pairwise_affinity import ref as jpa_ref  # noqa: E402
+from repro.kernels.rglru_scan import ops as jlru_ops  # noqa: E402
+from repro.kernels.rglru_scan import ref as jlru_ref  # noqa: E402
+from repro.kernels.rwkv6_scan import ops as jwk_ops  # noqa: E402
+from repro.kernels.rwkv6_scan import ref as jwk_ref  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.pairwise_affinity import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.pairwise_affinity import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import ref as lru_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as wk_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as wk_ref  # noqa: E402
 
 # the shapes and tolerances of tests/test_kernels.py
 PA_SHAPES = [(16, 4), (100, 10), (130, 3), (256, 64)]
 FA_SHAPES = [(1, 4, 2, 128, 128), (2, 8, 8, 256, 128), (1, 2, 1, 130, 128),
              (1, 4, 2, 384, 256)]
+LRU_SHAPES = [(2, 128, 128), (3, 100, 96), (8, 256, 256), (1, 17, 130)]
+WKV_SHAPES = [(1, 2, 32, 64), (2, 3, 48, 64), (1, 1, 20, 64),
+              (1, 2, 64, 128)]
 PA_TOL = dict(atol=3e-3, rtol=1e-3)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -98,6 +110,91 @@ def test_plain_versions_match_pallas_interpret():
         **_tol("float32"))
 
 
+def _wkv_inputs(b, h, t, n, seed=0):
+    """The inputs of tests/test_kernels.py's WKV6 case, and a state."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.normal(size=(b, h, t, n)).astype(np.float32)
+               for _ in range(3))
+    lw = -rng.uniform(0.01, 2.5, (b, h, t, n)).astype(np.float32)
+    u = 0.2 * rng.normal(size=(h, n)).astype(np.float32)
+    S0 = 0.3 * rng.normal(size=(b, h, n, n)).astype(np.float32)
+    return r, k, v, lw, u, S0
+
+
+def _lru_inputs(b, s, w, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.8, 0.999, (b, s, w)).astype(np.float32),
+            (0.1 * rng.normal(size=(b, s, w))).astype(np.float32),
+            rng.normal(size=(b, w)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,h,t,n", WKV_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_wkv6_plain_matches_jax_oracle_and_pallas(b, h, t, n, dtype):
+    """Against JAX ``ref.wkv6`` with an entering state (output and final
+    state), and against the Pallas kernel in interpret mode from zero (the
+    Pallas kernel has no state in or out).  fp32 at 2e-4; bf16 r, k, v at
+    the bf16 tolerance of tests/test_kernels.py (both sides compute in
+    fp32 and round the output once)."""
+    jdt, tdt = DTYPES[dtype]
+    r, k, v, lw, u, S0 = _wkv_inputs(b, h, t, n)
+    tin = [torch.from_numpy(x).to(tdt) for x in (r, k, v)]
+    jin = [jnp.asarray(x, jdt) for x in (r, k, v)]
+    got, gS = wk_ref.wkv6(*tin, torch.from_numpy(lw), torch.from_numpy(u),
+                          torch.from_numpy(S0))
+    want, wS = jwk_ref.wkv6(*jin, jnp.asarray(lw), jnp.asarray(u),
+                            jnp.asarray(S0))
+    assert got.dtype == tdt and gS.dtype == torch.float32
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+    np.testing.assert_allclose(_f32(gS), _f32(wS), **_tol("float32"))
+    got0, _ = wk_ref.wkv6(*tin, torch.from_numpy(lw), torch.from_numpy(u))
+    pallas = jwk_ops.wkv6(*jin, jnp.asarray(lw), jnp.asarray(u),
+                          interpret=True)
+    np.testing.assert_allclose(_f32(got0), _f32(pallas), **tol)
+
+
+@pytest.mark.parametrize("b,s,w", LRU_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_lru_scan_plain_matches_jax_oracle_and_pallas(b, s, w, with_h0):
+    """fp32 at 2e-4, h and h_last, against JAX ``ref.lru_scan`` and (from
+    a zero state, which is all it takes) the Pallas kernel in interpret
+    mode."""
+    a, x, h0 = _lru_inputs(b, s, w)
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    jh0 = jnp.asarray(h0) if with_h0 else None
+    got, glast = lru_ref.lru_scan(torch.from_numpy(a), torch.from_numpy(x),
+                                  th0)
+    want, wlast = jlru_ref.lru_scan(jnp.asarray(a), jnp.asarray(x), jh0)
+    assert got.dtype == glast.dtype == torch.float32
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+    np.testing.assert_allclose(_f32(glast), _f32(wlast), **_tol("float32"))
+    if not with_h0:
+        pallas = jlru_ops.lru_scan(jnp.asarray(a), jnp.asarray(x),
+                                   interpret=True)
+        np.testing.assert_allclose(_f32(got), _f32(pallas),
+                                   **_tol("float32"))
+
+
+@pytest.mark.parametrize("s,window", [(40, 16), (130, 64), (64, 64)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_windowed_flash_plain_matches_jax_local_mask(s, window, dtype):
+    """The windowed plain version against the JAX model's attention with
+    its local mask (``layers._sdpa``, as ``attention_forward(mode="local")``
+    builds it), MQA at recurrentgemma's head ratio."""
+    jdt, tdt = DTYPES[dtype]
+    q, k, v = _qkv(1, 4, 1, s, 32, seed=3)
+    got = fa_ref.attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                           causal=True, window=window)
+    kpos = jnp.arange(s)
+    mask = lambda qp: ((qp[:, None] >= kpos[None, :])  # noqa: E731
+                       & (qp[:, None] - kpos[None, :] < window))
+    want = jlayers._sdpa(*(jnp.asarray(x, jdt).transpose(0, 2, 1, 3)
+                           for x in (q, k, v)), mask)
+    np.testing.assert_allclose(_f32(got), _f32(want.transpose(0, 2, 1, 3)),
+                               **_tol(dtype))
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """A CPU tensor reaches the plain version bit for bit and launches no
     kernel; a device without a kernel raises instead of falling back."""
@@ -116,3 +213,27 @@ def test_wrappers_take_plain_version_on_cpu():
         pa_ops.pairwise_distance(pts.to("meta"))
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_new_wrappers_take_plain_version_on_cpu():
+    """The same for the WKV6 and RG-LRU wrappers and the windowed flash
+    attention; a window without causality is refused."""
+    r, k, v, lw, u, S0 = (torch.from_numpy(x)
+                          for x in _wkv_inputs(1, 2, 21, 64, seed=4))
+    a, x, h0 = (torch.from_numpy(t) for t in _lru_inputs(2, 19, 40, seed=4))
+    for got, want in ((wk_ops.wkv6(r, k, v, lw, u, S0),
+                       wk_ref.wkv6(r, k, v, lw, u, S0)),
+                      (lru_ops.lru_scan(a, x, h0),
+                       lru_ref.lru_scan(a, x, h0))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    q, kk, vv = (torch.from_numpy(t) for t in _qkv(1, 4, 1, 40, 32, seed=4))
+    assert torch.equal(fa_ops.flash_attention(q, kk, vv, window=16),
+                       fa_ref.attention(q, kk, vv, window=16))
+    assert wk_ops.wkv6.launches == lru_ops.lru_scan.launches == 0
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, kk, vv, causal=False, window=16)
+    with pytest.raises(ValueError):
+        wk_ops.wkv6(*(t.to("meta") for t in (r, k, v, lw, u)))
+    with pytest.raises(ValueError):
+        lru_ops.lru_scan(a.to("meta"), x.to("meta"))

@@ -168,3 +168,127 @@ def test_snapshot_roundtrip_verifies_and_corruption_fails():
     assert store.verify(store.get(7))
     assert store.corrupt(seed=11) == 1
     assert not store.verify(store.get(7))
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: RWKV-6 (state on batch axis 1) and the RG-LRU
+# hybrid (h/conv stacks on batch axis 2, a rolling K/V ring on axis 1)
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("rwkv6-3b", "recurrentgemma-2b")
+
+
+@pytest.fixture(scope="module", params=RECURRENT)
+def fp32_recurrent(request):
+    from test_torch_rwkv import perturb_fp32_read
+    jcfg = dataclasses.replace(jax_get_config(request.param, tiny=True),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(get_config(request.param, tiny=True),
+                               compute_dtype="float32")
+    np_tree = perturb_fp32_read(jax.tree.map(
+        np.asarray, jlm.init_params(jax.random.key(0), jcfg)), seed=2)
+    return (jcfg, tcfg, jax.tree.map(jax.numpy.asarray, np_tree),
+            lm.params_from_jax(np_tree, tcfg, device="cpu"))
+
+
+def _recurrent_cache_len(cfg, reqs):
+    # the engine refuses a cache shorter than the hybrid's rolling window
+    return max(_cache_len(reqs), cfg.window if cfg.rglru else 0)
+
+
+def test_recurrent_engine_tokens_match_reference_and_jax_under_failures(
+        fp32_recurrent):
+    """Exact-length prefill, failures, snapshot restores: greedy tokens
+    equal to the port's batch=1 reference and to the JAX engine.  The
+    tiny hybrid's prompts (16-32 tokens) exceed its 16-slot window."""
+    jcfg, tcfg, jparams, tparams = fp32_recurrent
+    treqs, jreqs = _requests(serve, 6, 1), _requests(jserve, 6, 1)
+    cache_len = _recurrent_cache_len(tcfg, treqs)
+    engine = serve.ServeEngine(
+        tcfg, serve.EngineConfig(cache_len=cache_len),
+        pool=serve.WorkerPool(2, 2, environment="unstable", seed=0),
+        policy=serve.crch_policy(treqs, device="cpu"), params=tparams,
+        device="cpu")
+    jengine = jserve.ServeEngine(
+        jcfg, jserve.EngineConfig(cache_len=cache_len, q_chunk=64),
+        pool=jserve.WorkerPool(2, 2, environment="unstable", seed=0),
+        policy=jserve.crch_policy(jreqs), params=jparams)
+    prefill, seqs = engine._prefill_step, []
+
+    def recording_prefill(params, batch, last_idx):
+        seqs.append(batch["tokens"].shape[1])
+        return prefill(params, batch, last_idx)
+
+    engine._prefill_step = recording_prefill
+    for tr, jr in zip(treqs, jreqs):
+        engine.submit(tr)
+        jengine.submit(jr)
+    engine.run(max_steps=2_000)
+    jengine.run(max_steps=2_000)
+    m = engine.metrics
+    assert len(engine.completed) == len(treqs)
+    assert m.failures >= 1 and m.restores + m.resubmissions >= 1
+    # exact-length prefill: every prompt went in unpadded
+    assert set(seqs) <= {r.prompt_len for r in treqs}
+    assert any(s != serve.prompt_bucket(s) for s in seqs)
+    ref = serve.greedy_reference(tparams, tcfg, treqs, cache_len,
+                                 device="cpu")
+    for r in treqs:
+        assert engine.output(r.rid) == ref[r.rid], r.rid
+        assert engine.output(r.rid) == jengine.output(r.rid), r.rid
+
+
+def test_recurrent_idle_slot_rows_bit_identical_through_masked_step(
+        fp32_recurrent):
+    """Every cache leaf, whatever its batch axis: an idle slot's row stays
+    bit-identical through the masked step, and the live rows change."""
+    _, tcfg, _, tparams = fp32_recurrent
+    tcfg = dataclasses.replace(tcfg, compute_dtype="bfloat16")
+    params = lm.cast_params(tparams, tcfg)
+    cache_len = max(16, tcfg.window)
+    axes = cache_batch_axes(tcfg, cache_len)
+    assert axes == lm.commit_axes(tcfg)
+    cache = lm.init_cache(tcfg, 3, cache_len, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    for leaf in cache.values():
+        leaf.copy_(0.5 * torch.randn(leaf.shape, generator=g))
+    before = slot_get(cache, axes, 1)
+    live_before = slot_get(cache, axes, 0)
+    step = make_serve_step(tcfg, cache_axes=axes)
+    live = torch.tensor([True, False, True])
+    for i in range(3):
+        pos = torch.tensor([4 + i, 2, 19 + i])
+        _, logits, cache = step(params, cache, torch.tensor([[3], [5], [7]]),
+                                pos, live)
+        assert torch.isfinite(logits).all()
+    after = slot_get(cache, axes, 1)
+    for name in before:
+        assert torch.equal(before[name], after[name]), name
+    live_after = slot_get(cache, axes, 0)
+    state = "S" if tcfg.rwkv else "h"
+    assert not torch.equal(live_after[state], live_before[state])
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_snapshot_roundtrip_and_batch_axes(arch):
+    """The probed batch axes are the JAX package's, a snapshot of one slot
+    restores bit for bit into another, and corruption is caught."""
+    import repro.serve.snapshot as jsnap
+    cfg = get_config(arch, tiny=True)
+    jcfg = jax_get_config(arch, tiny=True)
+    axes = cache_batch_axes(cfg, 24)
+    assert axes == jsnap.cache_batch_axes(jcfg, 24) == lm.commit_axes(cfg)
+    cache = lm.init_cache(cfg, 2, 24, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    for leaf in cache.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=g))
+    store = SnapshotStore()
+    store.save(DecodeSnapshot(rid=1, pos=9, tokens=[4], last_token=4,
+                              cache_row=slot_get(cache, axes, 0), step=2))
+    serve.snapshot.slot_set(cache, axes, 1, store.get(1).cache_row)
+    for name, leaf in cache.items():
+        assert torch.equal(leaf.select(axes[name], 0),
+                           leaf.select(axes[name], 1)), name
+    assert store.verify(store.get(1))
+    assert store.corrupt(seed=5) == 1
+    assert not store.verify(store.get(1))
