@@ -7,11 +7,17 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA, no run;
 2. build: ``nvcc`` compiles every ``kernels/csrc/*.cu`` for sm_90a, in
-   parallel, into ``build/kernels``;
+   parallel, into ``build/kernels``; ``cuobjdump -sass`` counts each
+   library's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions, and
+   the run fails if the bf16 flash-attention kernels have no ``HGMMA``;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the JAX package's test shapes, at the serve paths' shapes and at large
-   ones, with times (CUDA events, median of 25 after warm-up) beside the
-   plain version's, a library call's and the card's bound;
+   ones, with times (CUDA events, median of 25 after warm-up, the host's
+   submission included, and the device's time alone) beside the plain
+   version's, a library call's and the card's bound (and the share of it
+   reached); bf16 flash attention also at a grid that covers every SM
+   (128-row query blocks), which must give the same bits, and its fp32
+   SIMT instance timed on its own;
 4. then, for each family the port serves (olmo-1b, rwkv6-3b,
    recurrentgemma-2b), at full width (random seeded weights, bf16):
 
@@ -50,16 +56,19 @@ SRC = ROOT / "src"
 # H100 SXM data-sheet peaks (dense): the bound of a kernel's time
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12}   # fp32: no tensor core
+SLEEP_CYCLES = 2_000_000   # ~1 ms at the H100's clock: covers a submission
 
 PA_SHAPES = [(16, 4), (100, 10), (130, 3), (256, 64), (4096, 10)]
 FA_TEST_SHAPES = [(1, 4, 2, 128, 128), (2, 8, 8, 256, 128),
                   (1, 2, 1, 130, 128), (1, 4, 2, 384, 256)]
 FA_BIG_SHAPES = [(1, 16, 16, 512, 128), (4, 16, 16, 2048, 128)]
-# fp32: the JAX tests' limit.  bf16: both sides accumulate in fp32 and
-# round the output to bf16 once, so they may differ by the output's own
-# rounding, one bf16 ulp (<= 2^-7 |x|), and no more.  The same holds for
-# WKV6 on bf16 r, k, v (its fp32 limit is the one tests/test_kernels.py
-# gives the model's chunked path)
+# fp32: the JAX tests' limit.  bf16 flash attention: the kernel rounds the
+# output to bf16 once and, on the tensor cores, each probability P to bf16
+# before the PV product (at most 2^-9 absolute, |P| <= 1), where the plain
+# version keeps P in fp32; the limit stays one bf16 ulp of the output
+# (<= 2^-7 |x|) over a 4e-3 floor.  WKV6 on bf16 r, k, v: both sides
+# compute in fp32 and round the output once, one output ulp (its fp32 limit
+# is the one tests/test_kernels.py gives the model's chunked path)
 FA_TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
           "bfloat16": dict(atol=4e-3, rtol=1e-2)}
 WKV_TOL = {"float32": dict(atol=2e-4, rtol=1e-3),
@@ -109,8 +118,11 @@ def wrappers():
             "wkv6": wk_ops.wkv6, "lru_scan": lru_ops.lru_scan}
 
 
-def time_ms(fn, iters=25, warmup=3):
-    """Median of per-call CUDA-event times, after warm-up."""
+def time_ms(fn, iters=25, warmup=3, queued=False):
+    """Median of per-call CUDA-event times, after warm-up.  The events
+    bracket the host's submission of the call too.  ``queued``: each call
+    is queued behind a ~1 ms sleep kernel, so that the host has submitted
+    it before the first event fires and the time is the device's alone."""
     import torch
     for _ in range(warmup):
         fn()
@@ -119,6 +131,8 @@ def time_ms(fn, iters=25, warmup=3):
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -127,18 +141,68 @@ def time_ms(fn, iters=25, warmup=3):
     return statistics.median(times)
 
 
-def bound_ms(bytes_, flops, dtype):
+def time_kernel(rec, fn, prefix=""):
+    """A call's time with the host's submission (``ms``) and the device's
+    alone (``device_ms``), under ``prefix`` (``library_`` for the library
+    call)."""
+    rec[prefix + "ms"] = time_ms(fn)
+    rec[prefix + "device_ms"] = time_ms(fn, queued=True)
+
+
+def add_bound(rec, bytes_, flops, dtype):
+    """The card's least time for the work (bytes once over the memory rate,
+    operations over the peak for ``dtype``, the larger) and the share of it
+    the kernel reached."""
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
 
 
 def _timing_text(rec, library):
-    lib = (f"{library} {rec['library_ms']:.4f} ms"
+    lib = (f"{library} {rec['library_ms']:.4f} ms (device "
+           f"{rec['library_device_ms']:.4f})"
            if rec["library_ms"] is not None else f"{library}: none")
-    return (f" | kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
-            f"{lib} bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return (f" | kernel {rec['ms']:.4f} ms (device "
+            f"{rec['device_ms']:.4f}) plain {rec['plain_ms']:.4f} ms "
+            f"{lib} bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}, "
+            f"share {rec['bound_share']:.3f})")
+
+
+def phase_sass(build):
+    """Counts of HGMMA (wgmma) and UTMALDG (TMA load) in each library's SASS,
+    by kernel; the bf16 flash-attention kernels must hold HGMMA."""
+    import re
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    by_fn = {}
+    for name in build.SOURCES:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build._lib_path(name))],
+                              capture_output=True, text=True, timeout=120)
+        check(sass.returncode == 0, f"cuobjdump failed on {name}: "
+                                    f"{sass.stderr.strip()}")
+        fn, counts = None, {}
+        for line in sass.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+            elif fn:
+                for op in ("HGMMA", "UTMALDG"):
+                    counts[fn][op] += op in line
+        total = {op: sum(c[op] for c in counts.values())
+                 for op in ("HGMMA", "UTMALDG")}
+        print(f"  sass {name}: HGMMA {total['HGMMA']}, UTMALDG "
+              f"{total['UTMALDG']} in {len(counts)} kernels")
+        by_fn.update({f"{name}:{fn}": c for fn, c in counts.items()})
+    tc = {fn: c for fn, c in by_fn.items()
+          if fn.startswith("flash_attention:") and "flash_fwd_tc" in fn}
+    for fn, c in sorted(tc.items()):
+        print(f"    {fn.split('flash_fwd_tc')[1][:16]}: HGMMA {c['HGMMA']} "
+              f"UTMALDG {c['UTMALDG']}")
+    check(tc and all(c["HGMMA"] > 0 for c in tc.values()),
+          "the bf16 flash-attention kernels hold no HGMMA instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -168,18 +232,38 @@ def pairwise_case(n, f, *, timed):
     err = float(np.abs(g - w).max())
     rec = {"shape": [n, f], "max_abs_err": err, "ok": bool(ok)}
     if timed:
-        rec["ms"] = time_ms(lambda: ops.pairwise_distance(x))
+        time_kernel(rec, lambda: ops.pairwise_distance(x))
         rec["plain_ms"] = time_ms(lambda: ref.pairwise_distance(x))
-        rec["library_ms"] = time_ms(lambda: torch.cdist(
-            x, x, compute_mode="use_mm_for_euclid_dist"))
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            4 * (n * f + n * n), n * n * (3 * f + 4), "float32")
+        time_kernel(rec, lambda: torch.cdist(
+            x, x, compute_mode="use_mm_for_euclid_dist"), "library_")
+        add_bound(rec, 4 * (n * f + n * n), n * n * (3 * f + 4), "float32")
     print(f"  pairwise_distance {n}x{f}: max_abs_err {err:.3g} "
           f"(off-diagonal atol 3e-3 rtol 1e-3; diagonal <= sqrt(8 eps "
           f"|x|^2)) {'ok' if ok else 'FAIL'}"
           + (_timing_text(rec, "cdist") if timed else ""))
     check(ok, f"pairwise_distance {n}x{f} disagrees with its plain version")
     return rec
+
+
+def flash_wide_grid_check(q, k, v, got, causal, window):
+    """The bf16 kernel takes 128-row query blocks where its grid covers
+    every SM, else 64: the batch repeated until it does must give the same
+    bits in every copy.  Returns that grid's size (0: no check needed)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    b, h, s, _ = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = -(-s // 128) * b * h
+    if grid >= sms:
+        return 0
+    reps = -(-sms // grid)
+    wide = ops.flash_attention(*(x.repeat(reps, 1, 1, 1) for x in (q, k, v)),
+                               causal=causal, window=window)
+    check(all(torch.equal(wide[i * b:(i + 1) * b], got)
+              for i in range(reps)),
+          f"flash_attention {tuple(q.shape)} changed its bits at a grid of "
+          f"{grid * reps} blocks of 128 query rows")
+    return grid * reps
 
 
 def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
@@ -199,8 +283,10 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     ok = bool(torch.allclose(got.float(), want.float(), **FA_TOL[dtype_name]))
     rec = {"shape": [b, h, kv, s, d], "dtype": dtype_name, "causal": causal,
            "window": window, "max_abs_err": err, "ok": ok}
+    wide = (flash_wide_grid_check(q, k, v, got, causal, window)
+            if dtype_name == "bfloat16" and d <= 128 else 0)
     if timed:
-        rec["ms"] = time_ms(lambda: ops.flash_attention(
+        time_kernel(rec, lambda: ops.flash_attention(
             q, k, v, causal=causal, window=window))
         rec["plain_ms"] = time_ms(lambda: ref.attention(
             q, k, v, causal=causal, window=window))
@@ -209,25 +295,23 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
             diff = (torch.arange(s, device="cuda")[:, None]
                     - torch.arange(s, device="cuda")[None, :])
             mask = (diff >= 0) & (diff < window)
-            rec["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, **gqa))
+            time_kernel(rec, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, **gqa), "library_")
             pairs = sum(min(i + 1, window) for i in range(s))
         else:
-            rec["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, **gqa))
+            time_kernel(rec, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, **gqa), "library_")
             pairs = s * (s + 1) // 2 if causal else s * s
         item = q.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            item * (2 * b * h * s * d + 2 * b * kv * s * d),
-            4 * b * h * pairs * d, dtype_name)
+        add_bound(rec, item * (2 * b * h * s * d + 2 * b * kv * s * d),
+                  4 * b * h * pairs * d, dtype_name)
     tol = FA_TOL[dtype_name]
     mode = (f"window {window}" if window else
             "causal" if causal else "bidir")
     print(f"  flash_attention {(b, h, kv, s, d)} {dtype_name} {mode}: "
           f"max_abs_err {err:.3g} (atol {tol['atol']} rtol {tol['rtol']}) "
           f"{'ok' if ok else 'FAIL'}"
+          + (f", same bits at {wide} blocks of 128 rows" if wide else "")
           + (_timing_text(rec, "sdpa") if timed else ""))
     check(ok, f"flash_attention {(b, h, kv, s, d)} {dtype_name} "
               f"{mode} disagrees with its plain version")
@@ -261,14 +345,14 @@ def wkv6_case(b, h, t, n, dtype_name, with_s0, *, timed):
     rec = {"shape": [b, h, t, n], "dtype": dtype_name, "s0": with_s0,
            "max_abs_err": err, "ok": ok}
     if timed:
-        rec["ms"] = time_ms(lambda: ops.wkv6(r, k, v, lw, u, S0))
+        time_kernel(rec, lambda: ops.wkv6(r, k, v, lw, u, S0))
         rec["plain_ms"] = time_ms(lambda: ref.wkv6(r, k, v, lw, u, S0))
         rec["library_ms"] = None   # no single PyTorch call computes WKV6
+        rec["library_device_ms"] = None
         item = r.element_size()
         state = (2 if with_s0 else 1) * 4 * b * h * n * n
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            (4 * item + 4) * b * h * t * n + 4 * h * n + state,
-            b * h * t * (4 * n * n + 3 * n), dtype_name)
+        add_bound(rec, (4 * item + 4) * b * h * t * n + 4 * h * n + state,
+                  b * h * t * (4 * n * n + 3 * n), dtype_name)
     tol = WKV_TOL[dtype_name]
     print(f"  wkv6 {(b, h, t, n)} {dtype_name} "
           f"{'S0' if with_s0 else 'zero state'}: max_abs_err {err:.3g} "
@@ -301,12 +385,12 @@ def lru_case(b, s, w, with_h0, *, timed):
               and torch.allclose(last, want_last, **LRU_TOL))
     rec = {"shape": [b, s, w], "h0": with_h0, "max_abs_err": err, "ok": ok}
     if timed:
-        rec["ms"] = time_ms(lambda: ops.lru_scan(a, x, h0))
+        time_kernel(rec, lambda: ops.lru_scan(a, x, h0))
         rec["plain_ms"] = time_ms(lambda: ref.lru_scan(a, x, h0))
         rec["library_ms"] = None   # no single PyTorch call computes it
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            4 * (3 * b * s * w + (2 if with_h0 else 1) * b * w),
-            2 * b * s * w, "float32")
+        rec["library_device_ms"] = None
+        add_bound(rec, 4 * (3 * b * s * w + (2 if with_h0 else 1) * b * w),
+                  2 * b * s * w, "float32")
     print(f"  lru_scan {(b, s, w)} {'h0' if with_h0 else 'zero state'}: "
           f"max_abs_err {err:.3g} (atol 2e-4 rtol 2e-4) "
           f"{'ok' if ok else 'FAIL'}"
@@ -369,12 +453,13 @@ def phase_kernels():
     fa_recs = [flash_case(*shape, "bfloat16", True, timed=True)
                for shape in fa_main]
     recs["flash_attention"] = max(fa_recs, key=lambda r: r["shape"][3])
-    # the fp32 instance of the same template, at the tight limit
-    for shape in fa_main:
-        flash_case(*shape, "float32", True, timed=False)
+    # the fp32 SIMT kernel, at the tight limit, timed on its own
+    fp32_recs = [flash_case(*shape, "float32", True, timed=True)
+                 for shape in fa_main]
+    recs["flash_attention_fp32"] = max(fp32_recs, key=lambda r: r["shape"][3])
     recs["flash_attention_window"] = flash_case(
         *fw_shape, "bfloat16", True, timed=True, window=window)
-    flash_case(*fw_shape, "float32", True, timed=False, window=window)
+    flash_case(*fw_shape, "float32", True, timed=True, window=window)
     flash_case(*fw_shape, "bfloat16", True, timed=False, window=16)
     recs["wkv6"] = wkv6_case(*wkv_main, "bfloat16", True, timed=True)
     lru_case(*lru_main, False, timed=False)
@@ -445,14 +530,19 @@ def _prefill_len(cfg, plen):
     return plen if (cfg.rwkv or cfg.rglru) else prompt_bucket(plen)
 
 
+# the port's own kernels, by the names the profiler gives them
+PORT_KERNELS = ("pairwise_distance_kernel", "flash_fwd", "wkv6_kernel",
+                "lru_chunk")
+
+
 def profile_engine(res, steps=8):
     """Where the time goes: torch.profiler over one prefill at the longest
     prompt's prefill length (its bucket for dense, exact for the recurrent
     families) and ``steps`` batched decode steps at the last cache position,
     of the serve phase's engine (all slots live), after warm-up.  Prints
     host wall time, device busy time (sum of kernel times; one stream, so
-    no overlap), the device's idle share and the top kernels by device
-    time."""
+    no overlap), the device's idle share, the top kernels by device time
+    and the port's own kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     eng = res["engine"]
@@ -500,6 +590,11 @@ def profile_engine(res, steps=8):
         for e in top:
             print(f"    {e.self_device_time_total / 1e3 / reps:9.4f} ms  "
                   f"x{e.count / reps:5.0f}  {e.key[:90]}")
+        for e in evs:
+            if any(k in e.key for k in PORT_KERNELS):
+                ms = e.self_device_time_total / 1e3 / reps
+                print(f"    port kernel {ms:9.4f} ms  x{e.count / reps:5.0f}  "
+                      f"{e.key[:70]}")
     return out
 
 
@@ -606,14 +701,16 @@ KERNEL_SOURCES = {
     "lru_scan": ("src/repro_torch/kernels/csrc/lru_scan.cu",
                  "src/repro/kernels/rglru_scan/kernel.py:20"),
 }
-TIMED_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-              "bound_by", "library_ms")
+TIMED_KEYS = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+              "bound_ms", "bound_by", "bound_share", "library_ms",
+              "library_device_ms")
 
 
 def kernel_records(recs, by_path):
     """One JSON record per kernel: its main-path timing, its launches summed
     over the serve paths and per path.  flash_attention's record is olmo's
-    causal prefill; its windowed (recurrentgemma) case rides along."""
+    causal bf16 prefill (tensor cores); its windowed (recurrentgemma) case
+    and its fp32 (SIMT) instance at olmo's shape ride along."""
     out = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         paths = {arch: counts[name] for arch, counts in by_path.items()
@@ -623,9 +720,11 @@ def kernel_records(recs, by_path):
                "launches_by_path": paths,
                **{k: recs[name][k] for k in TIMED_KEYS}}
         if name == "flash_attention":
-            rec["window_case"] = {"window": recs[name + "_window"]["window"],
-                                  **{k: recs[name + "_window"][k]
-                                     for k in TIMED_KEYS}}
+            win = recs[name + "_window"]
+            rec["window_case"] = {"window": win["window"],
+                                  **{k: win[k] for k in TIMED_KEYS}}
+            rec["fp32_case"] = {k: recs[name + "_fp32"][k]
+                                for k in TIMED_KEYS}
         out.append(rec)
     return out
 
@@ -662,8 +761,9 @@ def main() -> int:
           f"{secs:.1f} s")
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    phase_sass(_build)
 
     # 3. kernels
     print("kernels against their plain versions on the card:")
@@ -680,8 +780,10 @@ def main() -> int:
                else "none")
         print(f"kernel {k['name']}: launches={k['launches']} "
               f"{k['launches_by_path']} ms={k['ms']:.4f} "
+              f"device_ms={k['device_ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
-              f"bound_ms={k['bound_ms']:.5f} ({k['bound_by']}) "
+              f"bound_ms={k['bound_ms']:.5f} ({k['bound_by']}, share "
+              f"{k['bound_share']:.3f}) "
               f"max_abs_err={k['max_abs_err']:.3g} at {k['shape']}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

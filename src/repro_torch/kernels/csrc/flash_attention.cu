@@ -13,33 +13,60 @@
 // query also needs q_pos - k_pos < window.
 //
 // What bounds it on the H100: causal attention does ~S/4 flop per byte of
-// bf16 q/k/v/o, so at the serve path's prefill buckets (S = 256..512,
-// D = 128) the card's bound is bytes (under the ~295 flop/byte bf16 ridge)
-// and from S ~ 1200 on it is operations.  This first version keeps every
-// product on the fp32 FMA pipes (67 TFLOP/s on the data sheet), not the
-// tensor cores, so its own ceiling is operations at every size: it is
-// simple and deterministic, and it serves fp32 inputs at full precision.
-// wgmma/TMA tiles come in a later change.  What the design does about it:
-//   * a block owns 64 query rows of one (batch, head); 256 threads as
-//     16 x 16, each thread 4 query rows x (Bk / 16) keys of the score tile
-//     and 4 rows x (D / 16) columns of the output accumulator, all in
-//     registers, so each shared-memory read feeds 4 FMAs;
-//   * the query tile is staged once; K/V tiles (Bk = 64, 32 at D = 256 to
-//     fit shared memory) are staged per step, converted to fp32 on load,
-//     rows padded so that the column reads hit distinct banks;
-//   * under `causal` the KV loop stops at the diagonal tile, and under a
-//     window it starts at the first tile that holds a key at or right of
-//     q_tile_start - window + 1: tiles wholly outside the band are skipped;
-//   * a masked score's probability is exactly 0, so a row whose first
-//     visited tile lies wholly left of its window adds nothing;
-//   * both ragged edges (Sq, Sk) are masked in the kernel: the wrapper pads
-//     nothing, and arbitrary strides are taken, so (B, S, H, D) tensors
-//     from the projections are read in place;
-//   * row max and row sum are butterfly shuffles over the 16 lanes that
-//     hold a row (every lane ends with the same bits), the PV sum runs over
-//     keys in one fixed order, and nothing uses atomics: the output is
-//     bit-identical from run to run.
+// bf16 q/k/v/o, so at olmo-1b's prefill buckets (S = 256..512, D = 128) the
+// card's bound is bytes (under the ~295 flop/byte bf16 ridge); from
+// S ~ 1200 on, and for recurrentgemma-2b's 2048-key window at D = 256, it is
+// the tensor cores' 989 TFLOP/s.  The first version of this file ran every
+// product on the fp32 FMA pipes (67 TFLOP/s): 4.03 ms at (4,16,16,2048,128)
+// causal, 2.76 ms at (1,10,1,3055,256) window 2048, 0.150 and 0.089 ms at
+// olmo's 512 and 256 buckets, 25x, 3.7x and 3-5x SDPA's time (PERF.md,
+// PR 12, NVIDIA H100 80GB HBM3 at 700 W).
+//
+// bf16 inputs run on the tensor cores (flash_fwd_tc below):
+//   * S = Q K^T is wgmma m64nBk k16 with Q and K read from shared memory
+//     (both K-major); O += P V is wgmma m64nD k16 with P in registers and V
+//     read from shared memory MN-major (the transpose 16-bit types allow);
+//   * P never touches shared memory: the fp32 S accumulator fragment, cast
+//     pairwise to bf16, is the A fragment of the PV product (the layouts
+//     coincide for 16-bit types, as in FlashAttention-3);
+//   * one producer warpgroup: a single thread loads Q once and the K/V
+//     tiles by TMA into a ring of 2-4 stages completed on mbarriers, and
+//     refills a stage when every consumer thread has arrived on its `empty`
+//     mbarrier, so copies run ahead of the math; its other threads exit;
+//   * consumers: 1 or 2 warpgroups of 64 query rows each (Bq = 64 or 128).
+//     Registers set the tiles: with 384 threads a thread has 168, which
+//     holds the 64 x D fp32 O accumulator, the 64 x Bk S accumulator and P
+//     for D <= 128 with Bk = 64 (D = 64: Bk = 128); at D = 256 O alone
+//     takes 128, so D = 256 runs one consumer (255 registers, Bk = 64).
+//     Bq = 128 is taken where its grid covers the SMs once, else 64;
+//   * each consumer phase issues S(j) and P(j-1) V back to back and runs
+//     the softmax of S(j) while the PV product is still on the tensor
+//     cores; exp is ex2 on log2(e)-scaled scores, one FFMA each;
+//   * tensor maps are 4-d (D, S, heads, batch) over the strides the wrapper
+//     passes (16-byte aligned: the wrapper checks), so the model's
+//     (B, S, H, D) projections are read in place; a box is 64 columns
+//     (128 bytes, the SWIZZLE_128B span), so a 128- or 256-wide head is 2
+//     or 4 boxes side by side, and the descriptors step over them (K-major:
+//     32 bytes per k16 slice inside a box, the next box after 4 slices;
+//     MN-major V: the next box at the leading byte offset); out-of-bounds
+//     rows of a box (the ragged Sq and Sk edges) arrive as zeros and are
+//     masked;
+//   * the masks are applied only on tiles that cross the diagonal, the
+//     window's left edge or Sk; the KV loop stops at the causal diagonal and
+//     starts at the first tile that holds a key at or right of
+//     q_tile_start - window + 1; the longest query tiles start first;
+//   * P enters the PV product in bf16, a rounding the fp32 plain version
+//     does not make (|p| <= 1, so at most 2^-9 absolute per weight); m, l,
+//     the S and O accumulators and the softmax stay fp32;
+//   * no atomics and no split over keys: the KV tiles are visited in one
+//     order, row sums reduce over the 4 lanes of a row by a butterfly, and
+//     the output is bit-identical from run to run (and between Bq = 64 and
+//     128: a tile wholly masked for a row leaves it unchanged).
+// fp32 inputs keep the first version's SIMT kernel (flash_fwd_simt): the
+// tensor cores would take them as TF32, which breaks the 2e-4 fp32 limit;
+// no caller on the serve path passes fp32.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,26 +74,29 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBq = 64;        // query rows per block
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = 4;       // query rows per thread (16 * 4 = kBq)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {
   int64_t b, h, s;  // elements; the head dim is contiguous
 };
+
+// ---------------------------------------------------------------------------
+// fp32: the SIMT kernel
+//   * a block owns 64 query rows of one (batch, head); 256 threads as
+//     16 x 16, each thread 4 query rows x (Bk / 16) keys of the score tile
+//     and 4 rows x (D / 16) columns of the output accumulator, all in
+//     registers, so each shared-memory read feeds 4 FMAs;
+//   * the query tile is staged once; K/V tiles (Bk = 64, 32 at D = 256 to
+//     fit shared memory) are staged per step, rows padded so that the
+//     column reads hit distinct banks;
+//   * row max and row sum are butterfly shuffles over the 16 lanes that
+//     hold a row (every lane ends with the same bits).
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int kBq = 64;        // query rows per block
+constexpr int kThreads = 256;  // 16 x 16
+constexpr int kRows = 4;       // query rows per thread (16 * 4 = kBq)
 
 template <int D>
 struct Cfg {
@@ -93,13 +123,12 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int group,
-                 int Sq, int Sk, int causal, int window, float scale,
-                 Strides qst,
-                 Strides kst, Strides vst, Strides ost) {
+flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int H,
+               int group, int Sq, int Sk, int causal, int window, float scale,
+               Strides qst, Strides kst, Strides vst, Strides ost) {
   using C = Cfg<D>;
   constexpr int Bk = C::kBk;
   extern __shared__ float smem[];
@@ -116,15 +145,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / group;
   const int q0 = blockIdx.x * kBq;
 
-  const T* qb = q + b * qst.b + h * qst.h;
-  const T* kb = k + b * kst.b + hk * kst.h;
-  const T* vb = v + b * vst.b + hk * vst.h;
-  T* ob = o + b * ost.b + h * ost.h;
+  const float* qb = q + b * qst.b + h * qst.h;
+  const float* kb = k + b * kst.b + hk * kst.h;
+  const float* vb = v + b * vst.b + hk * vst.h;
+  float* ob = o + b * ost.b + h * ost.h;
 
   for (int idx = tid; idx < kBq * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
     const int qi = q0 + r;
-    Qs[r * C::kKld + d] = qi < Sq ? to_f(qb[qi * qst.s + d]) : 0.f;
+    Qs[r * C::kKld + d] = qi < Sq ? qb[qi * qst.s + d] : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][C::kOcols];
@@ -151,8 +180,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, d = idx % D;
       const int kj = k0 + r;
       const bool ok = kj < Sk;
-      Ks[r * C::kKld + d] = ok ? to_f(kb[kj * kst.s + d]) : 0.f;
-      Vs[r * D + d] = ok ? to_f(vb[kj * vst.s + d]) : 0.f;
+      Ks[r * C::kKld + d] = ok ? kb[kj * kst.s + d] : 0.f;
+      Vs[r * D + d] = ok ? vb[kj * vst.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -226,45 +255,628 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C::kOcols; ++c)
-      ob[qi * ost.s + tx + 16 * c] = from_f<T>(acc[i][c] / denom);
+      ob[qi * ost.s + tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KV, int Sq, int Sk, int causal, int window, float scale,
            Strides qst, Strides kst, Strides vst, Strides ost,
            cudaStream_t stream) {
   const size_t smem = Cfg<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBq - 1) / kBq, B * H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, H / KV, Sq, Sk,
-      causal, window, scale, qst, kst, vst, ost);
+  flash_fwd_simt<D><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, H,
+      H / KV, Sq, Sk, causal, window, scale, qst, kst, vst, ost);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int H, int KV, int Sq, int Sk, int causal, int window,
-               float scale, Strides qst, Strides kst, Strides vst, Strides ost,
-               cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                           scale, qst, kst, vst, ost, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                            scale, qst, kst, vst, ost, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                            scale, qst, kst, vst, ost, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (wgmma, TMA, mbarriers; sm_90a only)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+// Registers decide the tiles: 384 threads (two consumers and the producer
+// warpgroup) leave 168 a thread, which holds a 64 x D fp32 O accumulator,
+// the 64 x Bk S accumulator and P's fragments only for D <= 128 with
+// Bk = 64 (D = 64 affords Bk = 128); at D = 256 the O accumulator alone
+// takes 128, so D = 256 runs one consumer warpgroup (255 registers).
+// Shared memory then takes as many K/V stages as fit, up to 4.
+template <int D, int NWG>
+struct Tile {
+  static_assert(NWG == 1 || D <= 128, "two consumers only for D <= 128");
+  static constexpr int kBq = 64 * NWG;             // query rows per block
+  static constexpr int kBk = D >= 128 ? 64 : 128;  // keys per KV tile
+  static constexpr int kThreads = 128 * (NWG + 1); // + a producer
+  static constexpr int kQBytes = kBq * D * 2;
+  static constexpr int kKVBytes = kBk * D * 2;     // one K or one V tile
+  static constexpr int kStages =                   // K/V ring depth
+      (232448 - 1024 - 128 - kQBytes) / (2 * kKVBytes) < 4
+          ? (232448 - 1024 - 128 - kQBytes) / (2 * kKVBytes)
+          : 4;
+  // Q | K[kStages] | V[kStages] | mbarriers; every tile 1024-byte aligned
+  // (the SWIZZLE_128B atom), the base aligned up at run time
+  static constexpr int kKOff = kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKVBytes;
+  static constexpr int kBarOff = kVOff + kStages * kKVBytes;
+  static constexpr int kSmem = kBarOff + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kStages >= 2 && kSmem <= 232448, "K/V ring does not fit");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits for the phase of parity `phase` to complete; a copy that never
+// lands (a bad tensor map) traps after ~2^34 cycles instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
   }
+}
+
+// one box of a 4-d tensor map (d, s, head, batch) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int s, int head,
+                                         int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(s),
+      "r"(head), "r"(batch)
+      : "memory");
+}
+
+// a (rows x D) tile as D / 64 boxes of (rows x 64), box j at dst + j*rows*128
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int row0, int head,
+                                          int batch) {
+  mbar_expect_tx(bar, ROWS * D * 2);
+#pragma unroll
+  for (int j = 0; j < D / 64; ++j)
+    tma_load(dst + j * ROWS * 128, map, bar, j * 64, row0, head, batch);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each >> 4 in 14 bits
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (Q as A, K as B): a (ROWS x D) tile in D / 64 boxes; the
+// 16-column slice kk sits at box kk / 4, 32 bytes per slice inside the
+// 128-byte swizzled row; 8-row groups 1024 bytes apart
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + (kk / 4) * ROWS * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major operand (V as B, transposed): 16 keys per slice are 16 rows of
+// 128 bytes; along D the next 64 columns are the next box, ROWS * 128 bytes
+// on (leading byte offset); 8-key groups 1024 bytes apart
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 16 * 128, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// waits until at most N committed wgmma groups are still running
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// ties each accumulator register to this point, so that no read or write of
+// it moves across the wgmma wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_F8(i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x 64) {=, +=} A (64 x 16, shared) * B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128) {=, +=} A (64 x 16, shared) * B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56),
+        WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88),
+        WG_F8(96), WG_F8(104), WG_F8(112), WG_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_F8
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one KV tile for this thread's two rows, on the raw
+// scores s (the S accumulator fragment).  Masked marks masked scores as
+// kNegInf first and gives them probability exactly 0.  On return s holds P
+// (fp32), m and l are updated and alpha0/alpha1 are the factors by which
+// the O accumulator must be rescaled before P V is added.
+template <bool Masked, int Bk>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[Bk / 2], float& m0, float& m1, float& l0, float& l1,
+    float& alpha0, float& alpha1, float scale_log2, int row0, int row1,
+    int key0, int Sk, int causal, int window) {
+  if (Masked) {
+#pragma unroll
+    for (int i = 0; i < Bk / 2; ++i) {
+      const int row = (i % 4) < 2 ? row0 : row1;
+      const int key = key0 + 8 * (i / 4) + (i % 2);
+      const bool valid = key < Sk && (!causal || row >= key) &&
+                         (window <= 0 || row - key < window);
+      if (!valid) s[i] = kNegInf;
+    }
+  }
+  // the 4 lanes of a row agree on its max
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < Bk / 2; i += 4) {
+    mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  alpha0 = ex2((m0 - mx0) * scale_log2);
+  alpha1 = ex2((m1 - mx1) * scale_log2);
+  m0 = mx0;
+  m1 = mx1;
+  const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < Bk / 2; ++i) {
+    const bool r0 = (i % 4) < 2;
+    float p = ex2(fmaf(s[i], scale_log2, -(r0 ? mb0 : mb1)));
+    if (Masked && s[i] == kNegInf) p = 0.f;
+    s[i] = p;
+    if (r0) ps0 += p;
+    else ps1 += p;
+  }
+  l0 = alpha0 * l0 + ps0;  // this lane's columns; lanes summed at the end
+  l1 = alpha1 * l1 + ps1;
+}
+
+// The products of one phase: S(j) = Q K_j^T (if S) and O += P(j-1) V_{j-1}
+// (if PV), each committed as its own wgmma group.
+template <bool DoS, bool DoPV, int D, int Bq, int Bk>
+__device__ __forceinline__ void issue_phase(float (&s)[Bk / 2],
+                                            float (&acc)[D / 2],
+                                            const uint32_t (&pa)[Bk / 16][4],
+                                            uint32_t sQw, uint32_t sKs,
+                                            uint32_t sVs, uint32_t bar_k,
+                                            uint32_t k_phase, uint32_t bar_v,
+                                            uint32_t v_phase) {
+  wg_fence();
+  if (DoS) {
+    mbar_wait(bar_k, k_phase);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<Bk>(s, desc_kmajor<Bq>(sQw, kk), desc_kmajor<Bk>(sKs, kk),
+                   kk > 0);
+    wg_commit();
+  }
+  if (DoPV) {
+    mbar_wait(bar_v, v_phase);
+#pragma unroll
+    for (int kk = 0; kk < Bk / 16; ++kk)
+      wgmma_rs<D>(acc, pa[kk], desc_mnmajor<Bk>(sVs, kk));
+    wg_commit();
+  }
+}
+
+// P as bf16 A fragments: the S accumulator of keys 16kk..16kk+15 in the
+// m16k16 A layout
+template <int Bk>
+__device__ __forceinline__ void pack_p(const float (&s)[Bk / 2],
+                                       uint32_t (&pa)[Bk / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < Bk / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Warpgroups 0..NWG-1 consume, 64 query rows each; warpgroup NWG produces:
+// one of its threads issues every TMA copy and refills a stage once every
+// consumer thread has arrived on its `empty` barrier.
+//
+// A consumer runs n_iter + 1 phases; phase j issues S(j) = Q K_j^T and
+// O += P(j-1) V_{j-1} back to back, computes the softmax of S(j) while the
+// PV product still runs, and only then rescales O and packs P(j).
+template <int D, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             __nv_bfloat16* __restrict__ o, int H, int group, int Sq, int Sk,
+             int causal, int window, float scale_log2, Strides ost) {
+  using T = Tile<D, NWG>;
+  constexpr int Bq = T::kBq, Bk = T::kBk, S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sQ = base, sK = base + T::kKOff, sV = base + T::kVOff;
+  // mbarriers: q, then S each of k_full, v_full and empty
+  const uint32_t bar_q = base + T::kBarOff;
+  const uint32_t bar_k = bar_q + 8;
+  const uint32_t bar_v = bar_k + 8 * S;
+  const uint32_t bar_e = bar_v + 8 * S;
+
+  const int tid = threadIdx.x;
+  // warp-uniform, so that the compiler sees each role's wgmma as converged
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // the longest blocks (last query tiles under causal) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Bq;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int hk = h / group;
+
+  int n_tiles = (Sk + Bk - 1) / Bk;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + Bq, Sq) - 1) / Bk + 1);
+  // the first key any row of this block may see is q0 - window + 1
+  const int t_first = window > 0 ? max(q0 - window + 1, 0) / Bk : 0;
+  const int n_iter = n_tiles - t_first;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(bar_k + 8 * st, 1);
+      mbar_init(bar_v + 8 * st, 1);
+      mbar_init(bar_e + 8 * st, 128 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    if (tid == 128 * NWG) {
+      load_tile<D, Bq>(sQ, &qmap, bar_q, q0, h, b);
+      for (int it = 0; it < n_iter; ++it) {
+        const int st = it % S;
+        if (it >= S) mbar_wait(bar_e + 8 * st, (it / S - 1) & 1);
+        const int k0 = (t_first + it) * Bk;
+        load_tile<D, Bk>(sK + st * T::kKVBytes, &kmap, bar_k + 8 * st, k0,
+                         hk, b);
+        load_tile<D, Bk>(sV + st * T::kKVBytes, &vmap, bar_v + 8 * st, k0,
+                         hk, b);
+      }
+    }
+    return;
+  }
+
+  // this thread's two rows of the warpgroup's 64: row0 and row0 + 8; its
+  // columns of each 8-wide chunk: c0 and c0 + 1
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int qw0 = q0 + wg * 64;
+  const int row0 = qw0 + warp * 16 + lane / 4;
+  const int row1 = row0 + 8;
+  const int c0 = 2 * (lane % 4);
+  const uint32_t sQw = sQ + wg * 64 * 128;
+
+  float s[Bk / 2];
+  float acc[D / 2];
+  uint32_t pa[Bk / 16][4];
+#pragma unroll
+  for (int i = 0; i < Bk / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < Bk / 16; ++kk)
+    pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float alpha0, alpha1;
+
+  // softmax of S(j), in place; masks only where this warpgroup's rows cross
+  // the diagonal, the window's left edge or Sk
+  auto softmax = [&](int j) {
+    const int k0 = (t_first + j) * Bk;
+    if (k0 + Bk > Sk || (causal && k0 + Bk - 1 > qw0) ||
+        (window > 0 && qw0 + 63 - k0 >= window))
+      softmax_tile<true, Bk>(s, m0, m1, l0, l1, alpha0, alpha1, scale_log2,
+                             row0, row1, k0 + c0, Sk, causal, window);
+    else
+      softmax_tile<false, Bk>(s, m0, m1, l0, l1, alpha0, alpha1, scale_log2,
+                              row0, row1, k0 + c0, Sk, causal, window);
+  };
+  auto kaddr = [&](int j) { return sK + (j % S) * T::kKVBytes; };
+  auto vaddr = [&](int j) { return sV + (j % S) * T::kKVBytes; };
+  auto kbar = [&](int j) { return bar_k + 8 * (j % S); };
+  auto vbar = [&](int j) { return bar_v + 8 * (j % S); };
+  auto par = [&](int j) { return (uint32_t)((j / S) & 1); };
+
+  if (n_iter > 0) {
+    mbar_wait(bar_q, 0);
+    // phase 0: S(0)
+    issue_phase<true, false, D, Bq, Bk>(s, acc, pa, sQw, kaddr(0), 0,
+                                        kbar(0), par(0), 0, 0);
+    wg_wait<0>();
+    fence_regs(s);
+    softmax(0);
+    pack_p<Bk>(s, pa);
+    // phases 1 .. n_iter - 1: S(j) and P(j-1) V
+    for (int j = 1; j < n_iter; ++j) {
+      issue_phase<true, true, D, Bq, Bk>(s, acc, pa, sQw, kaddr(j),
+                                         vaddr(j - 1), kbar(j), par(j),
+                                         vbar(j - 1), par(j - 1));
+      wg_wait<1>();  // S(j) is done, P(j-1) V may still run
+      fence_regs(s);
+      softmax(j);
+      wg_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(bar_e + 8 * ((j - 1) % S));  // done with tile j-1's stage
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= (i % 4) < 2 ? alpha0 : alpha1;
+      pack_p<Bk>(s, pa);
+    }
+    // phase n_iter: P(n_iter - 1) V
+    issue_phase<false, true, D, Bq, Bk>(s, acc, pa, sQw, 0,
+                                        vaddr(n_iter - 1), 0, 0,
+                                        vbar(n_iter - 1), par(n_iter - 1));
+    wg_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(bar_e + 8 * ((n_iter - 1) % S));
+  }
+
+  // the 4 lanes of a row hold disjoint columns' sums: a butterfly gives
+  // each the same total
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = o + b * ost.b + h * ost.h;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + c0;
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * ost.s + col) =
+          __floats2bfloat162_rn(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * ost.s + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so that
+// the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a 4-d map (D, S, heads, batch) of bf16 with (box_rows x 64) boxes
+int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
+             int B, Strides st, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D, int NWG>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int KV, int Sq, int Sk, int causal, int window, float scale,
+           Strides qst, Strides kst, Strides vst, Strides ost,
+           cudaStream_t stream) {
+  using T = Tile<D, NWG>;
+  CUtensorMap qmap, kmap, vmap;
+  int err = make_map(&qmap, q, D, Sq, H, B, qst, T::kBq);
+  if (!err) err = make_map(&kmap, k, D, Sk, KV, B, kst, T::kBk);
+  if (!err) err = make_map(&vmap, v, D, Sk, KV, B, vst, T::kBk);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + T::kBq - 1) / T::kBq, B * H);
+  flash_fwd_tc<D, NWG><<<grid, T::kThreads, T::kSmem, stream>>>(
+      qmap, kmap, vmap, (__nv_bfloat16*)o, H, H / KV, Sq, Sk, causal, window,
+      scale * 1.4426950408889634f, ost);  // log2(e): exp via ex2
+  return (int)cudaGetLastError();
+}
+
+// Bq = 128 where it exists (D <= 128) and its grid covers the SMs once;
+// the bits are the same either way
+bool wide_block(int D, int B, int H, int Sq) {
+  if (D > 128) return false;
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (long long)((Sq + 127) / 128) * B * H >= sms;
+}
+
+}  // namespace tc
+
+template <int D>
+int dispatch(int is_bf16, const void* q, const void* k, const void* v,
+             void* o, int B, int H, int KV, int Sq, int Sk, int causal,
+             int window, float scale, Strides qst, Strides kst, Strides vst,
+             Strides ost, cudaStream_t stream) {
+  if (!is_bf16)
+    return simt::launch<D>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+                           scale, qst, kst, vst, ost, stream);
+  if constexpr (D <= 128)
+    if (tc::wide_block(D, B, H, Sq))
+      return tc::launch<D, 2>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+                              scale, qst, kst, vst, ost, stream);
+  return tc::launch<D, 1>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+                          scale, qst, kst, vst, ost, stream);
 }
 
 }  // namespace
@@ -272,23 +884,32 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 // q: (B, H, Sq, D), k/v: (B, KV, Sk, D), o: (B, H, Sq, D), each addressed by
 // its (batch, head, seq) element strides with a contiguous head dim; all of
 // one dtype (is_bf16 ? bf16 : fp32).  D must be 64, 128 or 256.  window > 0
-// (causal only) keeps the keys with q_pos - k_pos < window.  Launches on
-// `stream`; returns cudaGetLastError() (0 on success).
+// (causal only) keeps the keys with q_pos - k_pos < window.  bf16 needs
+// 16-byte aligned pointers and strides (TMA).  Launches on `stream`;
+// returns a CUDA error code (0 on success).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
-    int H, int KV, int Sq, int Sk, int D, int causal, int window, float scale,
-    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
-    int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
-    int64_t o_sh, int64_t o_ss, void* stream) {
+    const void* q, const void* k, const void* v, void* o, int is_bf16,
+    int B, int H, int KV, int Sq, int Sk, int D, int causal,
+    int window, float scale, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+    int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
+    int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
       window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const Strides qst{q_sb, q_sh, q_ss}, kst{k_sb, k_sh, k_ss},
       vst{v_sb, v_sh, v_ss}, ost{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Sk, causal,
-                                     window, scale, qst, kst, vst, ost, s);
-  return dispatch_d<float>(D, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                           scale, qst, kst, vst, ost, s);
+  switch (D) {
+    case 64:
+      return dispatch<64>(is_bf16, q, k, v, o, B, H, KV, Sq, Sk,
+                          causal, window, scale, qst, kst, vst, ost, s);
+    case 128:
+      return dispatch<128>(is_bf16, q, k, v, o, B, H, KV, Sq, Sk,
+                           causal, window, scale, qst, kst, vst, ost, s);
+    case 256:
+      return dispatch<256>(is_bf16, q, k, v, o, B, H, KV, Sq, Sk,
+                           causal, window, scale, qst, kst, vst, ost, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,11 +1,19 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention kernels (``csrc/flash_attention.cu``).
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  ``flash_attention.launches`` counts the launches.
+a kernel or raises.  ``flash_attention.launches`` counts the launches.
 
-The kernel reads q, k, v through their (batch, head, seq) strides, so the
+bf16 runs on the tensor cores (wgmma, with K/V tiles brought in by TMA);
+TMA needs every base pointer and every (batch, head, seq) stride of q, k, v
+16-byte aligned, and the wrapper raises otherwise (every caller in the port
+passes aligned tensors).  The kernel takes 128 query rows a block where the
+head dim is at most 128 and that grid covers every SM once, else 64; the
+result has the same bits either way.  fp32 runs on the SIMT kernel at full
+fp32 precision, with no alignment condition.
+
+The kernels read q, k, v through their (batch, head, seq) strides, so the
 model passes ``(B, S, H, D)`` projections as transposed views without a
-copy, and writes its output into a ``(B, Sq, H, D)`` buffer returned as a
+copy, and write the output into a ``(B, Sq, H, D)`` buffer returned as a
 ``(B, H, Sq, D)`` view: ``out.transpose(1, 2)`` is contiguous.
 """
 from __future__ import annotations
@@ -52,6 +60,16 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
+def _check_tma_aligned(*xs):
+    for x in xs:
+        if x.data_ptr() % 16 or any(x.stride(i) * x.element_size() % 16
+                                    for i in range(3)):
+            raise ValueError(
+                f"the bf16 kernel reads by TMA and needs a 16-byte aligned "
+                f"base and (batch, head, seq) strides; got a tensor at "
+                f"offset {x.data_ptr() % 16} with strides {x.stride()}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, KV, Sk, D) -> (B, H, Sq, D) in q's
@@ -77,10 +95,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return out
     if sk == 0:
         raise ValueError("flash attention needs at least one key")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma_aligned(q, k, v)
     with torch.cuda.device(q.device):
         err = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, kv, sq, sk, d,
+            int(bf16), b, h, kv, sq, sk, d,
             int(causal), int(window), 1.0 / math.sqrt(d),
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),

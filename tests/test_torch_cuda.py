@@ -22,9 +22,11 @@ from repro_torch.kernels.rwkv6_scan import ops as wk_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as wk_ref  # noqa: E402
 
 # the shapes of tests/test_kernels.py, a large B1 case and olmo-1b's prefill
-# buckets; the JAX tests' fp32 and pairwise limits.  In bf16 the kernel and
-# its plain version both accumulate in fp32 and round the output once, so
-# they may differ by one bf16 ulp of the output (<= 2^-7 |x|), no more.
+# buckets; the JAX tests' fp32 and pairwise limits.  bf16: the kernel rounds
+# the output to bf16 once and, on the tensor cores, each probability P to
+# bf16 before the PV product (at most 2^-9 absolute, |P| <= 1), where the
+# plain version keeps P in fp32; the limit stays one bf16 ulp of the
+# output (<= 2^-7 |x|) over a 4e-3 floor.
 PA_SHAPES = [(16, 4), (100, 10), (130, 3), (256, 64), (4096, 10)]
 FA_SHAPES = [(1, 4, 2, 128, 128), (2, 8, 8, 256, 128), (1, 2, 1, 130, 128),
              (1, 4, 2, 384, 256), (1, 16, 16, 256, 128),
@@ -48,6 +50,34 @@ WKV_TOL = {torch.float32: dict(atol=2e-4, rtol=1e-3),
            torch.bfloat16: dict(atol=4e-3, rtol=1e-2)}
 LRU_SHAPES = [(2, 128, 128), (3, 100, 96), (8, 256, 256), (1, 17, 130),
               (1, 301, 2560)]
+# the edges of the bf16 tensor-core tiles: Bq = 64 or 128 query rows, Bk =
+# 128 keys at D = 64 and 64 above; (Sq, Sk) at 1, Bq - 1, Bq + 1 and 3055.
+# The kernel takes Bq = 128 (D <= 128 only) where its grid covers every SM,
+# so the Bq = 128 cases run one head per SM and the Bq = 64 cases four heads
+FA_TC_EDGES = [(d, bq, s) for d in (64, 128, 256)
+               for bq in ((64, 128) if d <= 128 else (64,))
+               for s in (1, bq - 1, bq + 1, 3055)]
+# (Sq = Sk, causal, window) whose output must not depend on Bq
+FA_BQ_CASES = [(200, True, 0), (200, False, 0), (700, True, 37),
+               (3055, True, 2048)]
+# (B, H, KV, Sq, Sk, D, causal, window): GQA groups 1, 2, 4 and 10 (MQA);
+# window 1, one under Bk, one off the tile grid and 2048 past its end;
+# bidirectional with a ragged Sk on either side of Sq
+FA_TC_CASES = [
+    (2, 2, 2, 200, 200, 128, True, 0), (1, 4, 2, 300, 300, 64, True, 0),
+    (1, 8, 2, 257, 257, 128, True, 0), (1, 10, 1, 333, 333, 256, True, 0),
+    (1, 4, 2, 300, 300, 128, True, 1), (1, 4, 1, 300, 300, 256, True, 1),
+    (1, 4, 2, 300, 300, 64, True, 37), (1, 10, 1, 500, 500, 256, True, 37),
+    (1, 4, 2, 700, 700, 128, True, 200), (1, 10, 1, 700, 700, 256, True, 200),
+    (1, 10, 1, 3055, 3055, 256, True, 2048),
+    (1, 4, 4, 2300, 2300, 128, True, 2048),
+    (2, 4, 2, 130, 77, 128, False, 0), (1, 4, 1, 130, 200, 256, False, 0),
+    (1, 2, 2, 65, 3055, 64, False, 0),
+]
+# the bf16 kernel's chunk: S = 1, under, at and past one chunk, the serve
+# path's longest prompt; B > 1
+LRU_CHUNK_SHAPES = [(1, 1, 2560), (2, 57, 300), (3, 128, 256),
+                    (2, 129, 130), (1, 3055, 2560), (4, 500, 96)]
 LRU_TOL = dict(atol=2e-4, rtol=2e-4)
 
 
@@ -194,5 +224,116 @@ def test_lru_scan_kernel_on_card(cuda_device, b, s, w, with_h0):
     want_h, want_last = lru_ref.lru_scan(a, x, h0)
     torch.testing.assert_close(h, want_h, **LRU_TOL)
     torch.testing.assert_close(last, want_last, **LRU_TOL)
+    h2, last2 = lru_ops.lru_scan(a, x, h0)
+    assert torch.equal(h, h2) and torch.equal(last, last2)
+
+
+def _qkv_on(dev, b, h, kv, sq, sk, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dev, dtype)
+            for shape in ((b, h, sq, d), (b, kv, sk, d), (b, kv, sk, d)))
+
+
+def _check_flash(q, k, v, **kw):
+    """The kernel against its plain version, and a second launch gives the
+    same bits."""
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = fa_ref.attention(q, k, v, causal=kw.get("causal", True),
+                            window=kw.get("window", 0))
+    assert got.dtype == q.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **FA_TOL[q.dtype])
+    assert torch.equal(got, fa_ops.flash_attention(q, k, v, **kw))
+
+
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bq,s", FA_TC_EDGES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tensor_core_tile_edges(cuda_device, d, bq, s, causal):
+    h = 4 if bq == 64 else _sm_count() + _sm_count() % 2
+    q, k, v = _qkv_on(cuda_device, 1, h, h // 2, s, s, d, torch.bfloat16,
+                      s + d)
+    if bq == 128:   # the grid covers every SM: the kernel takes Bq = 128
+        assert -(-s // 128) * h >= _sm_count()
+    _check_flash(q, k, v, causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,causal,window", FA_BQ_CASES)
+def test_flash_tensor_core_block_sizes_give_same_bits(cuda_device, d, s,
+                                                      causal, window):
+    """Four heads give a grid under the SM count (Bq = 64); the same heads
+    repeated over the batch until the grid covers every SM run at
+    Bq = 128, and each copy must give the same bits."""
+    q, k, v = _qkv_on(cuda_device, 1, 4, 2, s, s, d, torch.bfloat16, s + d)
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    reps = -(-_sm_count() // (-(-s // 128) * 4))
+    assert reps > 1
+    wide = fa_ops.flash_attention(*(x.repeat(reps, 1, 1, 1)
+                                    for x in (q, k, v)),
+                                  causal=causal, window=window)
+    torch.cuda.synchronize()
+    for i in range(reps):
+        assert torch.equal(wide[i:i + 1], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window", FA_TC_CASES)
+def test_flash_tensor_core_cases(cuda_device, b, h, kv, sq, sk, d, causal,
+                                 window):
+    q, k, v = _qkv_on(cuda_device, b, h, kv, sq, sk, d, torch.bfloat16,
+                      sq + sk + window)
+    _check_flash(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_refuses_misaligned_views(cuda_device):
+    """TMA needs 16-byte aligned bases and strides: the wrapper raises, it
+    does not fall back."""
+    q, k, v = _qkv_on(cuda_device, 1, 2, 2, 64, 64, 64, torch.bfloat16, 0)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(q.shape)                 # base off by 2 bytes
+    wide = torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16,
+                       device=cuda_device)[..., :64]  # seq stride 136 bytes
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_ops.flash_attention(bad, k, v)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_ops.flash_attention(q, bad, v)
+    # fp32 runs on the SIMT kernel, which takes any head-contiguous view
+    wide32 = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, 2, 64, 66)).astype(np.float32)).to(cuda_device)[..., :64]
+    got = fa_ops.flash_attention(wide32, k.float(), v.float())
+    want = fa_ref.attention(wide32.contiguous(), k.float(), v.float())
+    torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w", LRU_CHUNK_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_lru_scan_chunk_edges_on_card(cuda_device, b, s, w, with_h0):
+    rng = np.random.default_rng(s + w + b)
+    a = torch.from_numpy(rng.uniform(0.8, 0.999, (b, s, w))).to(
+        cuda_device, torch.float32)
+    x = torch.from_numpy(0.1 * rng.normal(size=(b, s, w))).to(
+        cuda_device, torch.float32)
+    h0 = (torch.from_numpy(rng.normal(size=(b, w))).to(
+        cuda_device, torch.float32) if with_h0 else None)
+    h, last = lru_ops.lru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    for want_h, want_last in (lru_ref.lru_scan(a, x, h0),
+                              lru_ref.lru_scan_chunked(a, x, h0,
+                                                       lru_ops.CHUNK)):
+        torch.testing.assert_close(h, want_h, **LRU_TOL)
+        torch.testing.assert_close(last, want_last, **LRU_TOL)
     h2, last2 = lru_ops.lru_scan(a, x, h0)
     assert torch.equal(h, h2) and torch.equal(last, last2)

@@ -176,6 +176,31 @@ def test_lru_scan_plain_matches_jax_oracle_and_pallas(b, s, w, with_h0):
                                    **_tol("float32"))
 
 
+@pytest.mark.parametrize("b,s,w,chunk", [(2, 1, 8, 4), (1, 17, 130, 4),
+                                         (3, 100, 96, 16), (2, 128, 40, 128),
+                                         (1, 129, 33, 128), (2, 300, 64, 64)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_lru_scan_chunked_matches_plain_and_jax_oracle(b, s, w, chunk,
+                                                       with_h0):
+    """The CUDA kernel's two-pass arithmetic (chunk summaries, carry-ins in
+    chunk order, each chunk re-run) against the doubling scan and JAX
+    ``ref.lru_scan``, fp32 at 2e-4, h and h_last, at S under, at and past
+    a chunk."""
+    a, x, h0 = _lru_inputs(b, s, w, seed=s + chunk)
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    got, glast = lru_ref.lru_scan_chunked(torch.from_numpy(a),
+                                          torch.from_numpy(x), th0, chunk)
+    assert got.shape == (b, s, w) and glast.shape == (b, w)
+    plain, plast = lru_ref.lru_scan(torch.from_numpy(a), torch.from_numpy(x),
+                                    th0)
+    want, wlast = jlru_ref.lru_scan(jnp.asarray(a), jnp.asarray(x),
+                                    jnp.asarray(h0) if with_h0 else None)
+    for ref_h, ref_last in ((_f32(plain), _f32(plast)),
+                            (_f32(want), _f32(wlast))):
+        np.testing.assert_allclose(_f32(got), ref_h, **_tol("float32"))
+        np.testing.assert_allclose(_f32(glast), ref_last, **_tol("float32"))
+
+
 @pytest.mark.parametrize("s,window", [(40, 16), (130, 64), (64, 64)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_windowed_flash_plain_matches_jax_local_mask(s, window, dtype):
