@@ -17,7 +17,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    version's, a library call's and the card's bound (and the share of it
    reached); bf16 flash attention also at a grid that covers every SM
    (128-row query blocks), which must give the same bits, and its fp32
-   SIMT instance timed on its own;
+   SIMT instance timed on its own; WKV6 also at its 16-token chunk edges
+   and at both ends of log_w's clamp, against its sequential and its
+   chunked plain version; WKV6 and pairwise distance give the same bits
+   on a repeat call;
 4. then, for each family the port serves (olmo-1b, rwkv6-3b,
    recurrentgemma-2b), at full width (random seeded weights, bf16):
 
@@ -78,6 +81,8 @@ PA_TOL = dict(atol=3e-3, rtol=1e-3)
 # the JAX test shapes of the two scans (tests/test_kernels.py)
 WKV_TEST_SHAPES = [(1, 2, 32, 64), (2, 3, 48, 64), (1, 1, 20, 64),
                    (1, 2, 64, 128)]
+# B3's chunk edges (16-token chunks) and a long prompt, at rwkv6's 40 heads
+WKV_EDGE_T = (0, 1, 15, 16, 17, 33, 3000)
 LRU_TEST_SHAPES = [(2, 128, 128), (3, 100, 96), (8, 256, 256), (1, 17, 130)]
 
 # the families served, each with its prompt length and the kernels its
@@ -230,7 +235,8 @@ def pairwise_case(n, f, *, timed):
           and (np.abs(np.diag(g)) <= diag_bound).all()
           and (np.abs(np.diag(w)) <= diag_bound).all())
     err = float(np.abs(g - w).max())
-    rec = {"shape": [n, f], "max_abs_err": err, "ok": bool(ok)}
+    same = bool(torch.equal(got, ops.pairwise_distance(x)))
+    rec = {"shape": [n, f], "max_abs_err": err, "ok": bool(ok) and same}
     if timed:
         time_kernel(rec, lambda: ops.pairwise_distance(x))
         rec["plain_ms"] = time_ms(lambda: ref.pairwise_distance(x))
@@ -239,9 +245,11 @@ def pairwise_case(n, f, *, timed):
         add_bound(rec, 4 * (n * f + n * n), n * n * (3 * f + 4), "float32")
     print(f"  pairwise_distance {n}x{f}: max_abs_err {err:.3g} "
           f"(off-diagonal atol 3e-3 rtol 1e-3; diagonal <= sqrt(8 eps "
-          f"|x|^2)) {'ok' if ok else 'FAIL'}"
+          f"|x|^2)){'' if same else ', REPEAT DIFFERS'} "
+          f"{'ok' if ok else 'FAIL'}"
           + (_timing_text(rec, "cdist") if timed else ""))
     check(ok, f"pairwise_distance {n}x{f} disagrees with its plain version")
+    check(same, f"pairwise_distance {n}x{f}: a repeat call changed the bits")
     return rec
 
 
@@ -318,9 +326,19 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     return rec
 
 
-def wkv6_case(b, h, t, n, dtype_name, with_s0, *, timed):
+def _max_err(got, want):
+    return float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+
+
+def wkv6_case(b, h, t, n, dtype_name, with_s0, *, timed, fill="uniform"):
     """The kernel on (B, H, T, N) inputs in ``dtype_name`` (r, k, v) against
-    the plain version in fp32 on the same rounded inputs."""
+    the plain versions (sequential, and chunked as the kernel computes)
+    evaluated in fp64 on the same rounded inputs: over thousands of tokens
+    with decays near 1 the sequential fp32 version drifts past the fp32
+    limit itself, and its own error is printed.  ``fill``: log_w uniform
+    in [-2.5, -0.01], or all at an end of the model's clamp ("min" -2.5,
+    "max" -1e-4)."""
     import numpy as np
     import torch
     from repro_torch.kernels.rwkv6_scan import ops, ref
@@ -332,18 +350,33 @@ def wkv6_case(b, h, t, n, dtype_name, with_s0, *, timed):
 
     r, k, v = (dev(0.5 * rng.normal(size=(b, h, t, n)), dt)
                for _ in range(3))
-    lw = dev(-rng.uniform(0.01, 2.5, (b, h, t, n)))
+    lw = dev({"uniform": -rng.uniform(0.01, 2.5, (b, h, t, n)),
+              "min": np.full((b, h, t, n), -2.5),
+              "max": np.full((b, h, t, n), -1e-4)}[fill])
     u = dev(0.2 * rng.normal(size=(h, n)))
     S0 = dev(0.3 * rng.normal(size=(b, h, n, n))) if with_s0 else None
     o, S = ops.wkv6(r, k, v, lw, u, S0)
     torch.cuda.synchronize()
-    want_o, want_S = ref.wkv6(r.float(), k.float(), v.float(), lw, u, S0)
-    err = max(float((o.float() - want_o).abs().max()),
-              float((S - want_S).abs().max()))
-    ok = bool(torch.allclose(o.float(), want_o, **WKV_TOL[dtype_name])
-              and torch.allclose(S, want_S, **WKV_TOL["float32"]))
+    args = (r.float(), k.float(), v.float(), lw, u, S0)
+    args64 = [None if x is None else x.double() for x in args]
+    err, ok = 0.0, True
+    seq64 = ref.wkv6(*args64)
+    for want_o, want_S in (seq64, ref.wkv6_chunked(*args64,
+                                                   chunk=ops.CHUNK)):
+        want_o, want_S = want_o.float(), want_S.float()
+        err = max(err, _max_err(o, want_o), _max_err(S, want_S))
+        ok = ok and bool(
+            torch.allclose(o.float(), want_o, **WKV_TOL[dtype_name])
+            and torch.allclose(S, want_S, **WKV_TOL["float32"]))
+    # the plain sequential version in fp32 against the same fp64 oracle
+    seq32 = ref.wkv6(*args)
+    plain_err = max(_max_err(seq32[0], seq64[0].float()),
+                    _max_err(seq32[1], seq64[1].float()))
+    o2, S2 = ops.wkv6(r, k, v, lw, u, S0)
+    same = bool(torch.equal(o, o2) and torch.equal(S, S2))
     rec = {"shape": [b, h, t, n], "dtype": dtype_name, "s0": with_s0,
-           "max_abs_err": err, "ok": ok}
+           "fill": fill, "max_abs_err": err, "plain_fp32_err": plain_err,
+           "ok": ok and same}
     if timed:
         time_kernel(rec, lambda: ops.wkv6(r, k, v, lw, u, S0))
         rec["plain_ms"] = time_ms(lambda: ref.wkv6(r, k, v, lw, u, S0))
@@ -355,12 +388,16 @@ def wkv6_case(b, h, t, n, dtype_name, with_s0, *, timed):
                   b * h * t * (4 * n * n + 3 * n), dtype_name)
     tol = WKV_TOL[dtype_name]
     print(f"  wkv6 {(b, h, t, n)} {dtype_name} "
-          f"{'S0' if with_s0 else 'zero state'}: max_abs_err {err:.3g} "
-          f"(o atol {tol['atol']} rtol {tol['rtol']}; S fp32 limit) "
-          f"{'ok' if ok else 'FAIL'}"
+          f"{'S0' if with_s0 else 'zero state'} log_w {fill}: max_abs_err "
+          f"{err:.3g} against the sequential and chunked plain versions in "
+          f"fp64 (o atol {tol['atol']} rtol {tol['rtol']}; S fp32 limit; "
+          f"the sequential fp32 version's own error {plain_err:.3g})"
+          f"{'' if same else ', REPEAT DIFFERS'} {'ok' if ok else 'FAIL'}"
           + (_timing_text(rec, "library") if timed else ""))
     check(ok, f"wkv6 {(b, h, t, n)} {dtype_name} disagrees with its plain "
-              f"version")
+              f"versions")
+    check(same, f"wkv6 {(b, h, t, n)} {dtype_name}: a repeat call changed "
+                f"the bits")
     return rec
 
 
@@ -462,9 +499,16 @@ def phase_kernels():
     flash_case(*fw_shape, "float32", True, timed=True, window=window)
     flash_case(*fw_shape, "bfloat16", True, timed=False, window=16)
     recs["wkv6"] = wkv6_case(*wkv_main, "bfloat16", True, timed=True)
+    for fill in ("min", "max"):
+        wkv6_case(*wkv_main, "bfloat16", True, timed=False, fill=fill)
+    for t in WKV_EDGE_T:
+        wkv6_case(1, wkv_main[1], t, 64, "bfloat16", True, timed=True)
+    wkv6_case(1, wkv_main[1], WKV_EDGE_T[-1], 64, "float32", True,
+              timed=False, fill="max")
+    wkv6_case(2, 4, 77, 128, "float32", False, timed=False)
     lru_case(*lru_main, False, timed=False)
     recs["lru_scan"] = lru_case(*lru_main, True, timed=True)
-    pairwise_case(4096, 10, timed=True)
+    recs["pairwise_distance_large"] = pairwise_case(4096, 10, timed=True)
     for shape in FA_BIG_SHAPES:
         flash_case(*shape, "bfloat16", True, timed=True)
     return recs
@@ -531,7 +575,7 @@ def _prefill_len(cfg, plen):
 
 
 # the port's own kernels, by the names the profiler gives them
-PORT_KERNELS = ("pairwise_distance_kernel", "flash_fwd", "wkv6_kernel",
+PORT_KERNELS = ("pairwise_distance_kernel", "flash_fwd", "wkv6_",
                 "lru_chunk")
 
 
@@ -590,11 +634,15 @@ def profile_engine(res, steps=8):
         for e in top:
             print(f"    {e.self_device_time_total / 1e3 / reps:9.4f} ms  "
                   f"x{e.count / reps:5.0f}  {e.key[:90]}")
-        for e in evs:
-            if any(k in e.key for k in PORT_KERNELS):
+        for name in PORT_KERNELS:
+            mine = [e for e in evs if name in e.key]
+            for e in mine:
                 ms = e.self_device_time_total / 1e3 / reps
                 print(f"    port kernel {ms:9.4f} ms  x{e.count / reps:5.0f}  "
                       f"{e.key[:70]}")
+            if len(mine) > 1:   # a kernel of several passes: their sum
+                ms = sum(e.self_device_time_total for e in mine) / 1e3 / reps
+                print(f"    port kernel {name}* passes together {ms:9.4f} ms")
     return out
 
 
@@ -710,7 +758,8 @@ def kernel_records(recs, by_path):
     """One JSON record per kernel: its main-path timing, its launches summed
     over the serve paths and per path.  flash_attention's record is olmo's
     causal bf16 prefill (tensor cores); its windowed (recurrentgemma) case
-    and its fp32 (SIMT) instance at olmo's shape ride along."""
+    and its fp32 (SIMT) instance at olmo's shape ride along, as does
+    pairwise_distance's (4096, 10) case."""
     out = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         paths = {arch: counts[name] for arch, counts in by_path.items()
@@ -725,6 +774,9 @@ def kernel_records(recs, by_path):
                                   **{k: win[k] for k in TIMED_KEYS}}
             rec["fp32_case"] = {k: recs[name + "_fp32"][k]
                                 for k in TIMED_KEYS}
+        if name == "pairwise_distance":
+            rec["large_case"] = {k: recs[name + "_large"][k]
+                                 for k in TIMED_KEYS}
         out.append(rec)
     return out
 

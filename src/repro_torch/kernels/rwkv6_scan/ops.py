@@ -7,6 +7,13 @@ The kernel reads r, k, v and log_w through their (batch, head, token)
 strides, so the model passes its ``(B, T, H, N)`` projections as transposed
 views without a copy, and writes its output into a ``(B, T, H, N)`` buffer
 returned as a ``(B, H, T, N)`` view: ``o.transpose(1, 2)`` is contiguous.
+It runs as a chunk-parallel scan over chunks of L = ``CHUNK`` tokens (what
+is local to each chunk, a fold over chunks, outputs; three passes from one
+C call) with an fp32 scratch that the wrapper allocates at the size the
+library's ``wkv6_scratch_floats`` gives (the kernel owns its layout);
+``ref.wkv6_chunked`` is the same arithmetic on the CPU.  The kernel reads
+and writes rows of 4 elements as vectors, so a view whose base or (batch,
+head, token) strides are off that grid is copied first.
 """
 from __future__ import annotations
 
@@ -18,20 +25,35 @@ import torch
 from .. import _build
 from . import ref
 
-__all__ = ["wkv6", "HEAD_SIZES"]
+__all__ = ["wkv6", "HEAD_SIZES", "CHUNK"]
 
 HEAD_SIZES = (64, 128)
+CHUNK = 16   # tokens a chunk; the library's wkv6_chunk_tokens must agree
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.cache
-def _fn():
+def _lib():
     lib = _build.load("wkv6")
-    fn = lib.wkv6_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_int64] * 15 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib.wkv6_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                             + [ctypes.c_int64] * 15 + [ctypes.c_void_p])
+    lib.wkv6_fwd.restype = ctypes.c_int
+    lib.wkv6_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.wkv6_scratch_floats.restype = ctypes.c_int64
+    lib.wkv6_chunk_tokens.restype = ctypes.c_int
+    if lib.wkv6_chunk_tokens() != CHUNK:
+        raise RuntimeError(f"csrc/wkv6.cu chunks {lib.wkv6_chunk_tokens()} "
+                           f"tokens, ops.CHUNK says {CHUNK}")
+    return lib
+
+
+def _aligned(x):
+    """``x`` where its base and (batch, head, token) strides are on the
+    4-element grid of the kernel's vector accesses, else a contiguous copy."""
+    if x.data_ptr() % (4 * x.element_size()) or any(
+            s % 4 for s in x.stride()[:3]):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
 
 
 def _check(r, k, v, log_w, u, S0):
@@ -63,22 +85,26 @@ def wkv6(r, k, v, log_w, u, S0=None):
     b, h, t, n = r.shape
     if n not in HEAD_SIZES:
         raise ValueError(f"head size {n} not in the kernel's {HEAD_SIZES}")
-    if any(x.stride(3) != 1 for x in (r, k, v, log_w)):
+    if t and any(x.stride(3) != 1 for x in (r, k, v, log_w)):
         raise ValueError("the channel dim of r, k, v, log_w must be "
                          "contiguous")
     if log_w.dtype != torch.float32 or u.dtype != torch.float32 or (
             S0 is not None and S0.dtype != torch.float32):
         raise ValueError("log_w, u and S0 must be float32")
+    r, k, v, log_w = (_aligned(x) for x in (r, k, v, log_w))
     u = u.contiguous()
-    S0 = None if S0 is None else S0.contiguous()
+    S0 = None if S0 is None else _aligned(S0.contiguous())
     o = torch.empty((b, t, h, n), dtype=r.dtype,
                     device=r.device).transpose(1, 2)
     s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
+    lib = _lib()
+    scratch = torch.empty(lib.wkv6_scratch_floats(b, h, t, n),
+                          dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
-        err = _fn()(
+        err = lib.wkv6_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
             u.data_ptr(), None if S0 is None else S0.data_ptr(),
-            o.data_ptr(), s_out.data_ptr(),
+            o.data_ptr(), s_out.data_ptr(), scratch.data_ptr(),
             int(r.dtype == torch.bfloat16), b, h, t, n,
             *(s for x in (r, k, v, log_w, o) for s in x.stride()[:3]),
             torch.cuda.current_stream(r.device).cuda_stream)

@@ -337,3 +337,134 @@ def test_lru_scan_chunk_edges_on_card(cuda_device, b, s, w, with_h0):
         torch.testing.assert_close(last, want_last, **LRU_TOL)
     h2, last2 = lru_ops.lru_scan(a, x, h0)
     assert torch.equal(h, h2) and torch.equal(last, last2)
+
+
+# B3 as a chunk-parallel scan: T at the chunk edges (0, 1, L - 1, L, L + 1,
+# 2L + 1), rwkv6's longest serve prompt and a long one; B = 1 and 3
+WKV_CHUNK_T = [0, 1, wk_ops.CHUNK - 1, wk_ops.CHUNK, wk_ops.CHUNK + 1,
+               2 * wk_ops.CHUNK + 1, 370, 3000]
+# the model's clamp of log_w: its two ends (the widest exponents a chunk
+# can see, and decay ~1) and uniform between them
+WKV_FILLS = ["uniform", "min", "max"]
+
+
+def _wkv_on(dev, b, h, t, n, dtype, with_s0, fill, seed, layout="bhtn"):
+    """Seeded inputs on the card; ``layout="bthn"`` gives r, k, v, log_w as
+    (B, H, T, N) views of (B, T, H, N) tensors, as the model passes them."""
+    rng = np.random.default_rng(seed)
+    shape = (b, h, t, n) if layout == "bhtn" else (b, t, h, n)
+    r, k, v = (0.5 * rng.normal(size=shape) for _ in range(3))
+    lw = {"uniform": -rng.uniform(0.01, 2.5, shape),
+          "min": np.full(shape, -2.5), "max": np.full(shape, -1e-4)}[fill]
+    r, k, v, lw = (torch.from_numpy(x).to(dev, torch.float32)
+                   for x in (r, k, v, lw))
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    if layout == "bthn":
+        r, k, v, lw = (x.transpose(1, 2) for x in (r, k, v, lw))
+    u = torch.from_numpy(0.2 * rng.normal(size=(h, n))).to(
+        dev, torch.float32)
+    S0 = (torch.from_numpy(0.3 * rng.normal(size=(b, h, n, n))).to(
+        dev, torch.float32) if with_s0 else None)
+    return r, k, v, lw, u, S0
+
+
+def _check_wkv6(r, k, v, lw, u, S0):
+    """The kernel against the chunked and the sequential plain versions,
+    evaluated in fp64 on the same rounded inputs (over thousands of tokens
+    with decays near 1 the sequential fp32 form drifts past the fp32 limit
+    itself), one launch a call, and a second call gives the same bits."""
+    before = wk_ops.wkv6.launches
+    o, S = wk_ops.wkv6(r, k, v, lw, u, S0)
+    torch.cuda.synchronize()
+    assert wk_ops.wkv6.launches == before + 1
+    assert o.dtype == r.dtype and o.shape == r.shape
+    assert S.dtype == torch.float32
+    assert o.transpose(1, 2).is_contiguous()
+    args = [x.double() for x in (r, k, v, lw, u)] + [
+        None if S0 is None else S0.double()]
+    for want_o, want_S in (wk_ref.wkv6_chunked(*args, chunk=wk_ops.CHUNK),
+                           wk_ref.wkv6(*args)):
+        torch.testing.assert_close(o.float(), want_o.float(),
+                                   **WKV_TOL[r.dtype])
+        torch.testing.assert_close(S, want_S.float(),
+                                   **WKV_TOL[torch.float32])
+    o2, S2 = wk_ops.wkv6(r, k, v, lw, u, S0)
+    assert torch.equal(o, o2) and torch.equal(S, S2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", WKV_CHUNK_T)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_chunk_edges_on_card(cuda_device, t, b, n, dtype, with_s0):
+    _check_wkv6(*_wkv_on(cuda_device, b, 2, t, n, dtype, with_s0, "uniform",
+                         seed=t + n + b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", WKV_CHUNK_T)
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("fill", ["min", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_decay_extremes_on_card(cuda_device, t, n, fill, dtype):
+    _check_wkv6(*_wkv_on(cuda_device, 3, 2, t, n, dtype, True, fill,
+                         seed=t + n + 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", WKV_CHUNK_T)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_strided_projections_at_chunk_edges(cuda_device, t, dtype,
+                                                 with_s0):
+    _check_wkv6(*_wkv_on(cuda_device, 3, 5, t, 64, dtype, with_s0,
+                         "uniform", seed=t + 11, layout="bthn"))
+
+
+@pytest.mark.cuda
+def test_wkv6_unaligned_views_are_copied(cuda_device):
+    """Views whose bases or strides are off the kernel's 4-element grid
+    (r and S0 here) are copied by the wrapper, with the same result as the
+    aligned inputs."""
+    r, k, v, lw, u, S0 = _wkv_on(cuda_device, 2, 3, 37, 64, torch.float32,
+                                 True, "uniform", seed=5)
+    flat = torch.zeros(r.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(r.shape)
+    shifted.copy_(r)
+    s_flat = torch.zeros(S0.numel() + 1, device=cuda_device)
+    s_shifted = s_flat[1:].view(S0.shape)
+    s_shifted.copy_(S0)
+    _check_wkv6(shifted, k, v, lw, u, s_shifted)
+    o, S = wk_ops.wkv6(r, k, v, lw, u, S0)
+    o2, S2 = wk_ops.wkv6(shifted, k, v, lw, u, s_shifted)
+    assert torch.equal(o, o2) and torch.equal(S, S2)
+
+
+# B1 on register tiles: N around the 64 x 128 output tile and its float4
+# columns, F across the 16-feature chunk
+PA_TILE_N = [1, 63, 64, 65, 127, 128, 129, 4097]
+PA_TILE_F = [1, 3, 10, 33, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PA_TILE_N)
+@pytest.mark.parametrize("f", PA_TILE_F)
+def test_pairwise_kernel_tile_edges(cuda_device, n, f):
+    pts_np = np.random.default_rng(n + 101 * f).normal(size=(n, f)).astype(
+        np.float32)
+    pts = torch.from_numpy(pts_np).to(cuda_device)
+    before = pa_ops.pairwise_distance.launches
+    got = pa_ops.pairwise_distance(pts)
+    torch.cuda.synchronize()
+    assert pa_ops.pairwise_distance.launches == before + 1
+    assert got.shape == (n, n) and got.dtype == torch.float32
+    g = got.cpu().numpy()
+    w = pa_ref.pairwise_distance(pts).cpu().numpy()
+    off = ~np.eye(n, dtype=bool)
+    np.testing.assert_allclose(g[off], w[off], **PA_TOL)
+    bound = np.sqrt(8 * np.finfo(np.float32).eps
+                    * (pts_np.astype(np.float64) ** 2).sum(1))
+    assert (np.abs(np.diag(g)) <= bound).all()
+    assert torch.equal(got, pa_ops.pairwise_distance(pts))

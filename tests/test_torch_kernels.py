@@ -201,6 +201,54 @@ def test_lru_scan_chunked_matches_plain_and_jax_oracle(b, s, w, chunk,
         np.testing.assert_allclose(_f32(glast), ref_last, **_tol("float32"))
 
 
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 33, 77])
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("fill", ["uniform", "min", "max"])
+def test_wkv6_chunked_matches_plain_jax_oracle_and_pallas(t, n, fill):
+    """The CUDA kernel's chunk-parallel arithmetic (chunk summaries, the
+    fold over chunks, each chunk's outputs from its entering state) against
+    the sequential ``ref.wkv6`` and JAX ``ref.wkv6`` with an entering state
+    (output and final state), and against the Pallas kernel in interpret
+    mode from zero (its wrapper pads T).  T under, at and past one and two
+    chunks; log_w uniform in [-2.5, -0.01] as in tests/test_kernels.py and
+    at both ends of the model's clamp [-2.5, -1e-4].  fp32 at atol 2e-4,
+    rtol 1e-3 (the limit the card holds the kernel to)."""
+    r, k, v, lw, u, S0 = _wkv_inputs(2, 2, t, n, seed=t + n)
+    if fill != "uniform":
+        lw = np.full_like(lw, -2.5 if fill == "min" else -1e-4)
+    tol = dict(atol=2e-4, rtol=1e-3)
+    tin = [torch.from_numpy(x) for x in (r, k, v, lw, u)]
+    jin = [jnp.asarray(x) for x in (r, k, v, lw, u)]
+    got, gS = wk_ref.wkv6_chunked(*tin, torch.from_numpy(S0),
+                                  chunk=wk_ops.CHUNK)
+    assert got.shape == (2, 2, t, n) and gS.shape == (2, 2, n, n)
+    plain, pS = wk_ref.wkv6(*tin, torch.from_numpy(S0))
+    want, wS = jwk_ref.wkv6(*jin, jnp.asarray(S0))
+    for ref_o, ref_S in ((plain, pS), (want, wS)):
+        np.testing.assert_allclose(_f32(got), _f32(ref_o), **tol)
+        np.testing.assert_allclose(_f32(gS), _f32(ref_S), **tol)
+    got0, _ = wk_ref.wkv6_chunked(*tin, chunk=wk_ops.CHUNK)
+    np.testing.assert_allclose(
+        _f32(got0), _f32(jwk_ops.wkv6(*jin, interpret=True)), **tol)
+
+
+def test_wkv6_chunked_holds_the_limit_on_a_long_slow_decay():
+    """3000 tokens with every decay at the clamp's end near 1 (log_w =
+    -1e-4): the kernel's arithmetic in fp32 (fp32 fold over the chunks)
+    against the same recurrence evaluated in fp64, sequential and chunked,
+    at the fp32 limit.  The sequential fp32 form multiplies the state by
+    one rounded w 3000 times and is no oracle here."""
+    r, k, v, lw, u, S0 = _wkv_inputs(1, 2, 3000, 64, seed=9)
+    tin = [torch.from_numpy(x) for x in (r, k, v, np.full_like(lw, -1e-4),
+                                         u, S0)]
+    got, gS = wk_ref.wkv6_chunked(*tin, chunk=wk_ops.CHUNK)
+    for fn in (wk_ref.wkv6, wk_ref.wkv6_chunked):
+        want, wS = fn(*(x.double() for x in tin))
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4,
+                                   rtol=1e-3)
+        np.testing.assert_allclose(_f32(gS), _f32(wS), atol=2e-4, rtol=1e-3)
+
+
 @pytest.mark.parametrize("s,window", [(40, 16), (130, 64), (64, 64)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_windowed_flash_plain_matches_jax_local_mask(s, window, dtype):
