@@ -21,7 +21,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    and at both ends of log_w's clamp, against its sequential and its
    chunked plain version; WKV6 and pairwise distance give the same bits
    on a repeat call;
-4. then, for each family the port serves (olmo-1b, rwkv6-3b,
+4. planner: the CRCH workflow planner at the paper's largest size, each
+   of the four workflow types at 700 tasks on 20 VMs under each of the
+   three failure environments: ``crch.plan`` on the card (PCA and B1 there,
+   one B1 launch a plan), then CRCH, HEFT and ReplicateAll(3) over 10
+   seeded failure traces each; prints each plan's K, replication counts,
+   lambda*, phase times and the three algorithms' metrics, and requires
+   CRCH to complete every workflow.  B1 is held against its plain version
+   at the four projections (the cancellation-bound rule for near-coincident
+   tasks) and timed there; each type's card plan under ``normal`` is held
+   against the CPU's plan (equal, or the near-tie rule of
+   ``core.clustering.compare_merges``), and a repeated card plan must be
+   identical;
+5. then, for each family the port serves (olmo-1b, rwkv6-3b,
    recurrentgemma-2b), at full width (random seeded weights, bf16):
 
    a. serve: the port's launcher with CRCH replication under the
@@ -101,6 +113,12 @@ def serve_args(arch):
             str(FAMILIES[arch][0]), "--new-tokens", "32", "--workers", "2",
             "--slots-per-worker", "2", "--policy", "crch", "--seed", "0",
             "--device", "cuda"]
+
+# the planner phase: the paper's workflow types at its largest size
+PLANNER_KINDS = ("montage", "cybershake", "ligo", "sipht")
+PLANNER_ENVS = ("stable", "normal", "unstable")
+PLANNER_SIZE = 700
+PLANNER_RUNS = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -515,7 +533,130 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: each family's serve path at full width
+# phase 4: the CRCH workflow planner at full size
+# ---------------------------------------------------------------------------
+
+def planner_b1_case(kind, pts_np):
+    """B1 against its plain version at one plan's (N, K) projection, with
+    the cancellation-bound rule for near-coincident tasks; timed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.clustering import distance_faults
+    from repro_torch.kernels.pairwise_affinity import ops, ref
+    x = torch.from_numpy(pts_np.astype(np.float32)).cuda()
+    n, f = x.shape
+    got = ops.pairwise_distance(x)
+    torch.cuda.synchronize()
+    want = ref.pairwise_distance(x)
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    bad, n_close = distance_faults(x.cpu().numpy(), g, w)
+    err = float(np.abs(g - w).max())
+    same = bool(torch.equal(got, ops.pairwise_distance(x)))
+    rec = {"shape": [n, f], "max_abs_err": err, "close_pairs": n_close,
+           "ok": not bad.any() and same}
+    time_kernel(rec, lambda: ops.pairwise_distance(x))
+    rec["plain_ms"] = time_ms(lambda: ref.pairwise_distance(x))
+    time_kernel(rec, lambda: torch.cdist(
+        x, x, compute_mode="use_mm_for_euclid_dist"), "library_")
+    add_bound(rec, 4 * (n * f + n * n), n * n * (3 * f + 4), "float32")
+    print(f"  pairwise_distance {kind} {n}x{f}: max_abs_err {err:.3g}, "
+          f"{n_close} pairs inside the cancellation bound (each side within "
+          f"sqrt(max(K+1, 4) eps (|x_p|^2 + |x_q|^2)) of the fp64 distance; "
+          f"the rest atol 3e-3 rtol 1e-3), {int(bad.sum())} outside"
+          f"{'' if same else ', REPEAT DIFFERS'} "
+          f"{'ok' if rec['ok'] else 'FAIL'}" + _timing_text(rec, "cdist"))
+    check(not bad.any(), f"pairwise_distance disagrees with its plain "
+                         f"version at the {kind} planner points")
+    check(same, f"pairwise_distance {kind} planner points: a repeat call "
+                f"changed the bits")
+    return rec
+
+
+def phase_planner():
+    """Plans on the card for every (type, env) and their simulations, with
+    the launch counts zeroed just before and read just after; then the
+    checks.  Returns the planner path's launch counts and B1's record at
+    montage's projection."""
+    import numpy as np
+    from repro_torch.core import plan
+    from repro_torch.core.clustering import compare_merges
+    from repro_torch.launch import schedule as launch
+    setups = {kind: launch.setup(kind, PLANNER_SIZE) for kind in PLANNER_KINDS}
+    counted = wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    card, card_plans = {}, 0
+    for kind, (wf, env) in setups.items():
+        for envname in PLANNER_ENVS:
+            card[kind, envname] = launch.evaluate(wf, env, envname,
+                                                  PLANNER_RUNS, device="cuda")
+            card_plans += 1
+    wf, env = setups[PLANNER_KINDS[0]]
+    again = plan(wf, env, environment="normal", device="cuda")
+    card_plans += 1
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"planner launches over {card_plans} card plans: {launches}")
+    check(launches["pairwise_distance"] == card_plans,
+          f"the planner launched pairwise_distance "
+          f"{launches['pairwise_distance']} times in {card_plans} card plans")
+
+    for (kind, envname), (p, res) in card.items():
+        wf = setups[kind][0]
+        hist = np.bincount(p.rep_counts, minlength=5)[1:].tolist()
+        sim_s = res["CRCH"]["wall_s"] / PLANNER_RUNS
+        print(f"planner {kind} {envname}: {wf.n_tasks} tasks, K "
+              f"{p.pca.projected.shape[1]} (COV {p.pca.cov:.3f}), tasks with "
+              f"1..4 copies {hist}, lambda* {p.ckpt_lambda:.2f} s, HEFT "
+              f"makespan {p.schedule.makespan:.1f} s")
+        print("  phases (host s; the device phases end in a copy to the "
+              "host): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    p.timing.items())
+              + f", one CRCH simulate {sim_s:.4f}")
+        for line in launch.table(res):
+            print(f"  {line}")
+        check(res["CRCH"]["success_rate"] == 1.0,
+              f"CRCH failed {kind} workflows under {envname}: success rate "
+              f"{res['CRCH']['success_rate']}")
+
+    recs = {}
+    for kind in PLANNER_KINDS:
+        recs[kind] = planner_b1_case(kind, card[kind, "normal"][0]
+                                     .pca.projected)
+
+    equal = 0
+    for kind, (wf, env) in setups.items():
+        p = card[kind, "normal"][0]
+        cpu = plan(wf, env, environment="normal", device="cpu")
+        verdict = compare_merges(p.clustering, cpu.clustering,
+                                 p.pca.projected, cpu.pca.projected)
+        same = bool(np.array_equal(p.rep_counts, cpu.rep_counts))
+        equal += same
+        print(f"  card vs CPU plan {kind}: rep_counts "
+              f"{'equal' if same else 'differ'}, merges {verdict.verdict}"
+              + (f" at step {verdict.step} (picks {verdict.pairs}, excess "
+                 f"{verdict.excess[0]:.3g} / {verdict.excess[1]:.3g}, bound "
+                 f"{verdict.bound:.3g})" if verdict.step is not None else "")
+              + f", lambda* {p.ckpt_lambda:.2f} / {cpu.ckpt_lambda:.2f}")
+        check(verdict.ok, f"{kind}: the card's plan diverged from the CPU's "
+                          f"beyond the near-tie rule: {verdict}")
+        if verdict.verdict == "equal":
+            check(same and p.schedule.placements == cpu.schedule.placements,
+                  f"{kind}: equal merges but another plan")
+    print(f"planner: {equal}/{len(PLANNER_KINDS)} card plans equal to the "
+          f"CPU's under normal, the rest within the near-tie rule")
+    first = card[PLANNER_KINDS[0], "normal"][0]
+    check(np.array_equal(again.rep_counts, first.rep_counts)
+          and again.clustering.merge_history
+          == first.clustering.merge_history
+          and again.schedule.placements == first.schedule.placements
+          and again.ckpt_lambda == first.ckpt_lambda,
+          "a repeated card plan differs")
+    print(f"planner: a repeated {PLANNER_KINDS[0]} card plan is identical")
+    return launches, recs[PLANNER_KINDS[0]]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: each family's serve path at full width
 # ---------------------------------------------------------------------------
 
 def phase_serve(arch):
@@ -756,10 +897,11 @@ TIMED_KEYS = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
 
 def kernel_records(recs, by_path):
     """One JSON record per kernel: its main-path timing, its launches summed
-    over the serve paths and per path.  flash_attention's record is olmo's
-    causal bf16 prefill (tensor cores); its windowed (recurrentgemma) case
-    and its fp32 (SIMT) instance at olmo's shape ride along, as does
-    pairwise_distance's (4096, 10) case."""
+    over the planner and serve paths and per path.  flash_attention's record
+    is olmo's causal bf16 prefill (tensor cores); its windowed
+    (recurrentgemma) case and its fp32 (SIMT) instance at olmo's shape ride
+    along, as do pairwise_distance's (4096, 10) case and its planner case
+    (montage's 700-task projection)."""
     out = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         paths = {arch: counts[name] for arch, counts in by_path.items()
@@ -777,6 +919,8 @@ def kernel_records(recs, by_path):
         if name == "pairwise_distance":
             rec["large_case"] = {k: recs[name + "_large"][k]
                                  for k in TIMED_KEYS}
+            rec["planner_case"] = {k: recs[name + "_planner"][k]
+                                   for k in TIMED_KEYS}
         out.append(rec)
     return out
 
@@ -821,8 +965,11 @@ def main() -> int:
     print("kernels against their plain versions on the card:")
     recs = phase_kernels()
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
-    # 4. each family: serve, profile, fault transparency, reference parity
+    # 4. the CRCH workflow planner
     by_path = {}
+    by_path["planner"], recs["pairwise_distance_planner"] = phase_planner()
+    print(f"planner done at {time.perf_counter() - t_start:.1f} s")
+    # 5. each family: serve, profile, fault transparency, reference parity
     for arch in FAMILIES:
         by_path[arch] = phase_family(arch)
         print(f"{arch} done at {time.perf_counter() - t_start:.1f} s")

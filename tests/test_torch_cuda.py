@@ -468,3 +468,61 @@ def test_pairwise_kernel_tile_edges(cuda_device, n, f):
                     * (pts_np.astype(np.float64) ** 2).sum(1))
     assert (np.abs(np.diag(g)) <= bound).all()
     assert torch.equal(got, pa_ops.pairwise_distance(pts))
+
+
+# B1 at the planner's points: the CRCH plan's PCA projections of the four
+# workflow types at the paper's largest size (700 tasks on 20 VMs; K = 1),
+# where many tasks project to nearly the same point.  Off the cancellation
+# bound the pairwise limit; inside it (the diagonal, near-coincident tasks)
+# each side within the bound of the fp64 distance
+PLANNER_KINDS = ("montage", "cybershake", "ligo", "sipht")
+
+
+def _planner_points(kind, device):
+    from repro_torch.core import (CloudEnvironment, fit_pca,
+                                  generate_workflow, task_features)
+    wf = generate_workflow(kind, 700, seed=1)
+    env = CloudEnvironment(wf, 20, seed=2)
+    return wf, env, fit_pca(task_features(wf, env), device=device).projected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", PLANNER_KINDS)
+def test_pairwise_kernel_at_the_planner_points(cuda_device, kind):
+    from repro_torch.core.clustering import distance_faults
+    _, _, pts_np = _planner_points(kind, cuda_device)
+    assert pts_np.shape[1] == 1
+    pts = torch.from_numpy(pts_np.astype(np.float32)).to(cuda_device)
+    before = pa_ops.pairwise_distance.launches
+    got = pa_ops.pairwise_distance(pts)
+    torch.cuda.synchronize()
+    assert pa_ops.pairwise_distance.launches == before + 1
+    want = pa_ref.pairwise_distance(pts)
+    bad, _ = distance_faults(pts_np, got.cpu().numpy(), want.cpu().numpy())
+    assert not bad.any(), np.argwhere(bad)[:10]
+    assert torch.equal(got, pa_ops.pairwise_distance(pts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", PLANNER_KINDS)
+def test_plan_on_card_against_plan_on_cpu(cuda_device, kind):
+    """The card's plan (cuSOLVER SVD, B1) equals the CPU's (plain versions)
+    or passes the near-tie rule; a repeated card plan is identical."""
+    from repro_torch.core import CloudEnvironment, generate_workflow, plan
+    from repro_torch.core.clustering import compare_merges
+    wf = generate_workflow(kind, 700, seed=1)
+    env = CloudEnvironment(wf, 20, seed=2)
+    before = pa_ops.pairwise_distance.launches
+    card = plan(wf, env, device=cuda_device)
+    assert pa_ops.pairwise_distance.launches == before + 1
+    cpu = plan(wf, env, device="cpu")
+    verdict = compare_merges(card.clustering, cpu.clustering,
+                             card.pca.projected, cpu.pca.projected)
+    assert verdict.ok, verdict
+    if verdict.verdict == "equal":
+        np.testing.assert_array_equal(card.rep_counts, cpu.rep_counts)
+    again = plan(wf, env, device=cuda_device)
+    np.testing.assert_array_equal(again.rep_counts, card.rep_counts)
+    assert again.clustering.merge_history == card.clustering.merge_history
+    assert again.schedule.placements == card.schedule.placements
+    assert again.ckpt_lambda == card.ckpt_lambda

@@ -28,6 +28,13 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.rglru_scan.ops",
             "repro_torch.configs.rwkv6_3b",
             "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
+    assert {"repro_torch.core.crch", "repro_torch.core.mlp_classifier",
+            "repro_torch.launch.schedule", "repro_torch.core.workflow",
+            "repro_torch.core.failures", "repro_torch.core.features",
+            "repro_torch.core.heft", "repro_torch.core.runtime",
+            "repro_torch.core.checkpoint_policy", "repro_torch.core.metrics",
+            "repro_torch.core.baselines", "repro_torch.core.dax",
+            "repro_torch.core.resubmission_impact"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
