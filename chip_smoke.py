@@ -20,7 +20,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    SIMT instance timed on its own; WKV6 also at its 16-token chunk edges
    and at both ends of log_w's clamp, against its sequential and its
    chunked plain version; WKV6 and pairwise distance give the same bits
-   on a repeat call;
+   on a repeat call; the flash-attention backward against its plain
+   version in fp32 on the same inputs at olmo-1b's training shape (timed
+   beside SDPA's backward), at its tile edges, GQA groups 1/2/4 and
+   windows 1/37/2048, in fp32 and bf16, with the forward's row
+   log-sum-exp against its plain version, the forward's bits unchanged
+   when it writes the lse, a bit-identical repeat, and a x1.1
+   softmax-scale mutant of the backward failing the limit;
 4. planner: the CRCH workflow planner at the paper's largest size, each
    of the four workflow types at 700 tasks on 20 VMs under each of the
    three failure environments: ``crch.plan`` on the card (PCA and B1 there,
@@ -52,16 +58,36 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 
    Each family's engines are freed before the next family starts.
 
+6. train: olmo-1b at full width and depth (16 layers, d_model 2048, fp32
+   params, bf16 compute, global batch 4 x 2048 tokens, deterministic
+   kernels) through the train launcher's code path under the training
+   coordinator, with one host crash forced through the failure injector:
+   every step completes, restores == failures > 0, all losses finite, both
+   flash kernels launched, and the final params bit-identical (a sha1 of
+   every leaf) to a fault-free run of the same steps from the same init on
+   the same batches; prints step time, tokens/s, model FLOPs a step,
+   checkpoint save/restore seconds and bytes, and a ``torch.profiler``
+   view of one step;
+7. train chaos: the launcher's code path at the published widths with 2
+   layers, replaying a fault trace that fires every train-side fault class
+   (host_crash, slowdown, capacity_loss, ckpt_corrupt, nan_poison,
+   net_partition, disk_full) under the launcher's ``--chaos-assert``.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
+import hashlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,6 +122,23 @@ WKV_TEST_SHAPES = [(1, 2, 32, 64), (2, 3, 48, 64), (1, 1, 20, 64),
 # B3's chunk edges (16-token chunks) and a long prompt, at rwkv6's 40 heads
 WKV_EDGE_T = (0, 1, 15, 16, 17, 33, 3000)
 LRU_TEST_SHAPES = [(2, 128, 128), (3, 100, 96), (8, 256, 256), (1, 17, 130)]
+# the flash-attention backward: each gradient against the plain backward in
+# fp32 on the same inputs (o and lse from the forward kernel), normalised by
+# max(1, its largest magnitude): fp32 at the JAX tests' limit; bf16 one
+# bf16 ulp of the gradient (rtol 1e-2) over a floor of 4e-3 of that scale
+# (the kernel computes in fp32 and rounds each gradient to bf16 once).  The
+# row log-sum-exp is fp32 on both sides
+FA_BWD_TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
+              "bfloat16": dict(atol=4e-3, rtol=1e-2)}
+LSE_TOL = dict(atol=2e-4, rtol=2e-4)
+# olmo-1b's training shape: global batch 4 x 2048 tokens, 16 heads of 128
+FA_BWD_MAIN = (4, 16, 16, 2048, 128)
+# the 64-row tiles' edges, at (1, 4, 2, S, D)
+FA_BWD_EDGE_S = (1, 63, 64, 65, 127, 129, 2048)
+# (B, H, KV, S, D, window): GQA groups 1, 2, 4, windows 1, 37, 2048
+FA_BWD_CASES = [(2, 4, 4, 200, 128, 0), (2, 4, 2, 200, 128, 0),
+                (2, 8, 2, 200, 64, 0), (1, 4, 2, 300, 64, 1),
+                (1, 4, 2, 300, 128, 37), (1, 4, 4, 2100, 128, 2048)]
 
 # the families served, each with its prompt length and the kernels its
 # serve path must launch
@@ -138,6 +181,7 @@ def wrappers():
     from repro_torch.kernels.rwkv6_scan import ops as wk_ops
     return {"pairwise_distance": pa_ops.pairwise_distance,
             "flash_attention": fa_ops.flash_attention,
+            "flash_attention_bwd": fa_ops.flash_attention_bwd,
             "wkv6": wk_ops.wkv6, "lru_scan": lru_ops.lru_scan}
 
 
@@ -344,6 +388,126 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     return rec
 
 
+def _bwd_inputs(b, h, kv, s, d, dtype_name, window):
+    """q, k, v, dO as the model hands them to the kernels: (B, H, S, D)
+    views of (B, S, H, D) tensors."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(b * 7 + h * 5 + s + d + window + 1)
+    return [torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(
+        np.float32)).to("cuda", getattr(torch, dtype_name)).transpose(1, 2)
+        for n in (h, kv, kv, h)]
+
+
+def _bwd_check(got, want, dtype_name):
+    """(max abs error, max error over the gradient's scale, within the
+    limit) of the three gradients."""
+    import torch
+    err = nerr = 0.0
+    ok = True
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        e = float((g.float() - w).abs().max())
+        err, nerr = max(err, e), max(nerr, e / scale)
+        ok = ok and bool(torch.allclose(g.float() / scale, w / scale,
+                                        **FA_BWD_TOL[dtype_name]))
+    return err, nerr, ok
+
+
+def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
+    """The backward kernel against the plain backward in fp32 on the same
+    inputs; the forward's lse against its plain version and the forward's
+    bits with and without it; a repeat call's bits."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v, do = _bwd_inputs(b, h, kv, s, d, dtype_name, window)
+    kw = dict(causal=causal, window=window)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    same_fwd = bool(torch.equal(o, ops.flash_attention(q, k, v, **kw)))
+    lse_want = ref.attention_lse(q, k, v, **kw)
+    lse_err = float((lse - lse_want).abs().max())
+    lse_ok = bool(torch.allclose(lse, lse_want, **LSE_TOL))
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = ref.attention_backward(q.float(), k.float(), v.float(), o.float(),
+                                  lse, do.float(), **kw)
+    err, nerr, ok = _bwd_check(got, want, dtype_name)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    same = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+    del want, again
+    rec = {"shape": [b, h, kv, s, d], "dtype": dtype_name, "causal": causal,
+           "window": window, "max_abs_err": err, "max_err_over_scale": nerr,
+           "lse_err": lse_err, "ok": ok and lse_ok and same_fwd and same}
+    if timed:
+        time_kernel(rec, lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                         **kw))
+        rec["plain_ms"] = time_ms(lambda: ref.attention_backward(
+            q, k, v, o, lse, do, **kw))
+        # SDPA's backward, as a yardstick only
+        qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        gqa = {"enable_gqa": True} if h != kv else {}
+        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
+                                             **gqa)
+        time_kernel(rec, lambda: torch.autograd.grad(
+            out, (qq, kk, vv), do, retain_graph=True), "library_")
+        pairs = s * (s + 1) // 2 if causal else s * s
+        item = q.element_size()
+        # q, o, dO and dq (B, H, S, D); k, v, dk, dv (B, KV, S, D); lse
+        add_bound(rec, item * (4 * b * h * s * d + 4 * b * kv * s * d)
+                  + 4 * b * h * s, 10 * b * h * pairs * d, dtype_name)
+    tol = FA_BWD_TOL[dtype_name]
+    mode = (f"window {window}" if window else
+            "causal" if causal else "bidir")
+    print(f"  flash_attention_bwd {(b, h, kv, s, d)} {dtype_name} {mode}: "
+          f"max_abs_err {err:.3g}, over the gradient's scale {nerr:.3g} "
+          f"(atol {tol['atol']} rtol {tol['rtol']} of max(1, |grad|max)); "
+          f"lse err {lse_err:.3g} (2e-4); forward bits "
+          f"{'unchanged' if same_fwd else 'CHANGED'} with lse; repeat "
+          f"{'same bits' if same else 'DIFFERS'} "
+          f"{'ok' if rec['ok'] else 'FAIL'}"
+          + (_timing_text(rec, "sdpa backward") if timed else ""))
+    check(ok, f"flash_attention_bwd {(b, h, kv, s, d)} {dtype_name} {mode} "
+              f"disagrees with its plain version")
+    check(lse_ok, f"flash_attention lse {(b, h, kv, s, d)} {dtype_name} "
+                  f"disagrees with its plain version")
+    check(same_fwd, f"flash_attention {(b, h, kv, s, d)}: writing the lse "
+                    f"changed the output's bits")
+    check(same, f"flash_attention_bwd {(b, h, kv, s, d)}: a repeat call "
+                f"changed the bits")
+    return rec
+
+
+def flash_bwd_mutant_case(b, h, kv, s, d, dtype_name):
+    """The limit's power: the backward kernel launched with its softmax
+    scale x 1.1 (the wrapper's own call with that one argument changed)
+    must fail the check that the true kernel passes."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v, do = _bwd_inputs(b, h, kv, s, d, dtype_name, 0)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    loader = ops._bwd_fn
+    real = loader()
+
+    def mutant(*args):
+        args = list(args)
+        args[19] *= 1.1   # the softmax scale
+        return real(*args)
+
+    ops._bwd_fn = lambda: mutant
+    try:
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    finally:
+        ops._bwd_fn = loader
+    want = ref.attention_backward(q.float(), k.float(), v.float(), o.float(),
+                                  lse, do.float())
+    err, nerr, ok = _bwd_check(got, want, dtype_name)
+    print(f"  flash_attention_bwd x1.1 softmax-scale mutant "
+          f"{(b, h, kv, s, d)} {dtype_name}: max error over the gradient's "
+          f"scale {nerr:.3g}, {'passes (BAD)' if ok else 'fails the limit'}")
+    check(not ok, "a x1.1 softmax-scale mutant of the backward passes the "
+                  "limit")
+
+
 def _max_err(got, want):
     return float((got.float() - want.float()).abs().max()) if got.numel() \
         else 0.0
@@ -527,8 +691,23 @@ def phase_kernels():
     lru_case(*lru_main, False, timed=False)
     recs["lru_scan"] = lru_case(*lru_main, True, timed=True)
     recs["pairwise_distance_large"] = pairwise_case(4096, 10, timed=True)
-    for shape in FA_BIG_SHAPES:
-        flash_case(*shape, "bfloat16", True, timed=True)
+    big = [flash_case(*shape, "bfloat16", True, timed=True)
+           for shape in FA_BIG_SHAPES]
+    # olmo-1b's training shape, (4, 16, 16, 2048, 128)
+    recs["flash_attention_train"] = big[-1]
+    # the backward: olmo-1b's training shape, then its edges and cases
+    recs["flash_attention_bwd"] = flash_bwd_case(*FA_BWD_MAIN, "bfloat16",
+                                                 True, timed=True)
+    flash_bwd_case(*FA_BWD_MAIN, "float32", True, timed=False)
+    flash_bwd_mutant_case(*FA_BWD_MAIN, "bfloat16")
+    for dt in ("float32", "bfloat16"):
+        for d in (64, 128):
+            for s in FA_BWD_EDGE_S:
+                flash_bwd_case(1, 4, 2, s, d, dt, True, timed=False)
+            flash_bwd_case(2, 4, 2, 129, d, dt, False, timed=False)
+        for b, h, kv, s, d, window in FA_BWD_CASES:
+            flash_bwd_case(b, h, kv, s, d, dt, True, timed=False,
+                           window=window)
     return recs
 
 
@@ -716,20 +895,72 @@ def _prefill_len(cfg, plen):
 
 
 # the port's own kernels, by the names the profiler gives them
-PORT_KERNELS = ("pairwise_distance_kernel", "flash_fwd", "wkv6_",
-                "lru_chunk")
+PORT_KERNELS = ("pairwise_distance_kernel", "flash_fwd", "flash_bwd",
+                "wkv6_", "lru_chunk")
+
+
+def _profile(label, fn, reps):
+    """torch.profiler over ``reps`` calls of ``fn`` after two warm-up calls:
+    host wall time, device busy time (sum of kernel times; one stream, so
+    no overlap), the device's idle share, kernels a call, device time by
+    group (the port's kernels, the library's matrix products, the rest),
+    the top kernels by device time and the port's own kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(), fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    evs = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+    check(evs, f"torch.profiler recorded no CUDA kernel in {label}")
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 / reps
+    launches = sum(e.count for e in evs) / reps
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": max(0.0, 1 - busy / wall),
+           "kernels_per_call": launches, "port_kernels_ms": {}}
+    print(f"profile {label}: host wall {wall:.3f} ms/call, device busy "
+          f"{busy:.3f} ms/call, idle share {out['idle_share']:.3f}, "
+          f"{launches:.0f} kernels/call; top by device time:")
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3 / reps:9.4f} ms  "
+              f"x{e.count / reps:5.0f}  {e.key[:90]}")
+    groups = {"port kernels": 0.0, "library products": 0.0, "other": 0.0}
+    for e in evs:
+        key = ("port kernels" if any(n in e.key for n in PORT_KERNELS)
+               else "library products"
+               if any(n in e.key.lower()
+                      for n in ("gemm", "nvjet", "cutlass", "xmma"))
+               else "other")
+        groups[key] += e.self_device_time_total / 1e3 / reps
+    out["groups_ms"] = groups
+    print("    device time by group: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for name in PORT_KERNELS:
+        mine = [e for e in evs if name in e.key]
+        for e in mine:
+            ms = e.self_device_time_total / 1e3 / reps
+            print(f"    port kernel {ms:9.4f} ms  x{e.count / reps:5.0f}  "
+                  f"{e.key[:70]}")
+        if mine:
+            ms = sum(e.self_device_time_total for e in mine) / 1e3 / reps
+            out["port_kernels_ms"][name] = ms
+            if len(mine) > 1:   # a kernel of several passes: their sum
+                print(f"    port kernel {name}* passes together "
+                      f"{ms:9.4f} ms")
+    return out
 
 
 def profile_engine(res, steps=8):
-    """Where the time goes: torch.profiler over one prefill at the longest
-    prompt's prefill length (its bucket for dense, exact for the recurrent
-    families) and ``steps`` batched decode steps at the last cache position,
-    of the serve phase's engine (all slots live), after warm-up.  Prints
-    host wall time, device busy time (sum of kernel times; one stream, so
-    no overlap), the device's idle share, the top kernels by device time
-    and the port's own kernels."""
+    """Where the time goes: one prefill at the longest prompt's prefill
+    length (its bucket for dense, exact for the recurrent families) and
+    ``steps`` batched decode steps at the last cache position, of the serve
+    phase's engine (all slots live), after warm-up (:func:`_profile`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     eng = res["engine"]
     n = eng.pool.n_slots
     seq = max(_prefill_len(eng.cfg, r.prompt_len) for r in res["requests"])
@@ -748,43 +979,10 @@ def profile_engine(res, steps=8):
         nxt, _, _ = eng._serve(eng.params, eng.cache, toks, pos, live)
         return nxt.cpu()
 
-    out = {}
-    for name, fn, reps in (("prefill", prefill, 1), ("decode", decode,
-                                                      steps)):
-        fn(), fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            wall = (time.perf_counter() - t0) * 1e3 / reps
-        evs = [e for e in prof.key_averages()
-               if "CUDA" in str(e.device_type)]
-        check(evs, f"torch.profiler recorded no CUDA kernel in {name}")
-        busy = sum(e.self_device_time_total for e in evs) / 1e3 / reps
-        launches = sum(e.count for e in evs) / reps
-        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
-                     "idle_share": max(0.0, 1 - busy / wall),
-                     "kernels_per_call": launches}
-        print(f"profile {eng.cfg.name} {name} (length {seq}): host wall "
-              f"{wall:.3f} ms/call, device busy {busy:.3f} ms/call, idle "
-              f"share {out[name]['idle_share']:.3f}, {launches:.0f} "
-              f"kernels/call; top by device time:")
-        for e in top:
-            print(f"    {e.self_device_time_total / 1e3 / reps:9.4f} ms  "
-                  f"x{e.count / reps:5.0f}  {e.key[:90]}")
-        for name in PORT_KERNELS:
-            mine = [e for e in evs if name in e.key]
-            for e in mine:
-                ms = e.self_device_time_total / 1e3 / reps
-                print(f"    port kernel {ms:9.4f} ms  x{e.count / reps:5.0f}  "
-                      f"{e.key[:70]}")
-            if len(mine) > 1:   # a kernel of several passes: their sum
-                ms = sum(e.self_device_time_total for e in mine) / 1e3 / reps
-                print(f"    port kernel {name}* passes together {ms:9.4f} ms")
-    return out
+    return {name: _profile(f"{eng.cfg.name} {name} (length {seq})", fn,
+                           reps)
+            for name, fn, reps in (("prefill", prefill, 1),
+                                   ("decode", decode, steps))}
 
 
 def phase_fault_transparency(arch, res):
@@ -880,11 +1078,233 @@ def phase_family(arch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: olmo-1b training under the fault-tolerant coordinator
+# ---------------------------------------------------------------------------
+
+# full width and depth, global batch 4 x 2048; a checkpoint every 10 steps
+# (the interval's floor), a host crash forced at step 6
+TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", "10", "--global-batch", "4",
+              "--seq-len", "2048", "--seed", "0", "--device", "cuda",
+              "--ckpt-gamma-s", "0.001"]
+TRAIN_CRASH_STEP = 6
+# the published widths at 2 layers; a trace that fires every train-side
+# fault class: the crash at step 4 (capacity loss) replays from step 0, the
+# corrupted step-10 checkpoint falls back to step 0, the forced save at
+# step 12 hits ENOSPC and prunes step 0
+CHAOS_LAYERS = 2
+CHAOS_ARGS = ["--arch", "olmo-1b", "--steps", "14", "--global-batch", "4",
+              "--seq-len", "512", "--seed", "0", "--device", "cuda",
+              "--ckpt-gamma-s", "0.001", "--chaos-assert"]
+CHAOS_EVENTS = [(1, "slowdown", (), 3, 0), (2, "nan_poison", (), 0, 0),
+                (3, "net_partition", (0,), 2, 0),
+                (4, "capacity_loss", (0,), 2, 0),
+                (11, "ckpt_corrupt", (), 0, 7), (11, "host_crash", (), 2, 0),
+                (12, "disk_full", (), 0, 0)]
+PEAK_BF16 = PEAK_FLOPS_S["bfloat16"]
+
+
+class SpanLog:
+    """A recorder for the port's tracer that keeps every span."""
+
+    def __init__(self):
+        self.spans = []
+
+    def record(self, rec):
+        if rec["type"] == "span":
+            self.spans.append(rec)
+
+    def on_fault(self, kind, step=None):
+        pass
+
+    def on_recovery(self, kind):
+        pass
+
+    def seconds(self, name):
+        return [sp["t1"] - sp["t0"] for sp in self.spans
+                if sp["name"] == name]
+
+
+def tree_digest(tree):
+    """(leaf name, sha1 of its bytes) of every leaf."""
+    from repro_torch.tree import flatten, leaf_name
+    return [(leaf_name(path), hashlib.sha1(
+        t.detach().cpu().numpy().tobytes()).hexdigest())
+        for path, t in flatten(tree)]
+
+
+def train_flops(cfg, b, s):
+    """(model FLOPs, executed FLOPs) of one train step: 6 x the matmul
+    parameters x tokens plus three times the causal attention's forward
+    (2 products of 2 B H pairs D a layer); executed adds what remat
+    recomputes (each layer's forward and each xent chunk's logits)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+             + 3 * d * cfg.d_ff)
+    tokens = b * s
+    attn = 4 * b * cfg.n_heads * (s * (s + 1) // 2) * hd
+    model = (6 * tokens * (cfg.n_layers * layer + d * cfg.vocab_size)
+             + 3 * cfg.n_layers * attn)
+    recompute = (2 * tokens * (cfg.n_layers * layer + d * cfg.vocab_size)
+                 + cfg.n_layers * attn)
+    return model, model + recompute
+
+
+def _launch_train(cfg, args, built):
+    """The launcher's run, its SystemExit (a --chaos-assert failure) as a
+    smoke failure."""
+    from repro_torch.launch import train as launch
+    try:
+        return launch.run(cfg, args, built)
+    except SystemExit as e:
+        raise SmokeFailure(f"train launcher: {e}") from None
+
+
+def phase_train(tmp):
+    """olmo-1b at full width through the launcher's code path with a forced
+    crash, then the same steps without faults; returns the path's launch
+    counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.obs import Tracer
+    from repro_torch.tree import flatten
+    cfg = get_config("olmo-1b")
+    parser = launch.build_parser()
+    args = parser.parse_args(TRAIN_ARGS + [
+        "--inject-mtbf-steps", "1e9", "--ckpt-dir", os.path.join(tmp, "run")])
+    log = SpanLog()
+    built = launch.build(cfg, args, tracer=Tracer(log))
+    coord = built["coord"]
+    coord.store.keep = 2
+    built["injector"].fail_steps = {TRAIN_CRASH_STEP: 1}
+    ckpt_bytes = sum(t.numel() * t.element_size() for _, t in flatten(
+        {"params": coord.params, "opt": coord.opt_state}))
+    counted = wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = _launch_train(cfg, args, built)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    rep = res["report"]
+    print(f"train olmo-1b (crash at step {TRAIN_CRASH_STEP}): "
+          f"{rep.steps_completed}/{args.steps} steps, failures "
+          f"{rep.failures}, restores {rep.restores}, replayed "
+          f"{rep.wasted_steps}, checkpoints {rep.checkpoints}, phase "
+          f"{wall:.1f} s; launches {launches}")
+    check(rep.steps_completed == args.steps, "the crash run did not finish")
+    check(rep.restores == rep.failures == 1,
+          f"restores {rep.restores}, failures {rep.failures}: want 1 each")
+    check(all(np.isfinite(rep.losses)), "a non-finite loss")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(launches[name] > 0, f"the train path never launched {name}")
+    digest = tree_digest(coord.params)
+    saves, restores = log.seconds("ckpt.save"), log.seconds("ckpt.restore")
+    losses_run = list(rep.losses)
+    del res, built, coord
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps from the same init on the same batches, no faults
+    ref_args = parser.parse_args(TRAIN_ARGS + [
+        "--ckpt-dir", os.path.join(tmp, "ref")])
+    ref = launch.build(cfg, ref_args)
+    params, opt = ref["coord"].params, ref["coord"].opt_state
+    step_fn, pipe = ref["step_fn"], ref["pipeline"]
+    del ref
+    times, losses = [], []
+    for i in range(args.steps):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, pipe.batch_at(i))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    same = tree_digest(params) == digest
+    print(f"train olmo-1b: final params {'bit-identical' if same else 'DIFFER'}"
+          f" to the fault-free run ({len(digest)} leaves, sha1 of each); "
+          f"last {args.steps} losses of the crash run "
+          f"{'equal' if losses_run[-args.steps:] == losses else 'DIFFER'}; "
+          f"losses {[round(x, 4) for x in losses]}")
+    check(same, "the crash run's final params differ from the fault-free "
+                "run's")
+    check(losses_run[-args.steps:] == losses,
+          "the crash run's losses differ from the fault-free run's")
+    step_s = statistics.median(times[1:])
+    b, seq = args.global_batch, args.seq_len
+    model, executed = train_flops(cfg, b, seq)
+    print(f"train olmo-1b step: {1e3 * step_s:.1f} ms (median of "
+          f"{len(times) - 1}, host clock, each step ends in a copy of its "
+          f"loss), {b * seq / step_s:.0f} tokens/s, model "
+          f"{model / 1e12:.2f} TFLOP a step ({executed / 1e12:.2f} executed "
+          f"with remat), {model / step_s / 1e12:.1f} TFLOP/s, "
+          f"{model / step_s / PEAK_BF16:.3f} of the bf16 peak")
+    print(f"train olmo-1b checkpoints: {ckpt_bytes / 1e9:.2f} GB each "
+          f"(params, mu, nu, step); saves "
+          f"{[round(x, 2) for x in saves]} s, restores "
+          f"{[round(x, 2) for x in restores]} s (host copy, np.save, sha1 "
+          f"of every leaf; the restore reads, verifies, copies back)")
+    batch = pipe.batch_at(args.steps)
+    _profile("olmo-1b train step (4 x 2048)",
+             lambda: float(step_fn(params, opt, batch)[2]["loss"]), 1)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_chaos(tmp):
+    """Every train-side fault class at the published widths, 2 layers,
+    through the launcher's code path and its --chaos-assert; returns the
+    path's launch counts."""
+    from repro_torch.chaos import TRAIN_KINDS, FaultEvent, FaultTrace
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=CHAOS_LAYERS)
+    path = os.path.join(tmp, "chaos_trace.json")
+    FaultTrace(events=[FaultEvent(step=st, kind=k, targets=t, duration=d,
+                                  seed=sd)
+                       for st, k, t, d, sd in CHAOS_EVENTS]).save(path)
+    args = launch.build_parser().parse_args(CHAOS_ARGS + [
+        "--chaos-trace", path, "--ckpt-dir", os.path.join(tmp, "chaos")])
+    counted = wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = _launch_train(cfg, args, launch.build(cfg, args))
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    rep, chaos = res["report"], res["chaos"]
+    print(f"train chaos olmo-1b x {CHAOS_LAYERS} layers: applied "
+          f"{dict(chaos.applied_by_kind)}; failures {rep.failures}, restores "
+          f"{rep.restores}, ckpt fallbacks {rep.ckpt_fallbacks}, nan "
+          f"rollbacks {rep.nan_rollbacks}, enospc retries "
+          f"{rep.enospc_retries}, partitions {rep.partitions}, slowdowns "
+          f"{rep.slowdowns}, index violations {rep.index_violations}; phase "
+          f"{wall:.1f} s; launches {launches}")
+    check(set(chaos.applied_by_kind) == set(TRAIN_KINDS),
+          f"the trace fired {sorted(chaos.applied_by_kind)}, not every "
+          f"train-side class")
+    check(rep.ckpt_fallbacks >= 1 and rep.enospc_retries >= 1
+          and rep.nan_rollbacks == 1 and rep.partitions == 1
+          and rep.slowdowns == 1 and rep.failures == 2,
+          "a fault class's recovery path did not run")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(launches[name] > 0, f"the chaos train path never launched "
+                                  f"{name}")
+    return launches
+
+
 KERNEL_SOURCES = {
     "pairwise_distance": ("src/repro_torch/kernels/csrc/pairwise_distance.cu",
                           "src/repro/kernels/pairwise_affinity/kernel.py:22"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:24"),
+    # B2's gradient: the Pallas kernel is forward-only and JAX differentiates
+    # its jnp attention (src/repro/models/layers.py:122)
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/kernel.py:24"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:27"),
     "lru_scan": ("src/repro_torch/kernels/csrc/lru_scan.cu",
@@ -897,11 +1317,13 @@ TIMED_KEYS = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
 
 def kernel_records(recs, by_path):
     """One JSON record per kernel: its main-path timing, its launches summed
-    over the planner and serve paths and per path.  flash_attention's record
-    is olmo's causal bf16 prefill (tensor cores); its windowed
-    (recurrentgemma) case and its fp32 (SIMT) instance at olmo's shape ride
-    along, as do pairwise_distance's (4096, 10) case and its planner case
-    (montage's 700-task projection)."""
+    over the planner, serve and train paths and per path.
+    flash_attention's record is olmo's causal bf16 prefill (tensor cores);
+    its windowed (recurrentgemma) case, its fp32 (SIMT) instance at olmo's
+    shape and its case at olmo-1b's training shape ride along, as do
+    pairwise_distance's (4096, 10) case and its planner case (montage's
+    700-task projection).  flash_attention_bwd's record is olmo-1b's
+    training shape."""
     out = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         paths = {arch: counts[name] for arch, counts in by_path.items()
@@ -916,6 +1338,8 @@ def kernel_records(recs, by_path):
                                   **{k: win[k] for k in TIMED_KEYS}}
             rec["fp32_case"] = {k: recs[name + "_fp32"][k]
                                 for k in TIMED_KEYS}
+            rec["train_case"] = {k: recs[name + "_train"][k]
+                                 for k in TIMED_KEYS}
         if name == "pairwise_distance":
             rec["large_case"] = {k: recs[name + "_large"][k]
                                  for k in TIMED_KEYS}
@@ -926,6 +1350,9 @@ def kernel_records(recs, by_path):
 
 
 def main() -> int:
+    # the train phases replay steps bit for bit: cuBLAS reads this at its
+    # first use in the process, so it is set before any phase runs
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -973,6 +1400,17 @@ def main() -> int:
     for arch in FAMILIES:
         by_path[arch] = phase_family(arch)
         print(f"{arch} done at {time.perf_counter() - t_start:.1f} s")
+    # 6-7. olmo-1b training: full width with a crash, then every fault class
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    torch.use_deterministic_algorithms(True)
+    try:
+        by_path["train"] = phase_train(tmp)
+        print(f"train done at {time.perf_counter() - t_start:.1f} s")
+        by_path["train_chaos"] = phase_train_chaos(tmp)
+        print(f"train chaos done at {time.perf_counter() - t_start:.1f} s")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
     kernels = kernel_records(recs, by_path)
     for k in kernels:
         lib = (f"{k['library_ms']:.4f}" if k["library_ms"] is not None

@@ -11,7 +11,11 @@ kernel on the card, the triplet merges, replicated HEFT, the checkpoint
 interval, the runtime simulation, metrics, baselines, the DAX reader and
 the MLP learner), and the continuous-batching serve path with CRCH request
 replication (``repro_torch.launch.serve``) for olmo-1b, rwkv6-3b and
-recurrentgemma-2b, on four hand-written CUDA kernels (``kernels/csrc``):
-pairwise distances for the triplet clustering, GQA flash attention (causal
-or sliding-window) for prefill, the WKV6 recurrence and the RG-LRU scan.
+recurrentgemma-2b, and olmo-1b training under the fault-tolerant
+coordinator with the pointer checkpoint store (``repro_torch.launch.train``,
+``repro_torch.ft``, ``repro_torch.optim``, ``repro_torch.data``), on
+hand-written CUDA kernels (``kernels/csrc``): pairwise distances for the
+triplet clustering, GQA flash attention (causal or sliding-window) for
+prefill and training and its backward, the WKV6 recurrence and the RG-LRU
+scan.
 """

@@ -65,10 +65,15 @@
 // fp32 inputs keep the first version's SIMT kernel (flash_fwd_simt): the
 // tensor cores would take them as TF32, which breaks the 2e-4 fp32 limit;
 // no caller on the serve path passes fp32.
+// Both kernels can also write each row's log-sum-exp of the scaled scores,
+// m * scale + log(l), which the backward (csrc/flash_attention_bwd.cu)
+// takes to recompute P; the serve path passes no lse buffer, and the
+// output's bits are the same with or without one.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -126,7 +131,8 @@ __device__ __forceinline__ float sum16(float x) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int H,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int H,
                int group, int Sq, int Sk, int causal, int window, float scale,
                Strides qst, Strides kst, Strides vst, Strides ost) {
   using C = Cfg<D>;
@@ -256,13 +262,17 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < C::kOcols; ++c)
       ob[qi * ost.s + tx + 16 * c] = acc[i][c] / denom;
+    // the row's log-sum-exp of the scaled scores, for the backward
+    if (lse && tx == 0)
+      lse[((int64_t)b * H + h) * Sq + qi] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Sk, int causal, int window, float scale,
-           Strides qst, Strides kst, Strides vst, Strides ost,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int Sq, int Sk, int causal, int window,
+           float scale, Strides qst, Strides kst, Strides vst, Strides ost,
            cudaStream_t stream) {
   const size_t smem = Cfg<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -271,7 +281,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBq - 1) / kBq, B * H);
   flash_fwd_simt<D><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, H,
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H,
       H / KV, Sq, Sk, causal, window, scale, qst, kst, vst, ost);
   return (int)cudaGetLastError();
 }
@@ -637,8 +647,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
-             __nv_bfloat16* __restrict__ o, int H, int group, int Sq, int Sk,
-             int causal, int window, float scale_log2, Strides ost) {
+             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+             int group, int Sq, int Sk, int causal, int window,
+             float scale_log2, Strides ost) {
   using T = Tile<D, NWG>;
   constexpr int Bq = T::kBq, Bk = T::kBk, S = T::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -786,6 +797,16 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
       *reinterpret_cast<__nv_bfloat162*>(ob + row1 * ost.s + col) =
           __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
   }
+  // the rows' log-sum-exp of the scaled scores (natural log), for the
+  // backward: m is in raw score units, l sums ex2((s - m) * scale_log2)
+  if (lse && c0 == 0) {
+    float* lb = lse + ((int64_t)b * H + h) * Sq;
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (row0 < Sq)
+      lb[row0] = l0 > 0.f ? (m0 * scale_log2 + log2f(l0)) * kLn2 : -INFINITY;
+    if (row1 < Sq)
+      lb[row1] = l1 > 0.f ? (m1 * scale_log2 + log2f(l1)) * kLn2 : -INFINITY;
+  }
 }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime so that
@@ -830,9 +851,9 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
 }
 
 template <int D, int NWG>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Sk, int causal, int window, float scale,
-           Strides qst, Strides kst, Strides vst, Strides ost,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int Sq, int Sk, int causal, int window,
+           float scale, Strides qst, Strides kst, Strides vst, Strides ost,
            cudaStream_t stream) {
   using T = Tile<D, NWG>;
   CUtensorMap qmap, kmap, vmap;
@@ -846,7 +867,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + T::kBq - 1) / T::kBq, B * H);
   flash_fwd_tc<D, NWG><<<grid, T::kThreads, T::kSmem, stream>>>(
-      qmap, kmap, vmap, (__nv_bfloat16*)o, H, H / KV, Sq, Sk, causal, window,
+      qmap, kmap, vmap, (__nv_bfloat16*)o, lse, H, H / KV, Sq, Sk, causal,
+      window,
       scale * 1.4426950408889634f, ost);  // log2(e): exp via ex2
   return (int)cudaGetLastError();
 }
@@ -865,17 +887,17 @@ bool wide_block(int D, int B, int H, int Sq) {
 
 template <int D>
 int dispatch(int is_bf16, const void* q, const void* k, const void* v,
-             void* o, int B, int H, int KV, int Sq, int Sk, int causal,
-             int window, float scale, Strides qst, Strides kst, Strides vst,
-             Strides ost, cudaStream_t stream) {
+             void* o, float* lse, int B, int H, int KV, int Sq, int Sk,
+             int causal, int window, float scale, Strides qst, Strides kst,
+             Strides vst, Strides ost, cudaStream_t stream) {
   if (!is_bf16)
-    return simt::launch<D>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+    return simt::launch<D>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window,
                            scale, qst, kst, vst, ost, stream);
   if constexpr (D <= 128)
     if (tc::wide_block(D, B, H, Sq))
-      return tc::launch<D, 2>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                              scale, qst, kst, vst, ost, stream);
-  return tc::launch<D, 1>(q, k, v, o, B, H, KV, Sq, Sk, causal, window,
+      return tc::launch<D, 2>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal,
+                              window, scale, qst, kst, vst, ost, stream);
+  return tc::launch<D, 1>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window,
                           scale, qst, kst, vst, ost, stream);
 }
 
@@ -885,10 +907,14 @@ int dispatch(int is_bf16, const void* q, const void* k, const void* v,
 // its (batch, head, seq) element strides with a contiguous head dim; all of
 // one dtype (is_bf16 ? bf16 : fp32).  D must be 64, 128 or 256.  window > 0
 // (causal only) keeps the keys with q_pos - k_pos < window.  bf16 needs
-// 16-byte aligned pointers and strides (TMA).  Launches on `stream`;
-// returns a CUDA error code (0 on success).
+// 16-byte aligned pointers and strides (TMA).  lse, if not null, receives
+// each row's natural-log log-sum-exp of the scaled scores as a contiguous
+// (B, H, Sq) fp32 tensor (the backward's input; the output's bits do not
+// depend on it).  Launches on `stream`; returns a CUDA error code (0 on
+// success).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int is_bf16,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int is_bf16,
     int B, int H, int KV, int Sq, int Sk, int D, int causal,
     int window, float scale, int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
@@ -901,13 +927,13 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return dispatch<64>(is_bf16, q, k, v, o, B, H, KV, Sq, Sk,
+      return dispatch<64>(is_bf16, q, k, v, o, lse, B, H, KV, Sq, Sk,
                           causal, window, scale, qst, kst, vst, ost, s);
     case 128:
-      return dispatch<128>(is_bf16, q, k, v, o, B, H, KV, Sq, Sk,
+      return dispatch<128>(is_bf16, q, k, v, o, lse, B, H, KV, Sq, Sk,
                            causal, window, scale, qst, kst, vst, ost, s);
     case 256:
-      return dispatch<256>(is_bf16, q, k, v, o, B, H, KV, Sq, Sk,
+      return dispatch<256>(is_bf16, q, k, v, o, lse, B, H, KV, Sq, Sk,
                            causal, window, scale, qst, kst, vst, ost, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,2 +1,3 @@
-"""Flash attention (forward, GQA, causal, sliding-window or full)."""
+"""Flash attention (forward and backward, GQA, causal, sliding-window or
+full)."""
 from . import ops, ref  # noqa: F401

@@ -6,8 +6,11 @@ tensors; compute runs in the input's dtype with fp32 softmax and
 normalisation.  Layouts at the public functions are the JAX package's:
 activations ``(B, S, D)``, q/k/v ``(B, S, H, D)``, caches
 ``(B, S_cache, KV, D)``.  Causal and local (sliding-window) prefill
-attention run on the flash attention kernel; one-token decode attention is
-plain torch ops (the JAX package has no kernel there either).
+attention run on the flash attention kernel, and under autograd (training)
+its gradient on the flash-attention backward kernel; one-token decode
+attention is plain torch ops (the JAX package has no kernel there either).
+Every op is differentiable: weights are cast to the compute dtype at each
+use (``.to(dtype)``), so training keeps fp32 parameters.
 """
 from __future__ import annotations
 
@@ -121,7 +124,10 @@ def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
 
     The flash kernel takes the ``(B, S, H, D)`` projections as strided
     ``(B, H, S, D)`` views and returns a view whose transpose is the
-    contiguous ``(B, S, H, D)`` output, so no layout copy is made.
+    contiguous ``(B, S, H, D)`` output, so no layout copy is made.  Under
+    autograd the backward kernel writes dq, dk, dv the same way: the
+    gradient of each transposed view arrives as a contiguous
+    ``(B, S, H, D)`` tensor, again without a copy.
     """
     if mode not in ("causal", "local"):
         raise ValueError(f"attention mode {mode!r} is not ported yet")
@@ -132,9 +138,9 @@ def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
     q, k, v = _project_qkv(p, x, cfg, h, kv, dtype)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True,
-                                 window=window if mode == "local" else 0)
+    out = fa_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=True,
+                           window=window if mode == "local" else 0)
     out = out.transpose(1, 2).reshape(*x.shape[:2], h * cfg.head_dim)
     out = out @ p["wo"].to(dtype)
     if return_kv:

@@ -1,4 +1,4 @@
-"""Model assembly of the families the port serves, serving half.
+"""Model assembly of the families the port runs.
 
 Counterpart of ``repro.models.lm`` for the dense (olmo-1b), RWKV-6
 (rwkv6-3b) and RG-LRU hybrid (recurrentgemma-2b) branches:
@@ -6,6 +6,7 @@ Counterpart of ``repro.models.lm`` for the dense (olmo-1b), RWKV-6
   init_params(cfg, generator, device)            -> params dict
   params_from_jax(np_tree, cfg, device)          -> params dict
   cast_params(params, cfg)                       -> params in compute dtype
+  forward_train(params, cfg, batch)              -> (loss, metrics)
   init_cache(cfg, batch, cache_len, device=...)  -> cache dict
   prefill(params, cfg, batch, cache_len)         -> (last_logits, cache)
   decode_step(params, cfg, cache, tokens, pos)   -> (logits, cache)
@@ -18,13 +19,17 @@ loops walk them.  Weights are stored in ``param_dtype`` and cast to the
 compute dtype at every use, as in JAX; :func:`cast_params` makes that cast
 once, after which every ``.to(dtype)`` is a no-op.  The leaves JAX reads in
 fp32 (:data:`FP32_READ`) keep their stored dtype.  Training
-(``forward_train``) waits for a later slice.
+(:func:`forward_train`) runs the dense branch only and casts at each use, so
+that the fp32 parameters get fp32 gradients; the recurrent families train
+once their scans have backward kernels.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..tree import tree_map
 from . import rglru as rg
 from . import rwkv6 as rw
 from .config import ModelConfig
@@ -34,7 +39,9 @@ from .layers import (apply_norm, attention_decode, attention_forward,
 
 __all__ = ["init_params", "params_from_jax", "cast_params", "init_cache",
            "prefill", "decode_step", "output_weights", "check_family",
-           "hybrid_layout", "commit_axes", "CACHE_BATCH_AXIS", "FP32_READ"]
+           "check_train_family", "forward_train", "backbone", "chunked_xent",
+           "hybrid_layout", "commit_axes", "CACHE_BATCH_AXIS", "FP32_READ",
+           "TRAIN_FAMILIES"]
 
 #: batch axis of every leaf of the dense cache (L, B, S, KV, D)
 CACHE_BATCH_AXIS = 1
@@ -46,13 +53,19 @@ FP32_READ = frozenset({"ww", "u", "ln_scale", "ba", "bx", "lam", "scale",
                        "bias"})
 
 
+#: the families the port trains (the others serve only)
+TRAIN_FAMILIES = ("olmo-1b",)
+
+
 def check_family(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` for a family the port does not run yet."""
     if (cfg.is_encdec or cfg.is_moe or cfg.n_image_tokens or cfg.use_bias
             or cfg.block_type != "llama" or cfg.mlp_type != "swiglu"
             or not (cfg.rwkv or cfg.rglru or cfg.family == "dense")):
-        raise ValueError(f"{cfg.name}: the port runs the dense llama-block, "
-                         f"RWKV-6 and RG-LRU hybrid families so far")
+        raise ValueError(f"{cfg.name}: the port serves the dense llama-block "
+                         f"(olmo-1b), RWKV-6 (rwkv6-3b) and RG-LRU hybrid "
+                         f"(recurrentgemma-2b) families and trains the dense "
+                         f"one ({', '.join(TRAIN_FAMILIES)}) so far")
     if cfg.rwkv:
         rw.n_heads(cfg)          # raises unless d_model % 64 == 0
     if cfg.rglru and cfg.window <= 0:
@@ -87,12 +100,6 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
 
 def _stack(layers: list):
     if isinstance(layers[0], dict):
@@ -153,7 +160,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                                    for _ in range(cfg.n_layers)])
     pdt = getattr(torch, cfg.param_dtype)
     device = device if device is not None else generator.device
-    return _tree_map(lambda t: t.to(device=device, dtype=pdt), params)
+    return tree_map(lambda t: t.to(device=device, dtype=pdt), params)
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
@@ -169,7 +176,7 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
                 device=device, dtype=torch.bfloat16)
         return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 
-    return _tree_map(conv, np_tree)
+    return tree_map(conv, np_tree)
 
 
 def cast_params(params, cfg: ModelConfig):
@@ -188,7 +195,7 @@ def cast_params(params, cfg: ModelConfig):
 
 
 def _layer(layers, i: int):
-    return _tree_map(lambda t: t[i], layers)
+    return tree_map(lambda t: t[i], layers)
 
 
 def output_weights(params, cfg: ModelConfig, dtype):
@@ -200,6 +207,101 @@ def output_weights(params, cfg: ModelConfig, dtype):
 def _embed(params, tokens, dtype):
     # gather, then cast: the same values as casting the table first
     return params["embed"][tokens.long()].to(dtype)
+
+
+def check_train_family(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` unless the port trains ``cfg``'s family."""
+    check_family(cfg)
+    if cfg.rwkv or cfg.rglru:
+        raise ValueError(f"{cfg.name}: the port trains only the dense family "
+                         f"({', '.join(TRAIN_FAMILIES)}) so far; the RWKV-6 "
+                         f"and RG-LRU scans have no backward kernel yet")
+
+
+# ---------------------------------------------------------------------------
+# training: chunked cross-entropy, the layer stack, forward_train
+# ---------------------------------------------------------------------------
+
+def _xent_piece(hc, w_out, tc, mc):
+    logits = (hc @ w_out).to(torch.float32)                  # (B, C, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def chunked_xent(h, w_out, targets, mask, *, chunk: int = 512,
+                 remat: bool = True):
+    """Cross-entropy without materialising the full (B, S, V) logits: the
+    sequence in chunks of ``chunk`` positions (and a remainder), summed in
+    that order as JAX's scan sums them.  ``remat`` recomputes each chunk's
+    logits in the backward (``torch.utils.checkpoint``), as JAX's
+    ``jax.checkpoint`` does, instead of keeping (B, chunk, V) fp32 logits
+    per chunk."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    n = s // chunk
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if s - n * chunk:
+        bounds.append((n * chunk, s))
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for a, e in bounds:
+        args = (h[:, a:e], w_out, targets[:, a:e], mask[:, a:e])
+        t, c = (checkpoint(_xent_piece, *args, use_reentrant=False)
+                if remat else _xent_piece(*args))
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _dense_block(p, x, cfg: ModelConfig, positions):
+    h = apply_norm(cfg, p["ln1"], x)
+    x = x + attention_forward(p["attn"], h, cfg, positions=positions,
+                              mode="causal")
+    return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
+def _unstack(layers, n: int):
+    """Per-layer views of the stacked leaves: ``unbind`` once, so that the
+    backward stacks each leaf's layer gradients once (indexing layer by
+    layer would give every layer a full-depth zero gradient to add)."""
+    unbound = tree_map(lambda t: t.unbind(0), layers)
+    return [tree_map(lambda u: u[i], unbound) for i in range(n)]
+
+
+def backbone(params, cfg: ModelConfig, x, positions):
+    """The layer stack on the embedded input x (B, S, D), then the final
+    norm.  With ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, as ``jax.checkpoint`` does in JAX's scan,
+    so the flash-attention forward runs twice a layer per step."""
+    check_train_family(cfg)
+    for p in _unstack(params["layers"], cfg.n_layers):
+        if cfg.remat:
+            x = checkpoint(_dense_block, p, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _dense_block(p, x, cfg, positions)
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def forward_train(params, cfg: ModelConfig, batch, *, q_chunk: int = 1024,
+                  xent_chunk: int = 512):
+    """batch: {"tokens": (B, S) int, "targets": (B, S) int, "loss_mask":
+    (B, S) float} tensors on the params' device.  Returns (loss, {"xent",
+    "aux"}) as 0-d fp32 tensors; the dense branch has no auxiliary loss.
+    ``q_chunk`` is accepted for JAX's signature: the flash kernels take the
+    whole sequence."""
+    del q_chunk
+    dtype = compute_dtype(cfg)
+    tokens = batch["tokens"]
+    x = _embed(params, tokens, dtype)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    h = backbone(params, cfg, x, positions)
+    loss = chunked_xent(h, output_weights(params, cfg, dtype),
+                        batch["targets"], batch["loss_mask"],
+                        chunk=xent_chunk, remat=cfg.remat)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,15 @@ installed:
 
 Without a GPU every test here skips.
 """
+import dataclasses
+import os
+
 import numpy as np
 import pytest
+
+# cuBLAS reads its workspace setting at its first use in the process: the
+# deterministic train-replay test below needs the reproducible one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 torch = pytest.importorskip("torch")
 
@@ -526,3 +533,209 @@ def test_plan_on_card_against_plan_on_cpu(cuda_device, kind):
     assert again.clustering.merge_history == card.clustering.merge_history
     assert again.schedule.placements == card.schedule.placements
     assert again.ckpt_lambda == card.ckpt_lambda
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention backward (B2) and a train step on the card
+# ---------------------------------------------------------------------------
+
+# each gradient against the plain backward in fp32 on the same inputs (o and
+# lse from the forward kernel), normalised by max(1, its largest magnitude):
+# fp32 at the JAX tests' limit; bf16 one bf16 ulp of the gradient (rtol
+# 1e-2) over a floor of 4e-3 of that scale (the kernel computes in fp32 and
+# rounds each gradient to bf16 once).  lse is fp32 on both sides
+FA_BWD_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),
+              torch.bfloat16: dict(atol=4e-3, rtol=1e-2)}
+LSE_TOL = dict(atol=2e-4, rtol=2e-4)
+# the 64-row tiles' edges
+FA_BWD_EDGES = [(d, s) for d in (64, 128)
+                for s in (1, 63, 64, 65, 127, 129, 2048)]
+# (B, H, KV, S, D, causal, window): GQA groups 1, 2, 4; windows 1, 37 and
+# 2048 (past the end of a 2100-token sequence's first tile rows);
+# bidirectional
+FA_BWD_CASES = [(2, 4, 4, 200, 128, True, 0), (2, 4, 2, 200, 128, True, 0),
+                (2, 8, 2, 200, 64, True, 0), (1, 4, 2, 300, 64, True, 1),
+                (1, 4, 2, 300, 128, True, 37),
+                (1, 4, 4, 2100, 128, True, 2048),
+                (2, 4, 2, 129, 128, False, 0), (1, 4, 1, 65, 64, False, 0)]
+
+
+def _check_flash_bwd(q, k, v, do, causal=True, window=0):
+    kw = dict(causal=causal, window=window)
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, fa_ops.flash_attention(q, k, v, **kw))
+    torch.testing.assert_close(lse, fa_ref.attention_lse(q, k, v, **kw),
+                               **LSE_TOL)
+    before = fa_ops.flash_attention_bwd.launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches == before + 1
+    want = fa_ref.attention_backward(q.float(), k.float(), v.float(),
+                                     o.float(), lse, do.float(), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.float() / scale, w / scale,
+                                   **FA_BWD_TOL[q.dtype])
+    again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _do_like(q, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=q.shape).astype(
+        np.float32)).to(q.device, q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s", FA_BWD_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_tile_edges(cuda_device, d, s, dtype):
+    q, k, v = _qkv_on(cuda_device, 1, 4, 2, s, s, d, dtype, s + d)
+    _check_flash_bwd(q, k, v, _do_like(q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", FA_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_cases(cuda_device, b, h, kv, s, d, causal, window,
+                              dtype):
+    q, k, v = _qkv_on(cuda_device, b, h, kv, s, s, d, dtype, s + window)
+    _check_flash_bwd(q, k, v, _do_like(q, s + 1), causal, window)
+
+
+@pytest.mark.cuda
+def test_flash_backward_at_the_train_main_path(cuda_device):
+    """olmo-1b's training shape, (4, 16, 16, 2048, 128) bf16 causal, from
+    the model's (B, S, H, D) projections as transposed views; dq, dk, dv
+    come back as views of contiguous (B, S, H, D) buffers."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(4, 2048, 16, 128)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).transpose(1, 2)
+        for _ in range(3))
+    _check_flash_bwd(q, k, v, _do_like(q, 1))
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+    dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, o, lse, _do_like(q, 1))
+    for g in (dq, dk, dv):
+        assert g.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_an_unported_head_dim(cuda_device):
+    q, k, v = _qkv_on(cuda_device, 1, 2, 1, 64, 64, 256, torch.bfloat16, 3)
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention_bwd(q, k, v, o, lse, o)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_launches_both_kernels(cuda_device, dtype):
+    q, k, v = (x.requires_grad_() for x in _qkv_on(
+        cuda_device, 2, 4, 2, 150, 150, 64, dtype, 5))
+    do = _do_like(q, 6)
+    fwd = fa_ops.flash_attention.launches
+    bwd = fa_ops.flash_attention_bwd.launches
+    out = fa_ops.attention(q, k, v)
+    out.backward(do)
+    assert fa_ops.flash_attention.launches == fwd + 1
+    assert fa_ops.flash_attention_bwd.launches == bwd + 1
+    o, lse = fa_ops.flash_attention(q.detach(), k.detach(), v.detach(),
+                                    return_lse=True)
+    want = fa_ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(), o,
+                                      lse, do)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(g, w)
+
+
+def _card_train_cfg():
+    """The tiny olmo widened to head dim 64 (the backward kernel's
+    smallest), in fp32."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("olmo-1b", tiny=True), d_model=128,
+                               n_heads=2, n_kv_heads=2, head_dim=64,
+                               compute_dtype="float32")
+
+
+def _card_train_params(cfg, device):
+    from repro_torch.models import lm
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    return lm.init_params(cfg, gen, device=device)
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_card_matches_cpu(cuda_device):
+    """Three fp32 train steps from the same init on the same batches: the
+    card (both flash kernels, cuBLAS in full fp32) against the CPU (plain
+    versions), losses and final params at the fp32 limit."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.distributed import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten
+    cfg = _card_train_cfg()
+    pipe = SyntheticTokenPipeline(DataConfig(2, 96, seed=3), cfg)
+    step = make_train_step(cfg, q_chunk=96, xent_chunk=32, warmup=1)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = _card_train_params(cfg, dev)
+        state = adamw_init(params)
+        fwd = fa_ops.flash_attention.launches
+        bwd = fa_ops.flash_attention_bwd.launches
+        losses = []
+        for i in range(3):
+            params, state, m = step(params, state, pipe.batch_at(i))
+            losses.append(float(m["loss"]))
+        launched = (fa_ops.flash_attention.launches - fwd,
+                    fa_ops.flash_attention_bwd.launches - bwd)
+        runs[dev] = (losses, params, launched)
+    assert runs["cpu"][2] == (0, 0)
+    # remat: the forward runs twice a layer per step
+    assert runs["cuda"][2] == (3 * 2 * cfg.n_layers, 3 * cfg.n_layers)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
+                               atol=2e-4, rtol=2e-4)
+    for (name, a), (_, b) in zip(flatten(runs["cuda"][1]),
+                                 flatten(runs["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=2e-4,
+                                   msg=str(name))
+
+
+@pytest.mark.cuda
+def test_train_replay_after_a_crash_is_bit_identical_on_card(cuda_device,
+                                                             tmp_path):
+    """The coordinator with a forced crash against a fault-free run of the
+    same steps, in bf16 with deterministic kernels: the same bits."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.distributed import make_train_step
+    from repro_torch.ft import (CheckpointStore, DynamicInterval,
+                                FaultInjector, TrainingCoordinator)
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten
+    cfg = dataclasses.replace(_card_train_cfg(), compute_dtype="bfloat16")
+    step = make_train_step(cfg, q_chunk=96, xent_chunk=32, warmup=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        finals = []
+        for name, crash in (("clean", None), ("crash", {4: 1})):
+            params = _card_train_params(cfg, cuda_device)
+            inj = None
+            if crash:
+                inj = FaultInjector(mtbf_steps=100.0, seed=0,
+                                    horizon_steps=0)
+                inj.fail_steps = crash
+            coord = TrainingCoordinator(
+                train_step=step, params=params, opt_state=adamw_init(params),
+                pipeline=SyntheticTokenPipeline(DataConfig(2, 96), cfg),
+                store=CheckpointStore(str(tmp_path / name)),
+                interval=DynamicInterval(gamma_s=1.0, lam_min=3.0,
+                                         lam_max=3.0),
+                injector=inj)
+            rep = coord.run(6)
+            assert rep.steps_completed == 6
+            assert rep.restores == rep.failures == (1 if crash else 0)
+            finals.append(coord.params)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for (name, a), (_, b) in zip(flatten(finals[0]), flatten(finals[1])):
+        assert torch.equal(a, b), name

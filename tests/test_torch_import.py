@@ -35,6 +35,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.checkpoint_policy", "repro_torch.core.metrics",
             "repro_torch.core.baselines", "repro_torch.core.dax",
             "repro_torch.core.resubmission_impact"} <= set(mods)
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.data.pipeline", "repro_torch.ft.checkpoint",
+            "repro_torch.ft.coordinator", "repro_torch.ft.straggler",
+            "repro_torch.launch.train", "repro_torch.tree",
+            "repro_torch.distributed.steps"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
