@@ -7,9 +7,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA, no run;
 2. build: ``nvcc`` compiles every ``kernels/csrc/*.cu`` for sm_90a, in
-   parallel, into ``build/kernels``; ``cuobjdump -sass`` counts each
-   library's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions, and
-   the run fails if the bf16 flash-attention kernels have no ``HGMMA``;
+   parallel, into ``build/kernels``; prints ptxas's registers and spill
+   bytes of the backward's kernels and fails if its bf16 (tensor-core)
+   kernels spill; ``cuobjdump -sass`` counts each library's ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions, and the run fails if a
+   bf16 flash-attention kernel, forward or backward, has none of either;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the JAX package's test shapes, at the serve paths' shapes and at large
    ones, with times (CUDA events, median of 25 after warm-up, the host's
@@ -22,7 +24,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    chunked plain version; WKV6 and pairwise distance give the same bits
    on a repeat call; the flash-attention backward against its plain
    version in fp32 on the same inputs at olmo-1b's training shape (timed
-   beside SDPA's backward), at its tile edges, GQA groups 1/2/4 and
+   beside SDPA's backward, whose own error against the same reference is
+   printed at every case), at its tile edges, GQA groups 1/2/4 and
    windows 1/37/2048, in fp32 and bf16, with the forward's row
    log-sum-exp against its plain version, the forward's bits unchanged
    when it writes the lse, a bit-identical repeat, and a x1.1
@@ -237,9 +240,55 @@ def _timing_text(rec, library):
             f"share {rec['bound_share']:.3f})")
 
 
+def ptxas_report(log):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from a
+    ``ptxas -v`` log, by short name (``flash_bwd_dq_tc<128,2>``)."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            ints = re.search(r"(flash_[a-z_]+?)I((?:Li\d+E)+)E", m.group(1))
+            typed = re.search(r"(flash_[a-z_]+?)I(\w+?)EEv", m.group(1))
+            fn = (f"{ints.group(1)}<"
+                  f"{','.join(re.findall(r'Li(\d+)E', ints.group(2)))}>"
+                  if ints else f"{typed.group(1)}<{typed.group(2)}>"
+                  if typed else m.group(1))
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m[1])
+    return out
+
+
+def phase_build_report(build):
+    """Every kernel's ptxas lines; the backward kernels' registers and spill
+    bytes by name, and no spill in its bf16 (tensor-core) kernels."""
+    for name, log in sorted(build.build_logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    report = ptxas_report(build.build_logs.get("flash_attention_bwd", ""))
+    check(report, "no ptxas report of the flash-attention backward")
+    for fn, r in sorted(report.items()):
+        print(f"  ptxas flash_attention_bwd {fn}: {r.get('registers')} "
+              f"registers, spill stores {r.get('spill_stores')} B, spill "
+              f"loads {r.get('spill_loads')} B")
+    tc = {fn: r for fn, r in report.items() if "_tc<" in fn}
+    check(tc and all(r.get("spill_stores") == r.get("spill_loads") == 0
+                     for r in tc.values()),
+          f"the bf16 backward kernels spill: {tc}")
+
+
 def phase_sass(build):
     """Counts of HGMMA (wgmma) and UTMALDG (TMA load) in each library's SASS,
-    by kernel; the bf16 flash-attention kernels must hold HGMMA."""
+    by kernel; the bf16 flash-attention kernels, forward and backward, must
+    hold both."""
     import re
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     by_fn = {}
@@ -264,12 +313,19 @@ def phase_sass(build):
               f"{total['UTMALDG']} in {len(counts)} kernels")
         by_fn.update({f"{name}:{fn}": c for fn, c in counts.items()})
     tc = {fn: c for fn, c in by_fn.items()
-          if fn.startswith("flash_attention:") and "flash_fwd_tc" in fn}
+          if any(fn.startswith(f"flash_attention{lib}:") and k in fn
+                 for lib, k in (("", "flash_fwd_tc"),
+                                ("_bwd", "flash_bwd_dq_tc"),
+                                ("_bwd", "flash_bwd_dkdv_tc")))}
     for fn, c in sorted(tc.items()):
-        print(f"    {fn.split('flash_fwd_tc')[1][:16]}: HGMMA {c['HGMMA']} "
-              f"UTMALDG {c['UTMALDG']}")
-    check(tc and all(c["HGMMA"] > 0 for c in tc.values()),
-          "the bf16 flash-attention kernels hold no HGMMA instruction")
+        print(f"    {fn[:60]}: HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']}")
+    check(any("flash_bwd_dq_tc" in fn for fn in tc)
+          and any("flash_bwd_dkdv_tc" in fn for fn in tc),
+          "no bf16 backward kernel in the SASS")
+    check(tc and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                     for c in tc.values()),
+          "a bf16 flash-attention kernel holds no HGMMA or no UTMALDG "
+          "instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -414,12 +470,29 @@ def _bwd_check(got, want, dtype_name):
     return err, nerr, ok
 
 
-def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
-    """The backward kernel against the plain backward in fp32 on the same
-    inputs; the forward's lse against its plain version and the forward's
-    bits with and without it; a repeat call's bits."""
+def _sdpa_graph(q, k, v, causal, window):
+    """Leaf copies of q, k, v and SDPA's output on them (the same mask), for
+    SDPA's backward as a yardstick: never the port's path."""
     import torch
     import torch.nn.functional as F
+    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    kw = {"enable_gqa": True} if q.shape[1] != k.shape[1] else {}
+    if window:
+        s = q.shape[2]
+        diff = (torch.arange(s, device="cuda")[:, None]
+                - torch.arange(s, device="cuda")[None, :])
+        kw["attn_mask"] = (diff >= 0) & (diff < window)
+    else:
+        kw["is_causal"] = causal
+    return (qq, kk, vv), F.scaled_dot_product_attention(qq, kk, vv, **kw)
+
+
+def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
+    """The backward kernel against the plain backward in fp32 on the same
+    inputs, beside SDPA's backward against the same reference; the
+    forward's lse against its plain version and the forward's bits with and
+    without it; a repeat call's bits."""
+    import torch
     from repro_torch.kernels.flash_attention import ops, ref
     q, k, v, do = _bwd_inputs(b, h, kv, s, d, dtype_name, window)
     kw = dict(causal=causal, window=window)
@@ -433,24 +506,25 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     want = ref.attention_backward(q.float(), k.float(), v.float(), o.float(),
                                   lse, do.float(), **kw)
     err, nerr, ok = _bwd_check(got, want, dtype_name)
+    leaves, out = _sdpa_graph(q, k, v, causal, window)
+    sdpa_nerr = _bwd_check(torch.autograd.grad(out, leaves, do), want,
+                           dtype_name)[1]
     again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     same = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
-    del want, again
+    del want, again, leaves, out
     rec = {"shape": [b, h, kv, s, d], "dtype": dtype_name, "causal": causal,
            "window": window, "max_abs_err": err, "max_err_over_scale": nerr,
-           "lse_err": lse_err, "ok": ok and lse_ok and same_fwd and same}
+           "sdpa_err_over_scale": sdpa_nerr, "lse_err": lse_err,
+           "ok": ok and lse_ok and same_fwd and same}
     if timed:
         time_kernel(rec, lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
                                                          **kw))
         rec["plain_ms"] = time_ms(lambda: ref.attention_backward(
             q, k, v, o, lse, do, **kw))
         # SDPA's backward, as a yardstick only
-        qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
-        gqa = {"enable_gqa": True} if h != kv else {}
-        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
-                                             **gqa)
+        leaves, out = _sdpa_graph(q, k, v, causal, window)
         time_kernel(rec, lambda: torch.autograd.grad(
-            out, (qq, kk, vv), do, retain_graph=True), "library_")
+            out, leaves, do, retain_graph=True), "library_")
         pairs = s * (s + 1) // 2 if causal else s * s
         item = q.element_size()
         # q, o, dO and dq (B, H, S, D); k, v, dk, dv (B, KV, S, D); lse
@@ -461,7 +535,8 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
             "causal" if causal else "bidir")
     print(f"  flash_attention_bwd {(b, h, kv, s, d)} {dtype_name} {mode}: "
           f"max_abs_err {err:.3g}, over the gradient's scale {nerr:.3g} "
-          f"(atol {tol['atol']} rtol {tol['rtol']} of max(1, |grad|max)); "
+          f"(atol {tol['atol']} rtol {tol['rtol']} of max(1, |grad|max); "
+          f"SDPA's backward {sdpa_nerr:.3g}); "
           f"lse err {lse_err:.3g} (2e-4); forward bits "
           f"{'unchanged' if same_fwd else 'CHANGED'} with lse; repeat "
           f"{'same bits' if same else 'DIFFERS'} "
@@ -490,7 +565,9 @@ def flash_bwd_mutant_case(b, h, kv, s, d, dtype_name):
 
     def mutant(*args):
         args = list(args)
-        args[19] *= 1.1   # the softmax scale
+        # the softmax scale: P's exponent and dQ, dK in both the tensor-core
+        # and the SIMT kernels
+        args[19] *= 1.1
         return real(*args)
 
     ops._bwd_fn = lambda: mutant
@@ -1382,10 +1459,7 @@ def main() -> int:
     secs = _build.build_all()
     print(f"build: {len(_build.SOURCES)} kernels with nvcc for sm_90a in "
           f"{secs:.1f} s")
-    for name, log in sorted(_build.build_logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "entry" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    phase_build_report(_build)
     phase_sass(_build)
 
     # 3. kernels

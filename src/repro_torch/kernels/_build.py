@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout
-(a directory ``.gitignore`` lists).  The digest covers the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.  Nothing
+(a directory ``.gitignore`` lists).  The digest covers the source, every
+header ``csrc/*.cuh`` (a source may include any of them) and the flags, so
+an edited source or header rebuilds and an unchanged one is reused.  Nothing
 is built at import: a wrapper calls :func:`load` at its first launch, and
 :func:`build_all` starts one ``nvcc`` per source at once.
 """
@@ -43,8 +44,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -22,7 +22,9 @@
 // olmo's 512 and 256 buckets, 25x, 3.7x and 3-5x SDPA's time (PERF.md,
 // PR 12, NVIDIA H100 80GB HBM3 at 700 W).
 //
-// bf16 inputs run on the tensor cores (flash_fwd_tc below):
+// bf16 inputs run on the tensor cores (flash_fwd_tc below; its TMA,
+// mbarrier, descriptor and wgmma helpers are csrc/hopper.cuh, shared with
+// the backward):
 //   * S = Q K^T is wgmma m64nBk k16 with Q and K read from shared memory
 //     (both K-major); O += P V is wgmma m64nD k16 with P in registers and V
 //     read from shared memory MN-major (the transpose 16-bit types allow);
@@ -70,19 +72,15 @@
 // takes to recompute P; the serve path passes no lse buffer, and the
 // output's bits are the same with or without one.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using hopper::Strides;
 
-struct Strides {
-  int64_t b, h, s;  // elements; the head dim is contiguous
-};
+constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
 // fp32: the SIMT kernel
@@ -321,226 +319,7 @@ struct Tile {
   static_assert(kStages >= 2 && kSmem <= 232448, "K/V ring does not fit");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// waits for the phase of parity `phase` to complete; a copy that never
-// lands (a bad tensor map) traps after ~2^34 cycles instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(phase)
-        : "memory");
-    if (!done && clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// one box of a 4-d tensor map (d, s, head, batch) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int s, int head,
-                                         int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(s),
-      "r"(head), "r"(batch)
-      : "memory");
-}
-
-// a (rows x D) tile as D / 64 boxes of (rows x 64), box j at dst + j*rows*128
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int row0, int head,
-                                          int batch) {
-  mbar_expect_tx(bar, ROWS * D * 2);
-#pragma unroll
-  for (int j = 0; j < D / 64; ++j)
-    tma_load(dst + j * ROWS * 128, map, bar, j * 64, row0, head, batch);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, each >> 4 in 14 bits
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operand (Q as A, K as B): a (ROWS x D) tile in D / 64 boxes; the
-// 16-column slice kk sits at box kk / 4, 32 bytes per slice inside the
-// 128-byte swizzled row; 8-row groups 1024 bytes apart
-template <int ROWS>
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + (kk / 4) * ROWS * 128 + (kk % 4) * 32, 16, 1024);
-}
-
-// MN-major operand (V as B, transposed): 16 keys per slice are 16 rows of
-// 128 bytes; along D the next 64 columns are the next box, ROWS * 128 bytes
-// on (leading byte offset); 8-key groups 1024 bytes apart
-template <int ROWS>
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 16 * 128, ROWS * 128, 1024);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// waits until at most N committed wgmma groups are still running
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// ties each accumulator register to this point, so that no read or write of
-// it moves across the wgmma wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_F8(i)                                                  \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// D (64 x 64) {=, +=} A (64 x 16, shared) * B (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 128) {=, +=} A (64 x 16, shared) * B (16 x 128, shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
-        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
-        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 256) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
-        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56),
-        WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88),
-        WG_F8(96), WG_F8(104), WG_F8(112), WG_F8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef WG_F8
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
-  else wgmma_ss_n128(d, da, db, scale_d);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n256(d, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using namespace hopper;
 
 // Online softmax of one KV tile for this thread's two rows, on the raw
 // scores s (the S accumulator fragment).  Masked marks masked scores as
@@ -618,20 +397,6 @@ __device__ __forceinline__ void issue_phase(float (&s)[Bk / 2],
     for (int kk = 0; kk < Bk / 16; ++kk)
       wgmma_rs<D>(acc, pa[kk], desc_mnmajor<Bk>(sVs, kk));
     wg_commit();
-  }
-}
-
-// P as bf16 A fragments: the S accumulator of keys 16kk..16kk+15 in the
-// m16k16 A layout
-template <int Bk>
-__device__ __forceinline__ void pack_p(const float (&s)[Bk / 2],
-                                       uint32_t (&pa)[Bk / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < Bk / 16; ++kk) {
-    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
@@ -807,47 +572,6 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     if (row1 < Sq)
       lb[row1] = l1 > 0.f ? (m1 * scale_log2 + log2f(l1)) * kLn2 : -INFINITY;
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so that
-// the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// a 4-d map (D, S, heads, batch) of bf16 with (box_rows x 64) boxes
-int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
-             int B, Strides st, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int D, int NWG>

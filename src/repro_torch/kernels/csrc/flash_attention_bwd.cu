@@ -13,87 +13,88 @@
 //   P     = exp(S * scale - lse)        (S = Q K^T; masked entries exactly 0)
 //   delta = rowsum(dO o O)              (fp32)
 //   dV    = P^T dO
-//   dS    = P o (dO V^T - delta)
+//   dS    = P o (dP - delta),           dP = dO V^T
 //   dQ    = dS K * scale,   dK = dS^T Q * scale
 // with the forward's masks: causal (q_pos >= k_pos), optionally within
 // `window` (q_pos - k_pos < window), or none.
 //
-// Three kernels on the caller's stream, no atomics, one visiting order, so
-// the result is bit-identical from run to run (the ROADMAP's determinism
-// rule):
-//   1. flash_bwd_delta: delta per query row, one warp a row;
-//   2. flash_bwd_dkdv: a block owns 64 keys of one (batch, KV head); it
-//      loops over the H / KV query heads of its group and over the query
-//      tiles the mask admits, recomputes S^T and dP^T = V dO^T, and keeps
-//      dK and dV in registers until it writes each once;
-//   3. flash_bwd_dq: a block owns 64 query rows of one (batch, head); it
-//      loops over the KV tiles the mask admits and keeps dQ in registers.
-// Tiles outside the causal band or the window are never visited.
+// What bounds it on the H100: five products of 2 B H pairs D flop (pairs =
+// S(S+1)/2 under causality), about 172 GFLOP at olmo-1b's
+// (4, 16, 16, 2048, 128): 0.174 ms at the 989 TFLOP/s bf16 tensor-core
+// peak, over the 0.080 ms its ~268 MB of bytes take.  No atomics are
+// allowed (the ROADMAP's determinism rule: the train phase replays steps
+// bit for bit), so dQ cannot be summed over key tiles by atomic adds as in
+// FlashAttention-3; two passes own disjoint outputs instead and each
+// recomputes S and dP, seven products for five: 0.243 ms at peak.  The
+// first version ran every product on the fp32 FMA pipes (67 TFLOP/s) from
+// fp32-staged shared memory: 13.8 ms of device time at that shape, 29x
+// SDPA's backward (PERF.md, NVIDIA H100 80GB HBM3 at 700 W).
 //
-// What bounds it on the H100: five products of 2 B H S^2 D flop, halved by
-// causality, about 172 GFLOP at olmo-1b's (4, 16, 16, 2048, 128): 0.174 ms
-// at the 989 TFLOP/s bf16 tensor-core peak, over the 0.080 ms its ~268 MB
-// of bytes take.  This first version is SIMT: every product runs on the
-// fp32 FMA pipes (67 TFLOP/s peak) from shared memory, each thread a
-// 4 x 4 score tile and a 4 x D/16 accumulator in registers, so a
-// shared-memory read feeds 2-2.7 FMAs, and it recomputes S and dP in both
-// passes (seven products for five).  Inputs are fp32 or bf16, staged into
-// shared memory as fp32; all arithmetic is fp32; the gradients are written
-// in the input's dtype.  The tensor-core version (wgmma, TMA) is later work.
+// bf16 runs on the tensor cores (the wgmma/TMA machinery of the forward,
+// csrc/hopper.cuh), in three kernels on the caller's stream:
+//   1. flash_bwd_delta: delta per query row, one warp a row (bytes-bound,
+//      ~34 MB at the training shape);
+//   2. flash_bwd_dq_tc: a block owns 64 query rows of one (batch, head),
+//      one consumer warpgroup, and loops over the key tiles the mask admits
+//      (64 keys each):
+//        S = Q K^T, dP = dO V^T   wgmma SS, both operands K-major;
+//        dQ += dS K               wgmma RS, dS from registers, K MN-major;
+//   3. flash_bwd_dkdv_tc: a block owns 64 keys of one (batch, KV head), one
+//      consumer warpgroup, and loops over the H / KV query heads of its
+//      group and the query tiles the mask admits (64 queries each):
+//        S^T = K Q^T, dP^T = V dO^T   wgmma SS, both operands K-major;
+//        dV += P^T dO, dK += dS^T Q   wgmma RS, P^T and dS^T from
+//                                     registers, dO and Q MN-major;
+//      lse (in log2 units) and delta of the streamed tile sit beside it in
+//      shared memory, since they index the accumulator's columns.
+// In both, the fp32 accumulator of S^T (or dP) cast pairwise to bf16 is
+// the A fragment of the next product (the forward's pack_p identity), so P
+// and dS never touch shared memory.  A block is one consumer warpgroup and
+// one producer warp (160 threads), which brings the block's fixed tiles and
+// a ring of 2-4 stages of streamed tiles in by TMA over 4-d tensor maps on
+// the callers' strides (16-byte aligned: the wrapper checks), completed on
+// mbarriers.  Registers set the rest: ptxas allots a block's registers as
+// if its threads were rounded up to whole warpgroups, so this block has 255
+// a thread and one of two consumers 168.  The dK/dV consumer holds dK and
+// dV (two D-wide fp32 accumulators), S^T, dP^T and both fragments (224 at
+// D = 128): one block an SM; it issues S^T(j) and dP^T(j) with the RS
+// products of tile j-1, waits, and computes P and dS of tile j.  The dQ
+// consumer issues S(j) with dQ += dS(j-1) K, computes P(j), and only then
+// issues dP(j), so that it never holds S, dP and dS's fragments at once
+// (~150 registers: two blocks an SM, the ring cut to fit).  ptxas reports
+// no spills (chip_smoke.py checks).  exp is ex2 on log2(e)-scaled scores.
+// The masks are applied only on tiles that cross the diagonal, the
+// window's edge or a ragged end; tiles outside the band are never visited,
+// and the longest blocks start first.
+// P and dS enter their products in bf16, a rounding the fp32 plain version
+// does not make (|P| <= 1: at most 2^-9 absolute; dS to 2^-9 relative); S,
+// dP, the accumulators and delta stay fp32, and each gradient is rounded to
+// bf16 once (ref.attention_backward_rounded is this arithmetic on the CPU).
+// One visiting order and no atomics: the gradients are bit-identical from
+// run to run.
+//
+// fp32 keeps the first version's SIMT kernels (flash_bwd_*_simt): the
+// tensor cores would take fp32 as TF32, which breaks the 2e-4 fp32 limit.
+// Each thread holds a 4 x 4 score tile and a 4 x D/16 accumulator in
+// registers over padded fp32 tiles in shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-struct Strides {
-  int64_t b, h, s;  // elements; the head dim is contiguous
-};
+using hopper::Strides;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-constexpr int kB = 64;           // rows of a query tile and of a key tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kRows = 4;         // tile rows per thread (16 * 4 = kB)
-constexpr int kCols = kB / 16;   // tile columns per thread
-
-template <int D>
-struct Cfg {
-  static constexpr int kLd = D + 1;      // padded fp32 row of a staged tile
-  static constexpr int kPld = kB + 4;    // padded row of a P or dS tile
-  static constexpr int kOcols = D / 16;  // accumulator columns per thread
-  // dK/dV: K, V, Q, dO, P^T, dS^T, lse, delta
-  static constexpr size_t kSmemKV =
-      sizeof(float) * (4 * kB * kLd + 2 * kB * kPld + 2 * kB);
-  // dQ: Q, dO, K, V, dS, lse, delta
-  static constexpr size_t kSmemQ =
-      sizeof(float) * (4 * kB * kLd + kB * kPld + 2 * kB);
-};
 
 __device__ __forceinline__ bool admitted(int qi, int kj, int Sq, int Sk,
                                          int causal, int window) {
   return qi < Sq && kj < Sk && (!causal || qi >= kj) &&
          (window <= 0 || qi - kj < window);
-}
-
-// rows [r0, r0 + kB) of a (seq, D) slab into a padded fp32 tile; rows past
-// `n` are zeros
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int64_t ss,
-                                      int r0, int n) {
-  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    dst[r * Cfg<D>::kLd + d] = r0 + r < n ? ld(src + (r0 + r) * ss + d) : 0.f;
-  }
 }
 
 // delta = rowsum(dO o O) in fp32, one warp a row; lanes take every 32nd
@@ -118,16 +119,63 @@ __global__ void flash_bwd_delta(const T* __restrict__ o,
   if (lane == 0) delta[row] = acc;
 }
 
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, int B, int H,
+                 int Sq, int D, Strides ost, Strides dost,
+                 cudaStream_t stream) {
+  const int rows = B * H * Sq;
+  flash_bwd_delta<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+      (const T*)o, (const T*)dout, delta, rows, H, Sq, D, ost, dost);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the SIMT kernels
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int kB = 64;           // rows of a query tile and of a key tile
+constexpr int kThreads = 256;    // 16 x 16
+constexpr int kRows = 4;         // tile rows per thread (16 * 4 = kB)
+constexpr int kCols = kB / 16;   // tile columns per thread
+
+template <int D>
+struct Cfg {
+  static constexpr int kLd = D + 1;      // padded fp32 row of a staged tile
+  static constexpr int kPld = kB + 4;    // padded row of a P or dS tile
+  static constexpr int kOcols = D / 16;  // accumulator columns per thread
+  // dK/dV: K, V, Q, dO, P^T, dS^T, lse, delta
+  static constexpr size_t kSmemKV =
+      sizeof(float) * (4 * kB * kLd + 2 * kB * kPld + 2 * kB);
+  // dQ: Q, dO, K, V, dS, lse, delta
+  static constexpr size_t kSmemQ =
+      sizeof(float) * (4 * kB * kLd + kB * kPld + 2 * kB);
+};
+
+// rows [r0, r0 + kB) of a (seq, D) slab into a padded tile; rows past `n`
+// are zeros
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      int64_t ss, int r0, int n) {
+  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    dst[r * Cfg<D>::kLd + d] = r0 + r < n ? src[(r0 + r) * ss + d] : 0.f;
+  }
+}
+
 // dK and dV of 64 keys of one (batch, KV head)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int H, int group,
-               int Sq, int Sk, int causal, int window, float scale,
-               Strides qst, Strides kst, Strides vst, Strides dost,
-               Strides dkst, Strides dvst) {
+flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int H, int group, int Sq, int Sk,
+                    int causal, int window, float scale, Strides qst,
+                    Strides kst, Strides vst, Strides dost, Strides dkst,
+                    Strides dvst) {
   using C = Cfg<D>;
   constexpr int L = C::kLd, PL = C::kPld, OC = C::kOcols;
   extern __shared__ float smem[];
@@ -145,8 +193,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.x / KV, hk = blockIdx.x % KV;
   const int k0 = blockIdx.y * kB;  // key tile 0 sees the most queries: first
 
-  stage<T, D>(Ks, k + b * kst.b + hk * kst.h, kst.s, k0, Sk);
-  stage<T, D>(Vs, v + b * vst.b + hk * vst.h, vst.s, k0, Sk);
+  stage<D>(Ks, k + b * kst.b + hk * kst.h, kst.s, k0, Sk);
+  stage<D>(Vs, v + b * vst.b + hk * vst.h, vst.s, k0, Sk);
 
   float dka[kRows][OC], dva[kRows][OC];
 #pragma unroll
@@ -162,15 +210,15 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = hk * group + hh;
-    const T* qb = q + b * qst.b + h * qst.h;
-    const T* db = dout + b * dost.b + h * dost.h;
+    const float* qb = q + b * qst.b + h * qst.h;
+    const float* db = dout + b * dost.b + h * dost.h;
     const float* lb = lse + ((int64_t)b * H + h) * Sq;
     const float* deb = delta + ((int64_t)b * H + h) * Sq;
     for (int it = i_first; it < i_end; ++it) {
       const int q0 = it * kB;
       __syncthreads();  // the previous tile's reads are done
-      stage<T, D>(Qs, qb, qst.s, q0, Sq);
-      stage<T, D>(dOs, db, dost.s, q0, Sq);
+      stage<D>(Qs, qb, qst.s, q0, Sq);
+      stage<D>(dOs, db, dost.s, q0, Sq);
       if (tid < kB) {
         const bool ok = q0 + tid < Sq;
         lse_s[tid] = ok ? lb[q0 + tid] : 0.f;
@@ -242,29 +290,30 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + b * dkst.b + hk * dkst.h;
-  T* dvb = dv + b * dvst.b + hk * dvst.h;
+  float* dkb = dk + b * dkst.b + hk * dkst.h;
+  float* dvb = dv + b * dvst.b + hk * dvst.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int kj = k0 + ty * kRows + i;
     if (kj >= Sk) continue;
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
-      st(dkb + kj * dkst.s + tx + 16 * c, dka[i][c] * scale);
-      st(dvb + kj * dvst.s + tx + 16 * c, dva[i][c]);
+      dkb[kj * dkst.s + tx + 16 * c] = dka[i][c] * scale;
+      dvb[kj * dvst.s + tx + 16 * c] = dva[i][c];
     }
   }
 }
 
 // dQ of 64 query rows of one (batch, head)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int H, int group, int Sq, int Sk, int causal,
-             int window, float scale, Strides qst, Strides kst, Strides vst,
-             Strides dost, Strides dqst) {
+flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int H, int group, int Sq, int Sk, int causal, int window,
+                  float scale, Strides qst, Strides kst, Strides vst,
+                  Strides dost, Strides dqst) {
   using C = Cfg<D>;
   constexpr int L = C::kLd, PL = C::kPld, OC = C::kOcols;
   extern __shared__ float smem[];
@@ -281,16 +330,16 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   // the last query tiles see the most keys under causal: they start first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;
 
-  stage<T, D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
-  stage<T, D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, Sq);
+  stage<D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
+  stage<D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, Sq);
   if (tid < kB) {
     const bool ok = q0 + tid < Sq;
     const int64_t row = ((int64_t)b * H + h) * Sq + q0 + tid;
     lse_s[tid] = ok ? lse[row] : 0.f;
     dl_s[tid] = ok ? delta[row] : 0.f;
   }
-  const T* kb = k + b * kst.b + hk * kst.h;
-  const T* vb = v + b * vst.b + hk * vst.h;
+  const float* kb = k + b * kst.b + hk * kst.h;
+  const float* vb = v + b * vst.b + hk * vst.h;
 
   float dqa[kRows][OC];
 #pragma unroll
@@ -306,8 +355,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kB;
     __syncthreads();  // the previous tile's reads are done
-    stage<T, D>(Ks, kb, kst.s, k0, Sk);
-    stage<T, D>(Vs, vb, vst.s, k0, Sk);
+    stage<D>(Ks, kb, kst.s, k0, Sk);
+    stage<D>(Vs, vb, vst.s, k0, Sk);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: queries ty*4+i, keys tx+16j
@@ -364,18 +413,18 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqb = dq + b * dqst.b + h * dqst.h;
+  float* dqb = dq + b * dqst.b + h * dqst.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty * kRows + i;
     if (qi >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < OC; ++c)
-      st(dqb + qi * dqst.s + tx + 16 * c, dqa[i][c] * scale);
+      dqb[qi * dqst.s + tx + 16 * c] = dqa[i][c] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
@@ -384,53 +433,554 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   using C = Cfg<D>;
   const Strides &qst = st[0], &kst = st[1], &vst = st[2], &ost = st[3],
                 &dost = st[4], &dqst = st[5], &dkst = st[6], &dvst = st[7];
-  const int rows = B * H * Sq;
-  flash_bwd_delta<T><<<(rows + 7) / 8, 256, 0, stream>>>(
-      (const T*)o, (const T*)dout, delta, rows, H, Sq, D, ost, dost);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  int err = launch_delta<float>(o, dout, delta, B, H, Sq, D, ost, dost,
+                                stream);
+  if (err) return err;
 
-  e = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)C::kSmemQ);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::kSmemQ);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq<T, D><<<dim3(B * H, (Sq + kB - 1) / kB), kThreads, C::kSmemQ,
-                       stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, H, H / KV, Sq, Sk, causal, window, scale, qst, kst, vst, dost,
-      dqst);
+  flash_bwd_dq_simt<D><<<dim3(B * H, (Sq + kB - 1) / kB), kThreads,
+                         C::kSmemQ, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, (float*)dq, H, H / KV, Sq, Sk, causal, window, scale, qst,
+      kst, vst, dost, dqst);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  e = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_simt<D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)C::kSmemKV);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv<T, D><<<dim3(B * KV, (Sk + kB - 1) / kB), kThreads,
-                         C::kSmemKV, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, H, H / KV, Sq, Sk, causal, window, scale, qst, kst,
-      vst, dost, dkst, dvst);
+  flash_bwd_dkdv_simt<D><<<dim3(B * KV, (Sk + kB - 1) / kB), kThreads,
+                           C::kSmemKV, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, (float*)dk, (float*)dv, H, H / KV, Sq, Sk, causal, window,
+      scale, qst, kst, vst, dost, dkst, dvst);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int by_dim(int D, const void* q, const void* k, const void* v, const void* o,
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels (wgmma, TMA, mbarriers; sm_90a only)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kSmemMax = 232448;  // a block's dynamic shared memory
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// Both passes: threads 0-127 are the consumer warpgroup, 128-159 the
+// producer warp.  A consumer thread holds the two rows warp*16 + lane/4
+// (+ 8) of the tile's 64 and, of each 8-wide column chunk of an
+// accumulator, columns 2*(lane%4) and 2*(lane%4) + 1.
+
+// The dK/dV pass: 64 keys a block (K and V loaded once) and one consumer
+// warpgroup, a ring of stages of one 64-query Q tile, one dO tile, and the
+// tile's lse (log2 units) and delta.
+template <int D>
+struct KVTile {
+  static constexpr int kBk = 64;
+  static constexpr int kBq = 64;
+  static constexpr int kThreads = 160;
+  static constexpr int kKVBytes = kBk * D * 2;  // one K or V tile
+  static constexpr int kQBytes = kBq * D * 2;   // one Q or dO tile
+  static constexpr int kRowBytes = 2 * kBq * 4; // lse and delta of a tile
+  static constexpr int kStages = cmin(
+      4, (kSmemMax - 2 * kKVBytes - 2048) / (2 * kQBytes + kRowBytes));
+  // K | V | Q[kStages] | dO[kStages] | rows[kStages] | mbarriers; every
+  // tile 1024-byte aligned (the SWIZZLE_128B atom), the base aligned up at
+  // run time
+  static constexpr int kVOff = kKVBytes;
+  static constexpr int kQOff = 2 * kKVBytes;
+  static constexpr int kOOff = kQOff + kStages * kQBytes;
+  static constexpr int kRowOff = kOOff + kStages * kQBytes;
+  static constexpr int kBarOff = kRowOff + kStages * kRowBytes;
+  static constexpr int kSmem = kBarOff + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kStages >= 2 && kSmem <= kSmemMax, "Q/dO ring does not fit");
+};
+
+// The dQ pass: 64 query rows a block (Q and dO loaded once) and one
+// consumer warpgroup, a ring of stages of one 64-key K tile and one V tile,
+// as many as let two blocks share an SM (up to 4).
+template <int D>
+struct QTile {
+  static constexpr int kBq = 64;
+  static constexpr int kBk = 64;
+  static constexpr int kThreads = 160;
+  static constexpr int kQBytes = kBq * D * 2;   // the Q or the dO tile
+  static constexpr int kKVBytes = kBk * D * 2;  // one K or V tile
+  static constexpr int kStages =
+      cmin(4, (kSmemMax / 2 - 2 * kQBytes - 2048) / (2 * kKVBytes));
+  static constexpr int kOOff = kQBytes;
+  static constexpr int kKOff = 2 * kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKVBytes;
+  static constexpr int kBarOff = kVOff + kStages * kKVBytes;
+  static constexpr int kSmem = kBarOff + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kStages >= 2 && kSmem <= kSmemMax, "K/V ring does not fit");
+};
+
+// P = exp(S * scale - lse) of one 64 x 64 tile for this thread's two rows,
+// in place.  Rows are the accumulator's M (keys in the dK/dV pass, queries
+// in the dQ pass); lse2(i) gives fragment i's lse (log2 units).  Masked
+// gives masked entries probability exactly 0 (and so dS 0).
+template <bool Masked, typename Lse, typename Valid>
+__device__ __forceinline__ void probs(float (&s)[32], float scale_log2,
+                                      Lse lse2, Valid valid) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = ex2(fmaf(s[i], scale_log2, -lse2(i)));
+    s[i] = Masked && !valid(i) ? 0.f : p;
+  }
+}
+
+// dS = P (dP - delta) in place of dP; delta(i) gives fragment i's delta
+template <typename Delta>
+__device__ __forceinline__ void dscores(const float (&p)[32], float (&dp)[32],
+                                        Delta dl) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = p[i] * (dp[i] - dl(i));
+}
+
+// the row and column (within the 64 x 64 tile) of accumulator fragment i
+__device__ __forceinline__ int frag_col(int i) { return 8 * (i / 4) + (i % 2); }
+__device__ __forceinline__ bool frag_row1(int i) { return (i % 4) >= 2; }
+
+template <int D>
+__global__ void __launch_bounds__(KVTile<D>::kThreads, 1)
+flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __grid_constant__ CUtensorMap dmap,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int H, int group, int Sq,
+                  int Sk, int causal, int window, float scale,
+                  float scale_log2, Strides dkst, Strides dvst) {
+  using T = KVTile<D>;
+  constexpr int Bk = T::kBk, Bq = T::kBq, S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // lse (log2 units) and delta of each stage's tile: [S][2][Bq] fp32
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + T::kRowOff);
+  const uint32_t sK = base, sV = base + T::kVOff, sQ = base + T::kQOff,
+                 sO = base + T::kOOff;
+  // mbarriers: K/V, then S each of full and empty
+  const uint32_t bar_kv = base + T::kBarOff;
+  const uint32_t bar_f = bar_kv + 8;
+  const uint32_t bar_e = bar_f + 8 * S;
+
+  const int tid = threadIdx.x;
+  // warp-uniform, so that the compiler sees each role's wgmma as converged
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int KV = H / group;
+  const int b = blockIdx.x / KV, hk = blockIdx.x % KV;
+  const int k0 = blockIdx.y * Bk;  // key tile 0 sees the most queries: first
+
+  // the query tiles that see a key of this block, for each head of the group
+  const int nq = (Sq + Bq - 1) / Bq;
+  const int i_first = causal ? k0 / Bq : 0;
+  int i_end = nq;
+  if (window > 0)
+    i_end = min(nq, (min(k0 + Bk, Sk) - 1 + window - 1) / Bq + 1);
+  const int n_q = max(i_end - i_first, 0);
+  const int n_iter = group * n_q;
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(bar_f + 8 * st, 32);         // every producer lane
+      mbar_init(bar_e + 8 * st, 128);        // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 1) {
+    // the producer warp: lane 0 issues the copies; every lane writes two
+    // rows' lse and delta into the stage before it arrives
+    const int lane = tid % 32;
+    if (n_iter > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(bar_kv, 2 * T::kKVBytes);
+        copy_tile<D, Bk>(sK, &kmap, bar_kv, k0, hk, b);
+        copy_tile<D, Bk>(sV, &vmap, bar_kv, k0, hk, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int st = it % S;
+        if (it >= S) mbar_wait(bar_e + 8 * st, (it / S - 1) & 1);
+        const int h = hk * group + it / n_q;
+        const int q0 = (i_first + it % n_q) * Bq;
+        const int64_t row = ((int64_t)b * H + h) * Sq + q0;
+        float* rs = rows + st * 2 * Bq;
+        for (int r = lane; r < Bq; r += 32) {
+          const bool ok = q0 + r < Sq;
+          rs[r] = ok ? lse[row + r] * kLog2e : 0.f;
+          rs[Bq + r] = ok ? delta[row + r] : 0.f;
+        }
+        const uint32_t bar = bar_f + 8 * st;
+        if (lane == 0) {
+          mbar_expect_tx(bar, 2 * T::kQBytes);
+          copy_tile<D, Bq>(sQ + st * T::kQBytes, &qmap, bar, q0, h, b);
+          copy_tile<D, Bq>(sO + st * T::kQBytes, &dmap, bar, q0, h, b);
+        } else {
+          mbar_arrive(bar);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int key0 = k0 + warp * 16 + lane / 4;
+  const int key1 = key0 + 8;
+  const int c0 = 2 * (lane % 4);
+
+  float dka[D / 2], dva[D / 2], s[32], dp[32];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = da[kk][r] = 0u;
+
+  auto qaddr = [&](int j) { return sQ + (j % S) * T::kQBytes; };
+  auto oaddr = [&](int j) { return sO + (j % S) * T::kQBytes; };
+  // S^T(j) = K Q_j^T and dP^T(j) = V dO_j^T, one wgmma group; K's and
+  // V's addresses are made opaque here, so that their 2 D / 16 descriptors
+  // are rebuilt at each issue and not held in registers across the loop
+  auto issue_ss = [&](int j) {
+    mbar_wait(bar_f + 8 * (j % S), (j / S) & 1);
+    uint32_t k_at = sK, v_at = sV;
+    asm volatile("" : "+r"(k_at), "+r"(v_at));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64>(s, desc_kmajor<Bk>(k_at, kk),
+                   desc_kmajor<Bq>(qaddr(j), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64>(dp, desc_kmajor<Bk>(v_at, kk),
+                   desc_kmajor<Bq>(oaddr(j), kk), kk > 0);
+    wg_commit();
+  };
+  // dV += P^T(j) dO_j and dK += dS^T(j) Q_j, one wgmma group
+  auto issue_rs = [&](int j) {
+#pragma unroll
+    for (int kk = 0; kk < Bq / 16; ++kk)
+      wgmma_rs<D>(dva, pa[kk], desc_mnmajor<Bq>(oaddr(j), kk));
+#pragma unroll
+    for (int kk = 0; kk < Bq / 16; ++kk)
+      wgmma_rs<D>(dka, da[kk], desc_mnmajor<Bq>(qaddr(j), kk));
+    wg_commit();
+  };
+  // P^T and dS^T of tile j in place; masks only where the tile crosses the
+  // diagonal, the window's edge or Sq
+  auto p_ds_tile = [&](int j) {
+    const int q0 = (i_first + j % n_q) * Bq;
+    const float* rs = rows + (j % S) * 2 * Bq + c0;
+    auto lse2 = [&](int i) { return rs[frag_col(i)]; };
+    auto dl = [&](int i) { return rs[Bq + frag_col(i)]; };
+    auto valid = [&](int i) {
+      const int qi = q0 + c0 + frag_col(i);
+      const int kj = frag_row1(i) ? key1 : key0;
+      return qi < Sq && (!causal || qi >= kj) &&
+             (window <= 0 || qi - kj < window);
+    };
+    if (q0 + Bq > Sq || (causal && q0 < k0 + Bk - 1) ||
+        (window > 0 && q0 + Bq - 1 - k0 >= window))
+      probs<true>(s, scale_log2, lse2, valid);
+    else
+      probs<false>(s, scale_log2, lse2, valid);
+    dscores(s, dp, dl);
+  };
+
+  // tile j: S^T(j) and dP^T(j) with dV, dK += tile j-1's products (j > 0)
+  // on the tensor cores, then P^T(j) and dS^T(j) as the next A fragments
+  auto tile = [&](int j) {
+    wg_fence();
+    issue_ss(j);
+    if (j > 0) issue_rs(j - 1);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(dka);
+    fence_regs(dva);
+    fence_regs(pa);
+    fence_regs(da);
+    if (j > 0) mbar_arrive(bar_e + 8 * ((j - 1) % S));  // tile j-1 is done
+    p_ds_tile(j);
+    pack_p<64>(s, pa);
+    pack_p<64>(dp, da);
+  };
+
+  if (n_iter > 0) {
+    mbar_wait(bar_kv, 0);
+    for (int j = 0; j < n_iter; ++j) tile(j);
+    wg_fence();
+    issue_rs(n_iter - 1);
+    wg_wait<0>();
+    fence_regs(dka);
+    fence_regs(dva);
+    mbar_arrive(bar_e + 8 * ((n_iter - 1) % S));
+  }
+
+  __nv_bfloat16* dkb = dk + b * dkst.b + hk * dkst.h;
+  __nv_bfloat16* dvb = dv + b * dvst.b + hk * dvst.h;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + c0;
+    if (key0 < Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + key0 * dkst.s + col) =
+          __floats2bfloat162_rn(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + key0 * dvst.s + col) =
+          __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
+    }
+    if (key1 < Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + key1 * dkst.s + col) =
+          __floats2bfloat162_rn(dka[4 * j + 2] * scale,
+                                dka[4 * j + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + key1 * dvst.s + col) =
+          __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(QTile<D>::kThreads, 1)
+flash_bwd_dq_tc(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap dmap,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int H, int group, int Sq,
+                int Sk, int causal, int window, float scale,
+                float scale_log2, Strides dqst) {
+  using T = QTile<D>;
+  constexpr int Bq = T::kBq, Bk = T::kBk, S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sQ = base, sO = base + T::kOOff, sK = base + T::kKOff,
+                 sV = base + T::kVOff;
+  // mbarriers: Q/dO, then S each of full and empty
+  const uint32_t bar_q = base + T::kBarOff;
+  const uint32_t bar_f = bar_q + 8;
+  const uint32_t bar_e = bar_f + 8 * S;
+
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / group;
+  // the last query tiles see the most keys under causal: they start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * Bq;
+
+  int n_tiles = (Sk + Bk - 1) / Bk;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + Bq, Sq) - 1) / Bk + 1);
+  // the first key any row of this block may see is q0 - window + 1
+  const int t_first = window > 0 ? max(q0 - window + 1, 0) / Bk : 0;
+  const int n_iter = max(n_tiles - t_first, 0);
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(bar_f + 8 * st, 1);
+      mbar_init(bar_e + 8 * st, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 1) {
+    if (tid == 128 && n_iter > 0) {
+      mbar_expect_tx(bar_q, 2 * T::kQBytes);
+      copy_tile<D, Bq>(sQ, &qmap, bar_q, q0, h, b);
+      copy_tile<D, Bq>(sO, &dmap, bar_q, q0, h, b);
+      for (int it = 0; it < n_iter; ++it) {
+        const int st = it % S;
+        if (it >= S) mbar_wait(bar_e + 8 * st, (it / S - 1) & 1);
+        const int kt = (t_first + it) * Bk;
+        const uint32_t bar = bar_f + 8 * st;
+        mbar_expect_tx(bar, 2 * T::kKVBytes);
+        copy_tile<D, Bk>(sK + st * T::kKVBytes, &kmap, bar, kt, hk, b);
+        copy_tile<D, Bk>(sV + st * T::kKVBytes, &vmap, bar, kt, hk, b);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int row1 = row0 + 8;
+  const int c0 = 2 * (lane % 4);
+  const int64_t rbase = ((int64_t)b * H + h) * Sq;
+  const float l2_0 = row0 < Sq ? lse[rbase + row0] * kLog2e : 0.f;
+  const float l2_1 = row1 < Sq ? lse[rbase + row1] * kLog2e : 0.f;
+  const float dl_0 = row0 < Sq ? delta[rbase + row0] : 0.f;
+  const float dl_1 = row1 < Sq ? delta[rbase + row1] : 0.f;
+
+  float dqa[D / 2], s[32], dp[32];
+  uint32_t da[4][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) da[kk][r] = 0u;
+
+  auto kaddr = [&](int j) { return sK + (j % S) * T::kKVBytes; };
+  auto vaddr = [&](int j) { return sV + (j % S) * T::kKVBytes; };
+  // S(j) = Q K_j^T and dP(j) = dO V_j^T (Q's and dO's descriptors rebuilt
+  // at each issue, as in the dK/dV pass)
+  auto issue_s = [&](int j) {
+    mbar_wait(bar_f + 8 * (j % S), (j / S) & 1);
+    uint32_t q_at = sQ;
+    asm volatile("" : "+r"(q_at));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64>(s, desc_kmajor<Bq>(q_at, kk),
+                   desc_kmajor<Bk>(kaddr(j), kk), kk > 0);
+  };
+  auto issue_dp = [&](int j) {
+    uint32_t o_at = sO;
+    asm volatile("" : "+r"(o_at));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64>(dp, desc_kmajor<Bq>(o_at, kk),
+                   desc_kmajor<Bk>(vaddr(j), kk), kk > 0);
+  };
+  // dQ += dS(j) K_j, one wgmma group
+  auto issue_rs = [&](int j) {
+#pragma unroll
+    for (int kk = 0; kk < Bk / 16; ++kk)
+      wgmma_rs<D>(dqa, da[kk], desc_mnmajor<Bk>(kaddr(j), kk));
+    wg_commit();
+  };
+  auto lse2 = [&](int i) { return frag_row1(i) ? l2_1 : l2_0; };
+  auto dl = [&](int i) { return frag_row1(i) ? dl_1 : dl_0; };
+  auto p_tile = [&](int j) {
+    const int kt = (t_first + j) * Bk;
+    auto valid = [&](int i) {
+      const int qi = frag_row1(i) ? row1 : row0;
+      const int kj = kt + c0 + frag_col(i);
+      return kj < Sk && (!causal || qi >= kj) &&
+             (window <= 0 || qi - kj < window);
+    };
+    if (kt + Bk > Sk || (causal && kt + Bk - 1 > q0) ||
+        (window > 0 && q0 + Bq - 1 - kt >= window))
+      probs<true>(s, scale_log2, lse2, valid);
+    else
+      probs<false>(s, scale_log2, lse2, valid);
+  };
+  // tile j: S(j) with dQ += dS(j-1) K_{j-1} (j > 0), then P(j), then
+  // dP(j) and dS(j).  dP is issued only once P is computed, so that S, dP
+  // and dS's fragments are never live at once (issued with S, they spilled
+  // with two consumers, and ran slower with one)
+  auto tile = [&](int j) {
+    wg_fence();
+    issue_s(j);
+    wg_commit();
+    if (j > 0) issue_rs(j - 1);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dqa);
+    fence_regs(da);
+    if (j > 0) mbar_arrive(bar_e + 8 * ((j - 1) % S));  // tile j-1 is done
+    p_tile(j);
+    wg_fence();
+    issue_dp(j);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dp);
+    dscores(s, dp, dl);
+    pack_p<64>(dp, da);
+  };
+
+  if (n_iter > 0) {
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_iter; ++j) tile(j);
+    wg_fence();
+    issue_rs(n_iter - 1);
+    wg_wait<0>();
+    fence_regs(dqa);
+    mbar_arrive(bar_e + 8 * ((n_iter - 1) % S));
+  }
+
+  __nv_bfloat16* dqb = dq + b * dqst.b + h * dqst.h;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + c0;
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + row0 * dqst.s + col) =
+          __floats2bfloat162_rn(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + row1 * dqst.s + col) =
+          __floats2bfloat162_rn(dqa[4 * j + 2] * scale,
+                                dqa[4 * j + 3] * scale);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
            int causal, int window, float scale, const Strides* st,
-           cudaStream_t s) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
-                           KV, Sq, Sk, causal, window, scale, st, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
-                            KV, Sq, Sk, causal, window, scale, st, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+           cudaStream_t stream) {
+  using KT = KVTile<D>;
+  using QT = QTile<D>;
+  const Strides &qst = st[0], &kst = st[1], &vst = st[2], &ost = st[3],
+                &dost = st[4], &dqst = st[5], &dkst = st[6], &dvst = st[7];
+  // both passes copy 64-row boxes, so they share the tensor maps
+  static_assert(QT::kBq == 64 && QT::kBk == 64 && KT::kBq == 64 &&
+                KT::kBk == 64, "one box height for every map");
+  CUtensorMap qmap, kmap, vmap, dmap;
+  int err = make_map(&qmap, q, D, Sq, H, B, qst, 64);
+  if (!err) err = make_map(&kmap, k, D, Sk, KV, B, kst, 64);
+  if (!err) err = make_map(&vmap, v, D, Sk, KV, B, vst, 64);
+  if (!err) err = make_map(&dmap, dout, D, Sq, H, B, dost, 64);
+  if (!err) err = launch_delta<__nv_bfloat16>(o, dout, delta, B, H, Sq, D,
+                                              ost, dost, stream);
+  if (err) return err;
+  const float scale_log2 = scale * kLog2e;
+
+  auto dq_kernel = flash_bwd_dq_tc<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QT::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  dq_kernel<<<dim3(B * H, (Sq + QT::kBq - 1) / QT::kBq), QT::kThreads,
+              QT::kSmem, stream>>>(qmap, kmap, vmap, dmap, lse, delta,
+                                   (__nv_bfloat16*)dq, H, H / KV, Sq, Sk,
+                                   causal, window, scale, scale_log2, dqst);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  auto kv_kernel = flash_bwd_dkdv_tc<D>;
+  e = cudaFuncSetAttribute(
+      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KT::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  kv_kernel<<<dim3(B * KV, (Sk + KT::kBk - 1) / KT::kBk), KT::kThreads,
+              KT::kSmem, stream>>>(qmap, kmap, vmap, dmap, lse, delta,
+                                   (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+                                   H, H / KV, Sq, Sk, causal, window, scale,
+                                   scale_log2, dkst, dvst);
+  return (int)cudaGetLastError();
 }
+
+}  // namespace tc
 
 }  // namespace
 
@@ -440,6 +990,7 @@ int by_dim(int D, const void* q, const void* k, const void* v, const void* o,
 // contiguous head dim; all of one dtype (is_bf16 ? bf16 : fp32).  lse:
 // (B, H, Sq) fp32 contiguous, the forward's natural-log row log-sum-exp of
 // the scaled scores; delta: (B, H, Sq) fp32 scratch.  D must be 64 or 128.
+// bf16 needs 16-byte aligned q, k, v, dout pointers and strides (TMA).
 // Launches three kernels on `stream`; returns a CUDA error code (0 on
 // success).
 extern "C" int flash_attention_bwd(
@@ -455,10 +1006,22 @@ extern "C" int flash_attention_bwd(
   for (int i = 0; i < 8; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return by_dim<__nv_bfloat16>(D, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                 B, H, KV, Sq, Sk, causal, window, scale, st,
-                                 s);
-  return by_dim<float>(D, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV,
-                       Sq, Sk, causal, window, scale, st, s);
+  switch (D) {
+    case 64:
+      return is_bf16 ? tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, B, H, KV, Sq, Sk, causal, window,
+                                      scale, st, s)
+                     : simt::launch<64>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, B, H, KV, Sq, Sk, causal, window,
+                                        scale, st, s);
+    case 128:
+      return is_bf16 ? tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, B, H, KV, Sq, Sk, causal, window,
+                                       scale, st, s)
+                     : simt::launch<128>(q, k, v, o, dout, lse, delta, dq,
+                                         dk, dv, B, H, KV, Sq, Sk, causal,
+                                         window, scale, st, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

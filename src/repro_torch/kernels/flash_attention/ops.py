@@ -6,16 +6,20 @@ launches a kernel or raises.  ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count the launches.  :func:`attention` is
 the differentiable entry the model calls: under autograd its forward keeps
 q, k, v, the output and the row log-sum-exp, and its backward is the
-backward kernel (D = 64 or 128); without a gradient it is
+backward kernels (D = 64 or 128); without a gradient it is
 :func:`flash_attention`.
 
-bf16 runs on the tensor cores (wgmma, with K/V tiles brought in by TMA);
-TMA needs every base pointer and every (batch, head, seq) stride of q, k, v
-16-byte aligned, and the wrapper raises otherwise (every caller in the port
-passes aligned tensors).  The kernel takes 128 query rows a block where the
-head dim is at most 128 and that grid covers every SM once, else 64; the
-result has the same bits either way.  fp32 runs on the SIMT kernel at full
-fp32 precision, with no alignment condition.
+bf16 runs on the tensor cores in both directions (wgmma, with tiles brought
+in by TMA); TMA needs every base pointer and every (batch, head, seq)
+stride of q, k, v (and, backward, o) 16-byte aligned, and the wrapper
+raises otherwise (every caller in the port passes aligned tensors); a
+misaligned output gradient is copied.  The forward takes 128 query rows a
+block where the head dim is at most 128 and that grid covers every SM
+once, else 64; the result has the same bits either way.  The backward
+rounds P and dS to bf16 before their products
+(``ref.attention_backward_rounded`` is its arithmetic on the CPU).  fp32
+runs on the SIMT kernels at full fp32 precision, with no alignment
+condition.
 
 The kernels read q, k, v through their (batch, head, seq) strides, so the
 model passes ``(B, S, H, D)`` projections as transposed views without a
@@ -78,10 +82,14 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
+def _tma_aligned(x):
+    return not (x.data_ptr() % 16 or any(x.stride(i) * x.element_size() % 16
+                                         for i in range(3)))
+
+
 def _check_tma_aligned(*xs):
     for x in xs:
-        if x.data_ptr() % 16 or any(x.stride(i) * x.element_size() % 16
-                                    for i in range(3)):
+        if not _tma_aligned(x):
             raise ValueError(
                 f"the bf16 kernel reads by TMA and needs a 16-byte aligned "
                 f"base and (batch, head, seq) strides; got a tensor at "
@@ -155,7 +163,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     the inputs' dtype.  dq is a ``(B, H, Sq, D)`` view of a contiguous
     ``(B, Sq, H, D)`` buffer and dk, dv views of ``(B, Sk, KV, D)`` ones, so
     the gradients of the model's transposed projection views come back
-    contiguous without a copy.  On CUDA the head dim must be 64 or 128."""
+    contiguous without a copy.  On CUDA the head dim must be 64 or 128;
+    bf16 runs on the tensor cores and needs q, k, v and o 16-byte aligned
+    (it raises otherwise; ``do`` is copied where it is not)."""
     _check(q, k, v)
     _check_window(causal, window)
     b, h, sq, d = q.shape
@@ -183,8 +193,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError("the head dim of q, k, v must be contiguous")
     if o.stride(3) != 1:
         raise ValueError("the head dim of o must be contiguous")
-    if do.stride(3) != 1:
-        do = do.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma_aligned(q, k, v, o)
+    if do.stride(3) != 1 or (bf16 and not _tma_aligned(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
     lse = lse.contiguous()
     dq = torch.empty((b, sq, h, d), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
@@ -201,7 +214,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         err = _bwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+            dk.data_ptr(), dv.data_ptr(), int(bf16),
             b, h, kv, sq, sk, d, int(causal), int(window), 1.0 / math.sqrt(d),
             ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream)

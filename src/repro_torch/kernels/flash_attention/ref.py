@@ -5,6 +5,8 @@ attention in fp32, output in q's dtype.  :func:`attention_lse` is the
 forward's row log-sum-exp and :func:`attention_backward` the backward's
 arithmetic (``csrc/flash_attention_bwd.cu``): P recomputed from the lse,
 ``delta = rowsum(dO * O)``, ``dS = P * (dP - delta)``.
+:func:`attention_backward_rounded` adds the bf16 tensor-core kernel's
+roundings of P and dS.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import math
 
 import torch
 
-__all__ = ["attention", "attention_lse", "attention_backward"]
+__all__ = ["attention", "attention_lse", "attention_backward",
+           "attention_backward_rounded"]
 
 
 def _scores(q, k, causal: bool, window: int):
@@ -60,6 +63,25 @@ def attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     0), dV = P^T dO, dP = dO V^T, delta = rowsum(dO * O), dS = P (dP -
     delta), dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D); GQA sums dK and dV
     over the query heads of a group."""
+    return _backward(q, k, v, o, lse, do, causal, window, None)
+
+
+def attention_backward_rounded(q, k, v, o, lse, do, *, causal: bool = True,
+                               window: int = 0):
+    """:func:`attention_backward` as the bf16 tensor-core kernel computes
+    it: P and dS rounded to bf16 before the products that take them (dV =
+    P^T dO, dQ = dS K, dK = dS^T Q), every sum in fp32, each gradient
+    rounded to the inputs' dtype once (bf16 on the kernel's path)."""
+    return _backward(q, k, v, o, lse, do, causal, window, torch.bfloat16)
+
+
+def _backward(q, k, v, o, lse, do, causal, window, operand_dtype):
+    """The backward in fp32; ``operand_dtype`` (or None) is the type P and
+    dS are rounded to before their products."""
+    def operand(x):
+        return x if operand_dtype is None else \
+            x.to(operand_dtype).to(torch.float32)
+
     b, h, sq, d = q.shape
     kv = k.shape[1]
     g = h // kv
@@ -72,10 +94,10 @@ def attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     p = torch.exp(_scores(q, k, causal, window)
                   - lse.reshape(b, kv, g, sq, 1).to(torch.float32))
-    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", operand(p), dog)
     dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vf)
     delta = (dog * og).sum(-1, keepdim=True)
-    ds = p * (dp - delta)
+    ds = operand(p * (dp - delta))
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
     return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),

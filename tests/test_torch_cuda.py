@@ -631,6 +631,45 @@ def test_flash_backward_refuses_an_unported_head_dim(cuda_device):
 
 
 @pytest.mark.cuda
+def test_flash_backward_refuses_misaligned_views(cuda_device):
+    """The bf16 backward reads q, k, v and dO by TMA: a q, k, v or o off the
+    16-byte grid raises (no fallback); a dO off it is copied, with the same
+    bits as the aligned dO; fp32 (SIMT) takes the same views."""
+    q, k, v = _qkv_on(cuda_device, 1, 2, 2, 64, 64, 64, torch.bfloat16, 7)
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+    do = _do_like(q, 8)
+
+    def shifted(x):   # the same values at a base 2 bytes off
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = flat[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    def wide(x):      # the same values at a seq stride of 136 bytes
+        out = torch.zeros(x.shape[:-1] + (x.shape[-1] + 4,), dtype=x.dtype,
+                          device=x.device)[..., :x.shape[-1]]
+        out.copy_(x)
+        return out
+
+    for bad in (shifted, wide):
+        for i in range(4):
+            args = [q, k, v, o]
+            args[i] = bad(args[i])
+            with pytest.raises(ValueError, match="16-byte"):
+                fa_ops.flash_attention_bwd(*args, lse, do)
+    want = fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    for bad in (shifted, wide):
+        got = fa_ops.flash_attention_bwd(q, k, v, o, lse, bad(do))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    of, lsef = fa_ops.flash_attention(qf, kf, vf, return_lse=True)
+    got = fa_ops.flash_attention_bwd(wide(qf), kf, vf, of, lsef,
+                                     shifted(do.float()))
+    want = fa_ops.flash_attention_bwd(qf, kf, vf, of, lsef, do.float())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_launches_both_kernels(cuda_device, dtype):
     q, k, v = (x.requires_grad_() for x in _qkv_on(

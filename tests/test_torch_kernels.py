@@ -310,3 +310,29 @@ def test_new_wrappers_take_plain_version_on_cpu():
         wk_ops.wkv6(*(t.to("meta") for t in (r, k, v, lw, u)))
     with pytest.raises(ValueError):
         lru_ops.lru_scan(a.to("meta"), x.to("meta"))
+
+
+def test_build_digest_covers_the_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source, every ``csrc/*.cuh`` header and
+    the flags: editing a header the flash kernels include rebuilds them
+    instead of loading a stale library.  Every header a source includes
+    lies in ``csrc/``."""
+    import re
+
+    from repro_torch.kernels import _build
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for inc in re.findall(r'#include\s+"([^"]+)"', src.read_text()):
+            assert (_build.CSRC / inc).is_file(), (src.name, inc)
+    assert re.search(r'#include\s+"hopper.cuh"',
+                     (_build.CSRC / "flash_attention_bwd.cu").read_text())
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("k")
+    assert first == _build._lib_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build._lib_path("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert len({first, second, _build._lib_path("k")}) == 3
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._lib_path("k") not in {first, second}
