@@ -74,7 +74,28 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 7. train chaos: the launcher's code path at the published widths with 2
    layers, replaying a fault trace that fires every train-side fault class
    (host_crash, slowdown, capacity_loss, ckpt_corrupt, nan_poison,
-   net_partition, disk_full) under the launcher's ``--chaos-assert``.
+   net_partition, disk_full) under the launcher's ``--chaos-assert``;
+8. train rwkv6-3b and recurrentgemma-2b at their published widths and a
+   cut depth (``FAMILY_TRAIN``: the largest whose peak device memory stays
+   under ~70 GB; recurrentgemma at 3k + 2 layers), through the launcher's
+   ``build`` and its train step, deterministic: step time, tokens/s, model
+   FLOPs and their share of the bf16 peak, peak memory, a profiled step,
+   and every kernel of the family's path launched (B3 forward and
+   backward; B4 forward and backward and B2 forward and backward at
+   D = 256);
+9. a crash run of each at reduced depth (rwkv6 2 layers, recurrentgemma 3),
+   4 x 512 tokens, through the launcher's code path with a forced crash:
+   final params bit-identical to a fault-free run (sha1 of every leaf),
+   restores == failures > 0.
+
+Phase 3 also holds the backward kernels of phases 8-9 against their plain
+versions: B3's at rwkv6's training shape (4, 40, 2048, 64) and its chunk
+edges, and at both ends of log_w's clamp at T = 3000, against the
+sequential and chunked plain backwards in fp64; B4's at (2, 4096, 2560)
+and its chunk edges; B2's at D = 256, (2, 10, 1, 4096, 256) window 2048 in
+bf16 and fp32 (timed beside SDPA's masked backward), its 32-row tiles'
+edges and windows, and a x1.1 softmax-scale mutant failing the limit; each
+with a bit-identical repeat.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -143,6 +164,30 @@ FA_BWD_CASES = [(2, 4, 4, 200, 128, 0), (2, 4, 2, 200, 128, 0),
                 (2, 8, 2, 200, 64, 0), (1, 4, 2, 300, 64, 1),
                 (1, 4, 2, 300, 128, 37), (1, 4, 4, 2100, 128, 2048)]
 
+# the flash-attention backward at D = 256 (SIMT, 32-row tiles):
+# recurrentgemma's training shape, global batch 2 x 4096 tokens, 10 query
+# heads of 256 on one KV head, window 2048; its tiles' edges and windows
+FA_BWD_256_MAIN = (2, 10, 1, 4096, 256)
+FA_BWD_256_WINDOW = 2048
+FA_BWD_256_CASES = [(1, 10, 1, 1, 256, True, 16),
+                    (1, 10, 1, 33, 256, True, 16),
+                    (1, 10, 1, 127, 256, True, 37),
+                    (1, 10, 1, 700, 256, True, 200),
+                    (1, 10, 1, 2100, 256, True, 2048),
+                    (1, 4, 2, 129, 256, False, 0)]
+# B3's backward: rwkv6-3b's training shape (4 x 2048 tokens, 40 heads of
+# 64), then its 16-token chunks' edges and a long T at 40 heads.  Each
+# gradient against the plain backwards (sequential and chunked) in fp64 on
+# the same rounded inputs, normalised by max(1, its largest magnitude): the
+# state's gradient grows with T where decays are near 1.  dr, dk, dv in
+# r's dtype at the forward's limits; dlog_w, du and dS0 fp32
+WKV_BWD_MAIN = (4, 40, 2048, 64)
+WKV_BWD_EDGE_T = (1, 15, 17, 33, 370)
+# B4's backward: recurrentgemma-2b's training shape, then the 128-step
+# chunks' edges; fp32 on both sides, normalised as above
+LRU_BWD_MAIN = (2, 4096, 2560)
+LRU_BWD_EDGES = [(1, 1, 2560), (2, 57, 300), (2, 129, 130), (1, 3055, 2560)]
+
 # the families served, each with its prompt length and the kernels its
 # serve path must launch
 FAMILIES = {
@@ -185,7 +230,9 @@ def wrappers():
     return {"pairwise_distance": pa_ops.pairwise_distance,
             "flash_attention": fa_ops.flash_attention,
             "flash_attention_bwd": fa_ops.flash_attention_bwd,
-            "wkv6": wk_ops.wkv6, "lru_scan": lru_ops.lru_scan}
+            "wkv6": wk_ops.wkv6, "wkv6_bwd": wk_ops.wkv6_bwd,
+            "lru_scan": lru_ops.lru_scan,
+            "lru_scan_bwd": lru_ops.lru_scan_bwd}
 
 
 def time_ms(fn, iters=25, warmup=3, queued=False):
@@ -427,7 +474,7 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
         else:
             time_kernel(rec, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, **gqa), "library_")
-            pairs = s * (s + 1) // 2 if causal else s * s
+            pairs = attended_pairs(s, causal, window)
         item = q.element_size()
         add_bound(rec, item * (2 * b * h * s * d + 2 * b * kv * s * d),
                   4 * b * h * pairs * d, dtype_name)
@@ -455,19 +502,30 @@ def _bwd_inputs(b, h, kv, s, d, dtype_name, window):
         for n in (h, kv, kv, h)]
 
 
-def _bwd_check(got, want, dtype_name):
-    """(max abs error, max error over the gradient's scale, within the
-    limit) of the three gradients."""
+def _normed_check(got, want, tols):
+    """(max abs error, max error over each gradient's max(1, |max|) scale,
+    within the limits) of gradients against their plain versions; ``tols``
+    gives each gradient's limit (a None in ``want`` must be None in
+    ``got``)."""
     import torch
     err = nerr = 0.0
     ok = True
-    for g, w in zip(got, want):
+    for g, w, tol in zip(got, want, tols):
+        if w is None:
+            ok = ok and g is None
+            continue
         scale = max(1.0, float(w.abs().max()))
-        e = float((g.float() - w).abs().max())
+        e = _max_err(g.double(), w.double())
         err, nerr = max(err, e), max(nerr, e / scale)
-        ok = ok and bool(torch.allclose(g.float() / scale, w / scale,
-                                        **FA_BWD_TOL[dtype_name]))
+        ok = ok and bool(torch.allclose(g.double() / scale,
+                                        w.double() / scale, **tol))
     return err, nerr, ok
+
+
+def _bwd_check(got, want, dtype_name):
+    """(max abs error, max error over the gradient's scale, within the
+    limit) of the three gradients."""
+    return _normed_check(got, want, [FA_BWD_TOL[dtype_name]] * 3)
 
 
 def _sdpa_graph(q, k, v, causal, window):
@@ -525,7 +583,7 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
         leaves, out = _sdpa_graph(q, k, v, causal, window)
         time_kernel(rec, lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), "library_")
-        pairs = s * (s + 1) // 2 if causal else s * s
+        pairs = attended_pairs(s, causal, window)
         item = q.element_size()
         # q, o, dO and dq (B, H, S, D); k, v, dk, dv (B, KV, S, D); lse
         add_bound(rec, item * (4 * b * h * s * d + 4 * b * kv * s * d)
@@ -553,13 +611,22 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     return rec
 
 
-def flash_bwd_mutant_case(b, h, kv, s, d, dtype_name):
+def attended_pairs(s, causal, window):
+    """(query, key) pairs a head attends at sequence length s."""
+    if not causal:
+        return s * s
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bwd_mutant_case(b, h, kv, s, d, dtype_name, window=0):
     """The limit's power: the backward kernel launched with its softmax
     scale x 1.1 (the wrapper's own call with that one argument changed)
     must fail the check that the true kernel passes."""
     from repro_torch.kernels.flash_attention import ops, ref
-    q, k, v, do = _bwd_inputs(b, h, kv, s, d, dtype_name, 0)
-    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    q, k, v, do = _bwd_inputs(b, h, kv, s, d, dtype_name, window)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, window=window)
     loader = ops._bwd_fn
     real = loader()
 
@@ -572,14 +639,15 @@ def flash_bwd_mutant_case(b, h, kv, s, d, dtype_name):
 
     ops._bwd_fn = lambda: mutant
     try:
-        got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, window=window)
     finally:
         ops._bwd_fn = loader
     want = ref.attention_backward(q.float(), k.float(), v.float(), o.float(),
-                                  lse, do.float())
+                                  lse, do.float(), window=window)
     err, nerr, ok = _bwd_check(got, want, dtype_name)
     print(f"  flash_attention_bwd x1.1 softmax-scale mutant "
-          f"{(b, h, kv, s, d)} {dtype_name}: max error over the gradient's "
+          f"{(b, h, kv, s, d)} {dtype_name} window {window}: max error over "
+          f"the gradient's "
           f"scale {nerr:.3g}, {'passes (BAD)' if ok else 'fails the limit'}")
     check(not ok, "a x1.1 softmax-scale mutant of the backward passes the "
                   "limit")
@@ -695,6 +763,133 @@ def lru_case(b, s, w, with_h0, *, timed):
     return rec
 
 
+def wkv6_bwd_case(b, h, t, n, dtype_name, with_s0, *, timed,
+                  fill="uniform"):
+    """B3's backward on (B, H, T, N) inputs in ``dtype_name`` as the model
+    passes them ((B, T, H, N) projections as views), from the forward
+    kernel's scratch, against the plain backwards (sequential and chunked)
+    in fp64 on the same rounded inputs; a repeat call's bits."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rwkv6_scan import ops, ref
+    dt = getattr(torch, dtype_name)
+    rng = np.random.default_rng(b * 5 + h * 7 + t + n)
+
+    def dev(a, dtype=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+
+    r, k, v, do = (dev(0.5 * rng.normal(size=(b, t, h, n)), dt).transpose(
+        1, 2) for _ in range(4))
+    lw = dev({"uniform": -rng.uniform(0.01, 2.5, (b, t, h, n)),
+              "min": np.full((b, t, h, n), -2.5),
+              "max": np.full((b, t, h, n), -1e-4)}[fill]).transpose(1, 2)
+    u = dev(0.2 * rng.normal(size=(h, n)))
+    S0 = dev(0.3 * rng.normal(size=(b, h, n, n))) if with_s0 else None
+    dS = dev(0.3 * rng.normal(size=(b, h, n, n))) if with_s0 else None
+    o, S, scratch = ops.wkv6_forward(r, k, v, lw, u, S0)
+
+    def kernel():
+        return ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch,
+                            S_final=S)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    args64 = [x.double() for x in (r, k, v, lw, u, do)] + [
+        None if x is None else x.double() for x in (S0, dS)]
+    tols = [WKV_TOL[dtype_name]] * 3 + [WKV_TOL["float32"]] * 3
+    err, nerr, ok = 0.0, 0.0, True
+    for want in (ref.wkv6_backward(*args64),
+                 ref.wkv6_backward_chunked(*args64, chunk=ops.CHUNK)):
+        e, ne, o_ok = _normed_check(got, want, tols)
+        err, nerr, ok = max(err, e), max(nerr, ne), ok and o_ok
+        del want
+    again = kernel()
+    same = all(x is None and y is None or bool(torch.equal(x, y))
+               for x, y in zip(got, again))
+    del again
+    rec = {"shape": [b, h, t, n], "dtype": dtype_name, "s0": with_s0,
+           "fill": fill, "max_abs_err": err, "max_err_over_scale": nerr,
+           "ok": ok and same}
+    if timed:
+        time_kernel(rec, kernel)
+        rec["plain_ms"] = time_ms(lambda: ref.wkv6_backward(
+            r, k, v, lw, u, do, S0, dS), iters=3, warmup=1)
+        rec["library_ms"] = None   # no single PyTorch call computes it
+        rec["library_device_ms"] = None
+        item = r.element_size()
+        c = -(-t // ops.CHUNK)
+        state = (3 if with_s0 else 0) * 4 * b * h * n * n
+        # r, k, v, dO read and dr, dk, dv written in r's dtype; log_w read
+        # and dlog_w written in fp32; u, du.  Operations of the chunked
+        # form: per token and head N^2 (q^T dO) + 3 N^2 (S_c dO, G v,
+        # kd G) + 4 L N (B, A and the two masked products) FMA, and the
+        # fold's N^2 per chunk
+        add_bound(rec, (7 * item + 8) * b * h * t * n + 8 * h * n + state,
+                  2 * b * h * (t * (4 * n * n + 4 * ops.CHUNK * n)
+                               + c * n * n), "float32")
+    print(f"  wkv6_bwd {(b, h, t, n)} {dtype_name} "
+          f"{'S0, dS' if with_s0 else 'zero state'} log_w {fill}: "
+          f"max_abs_err {err:.3g}, over the gradient's scale {nerr:.3g}, "
+          f"against the sequential and chunked plain backwards in fp64"
+          f"{'' if same else ', REPEAT DIFFERS'} "
+          f"{'ok' if rec['ok'] else 'FAIL'}"
+          + (_timing_text(rec, "library") if timed else ""))
+    check(ok, f"wkv6_bwd {(b, h, t, n)} {dtype_name} disagrees with its "
+              f"plain versions")
+    check(same, f"wkv6_bwd {(b, h, t, n)} {dtype_name}: a repeat call "
+                f"changed the bits")
+    return rec
+
+
+def lru_bwd_case(b, s, w, with_h0, *, timed):
+    """B4's backward from the forward kernel's h, against the plain
+    backward in fp32 on the same inputs; a repeat call's bits."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rglru_scan import ops, ref
+    rng = np.random.default_rng(b * 17 + s + w)
+
+    def dev(x):
+        return torch.from_numpy(x.astype(np.float32)).cuda()
+
+    a = dev(rng.uniform(0.8, 0.999, (b, s, w)))
+    x = dev(0.1 * rng.normal(size=(b, s, w)))
+    dh = dev(rng.normal(size=(b, s, w)))
+    h0 = dev(rng.normal(size=(b, w))) if with_h0 else None
+    dl = dev(rng.normal(size=(b, w))) if with_h0 else None
+    h, _ = ops.lru_scan(a, x, h0)
+
+    def kernel():
+        return ops.lru_scan_bwd(a, h, dh, dl, h0)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = ref.lru_scan_backward(a, h, dh, dl, h0)
+    err, nerr, ok = _normed_check(got, want, [LRU_TOL] * 3)
+    again = kernel()
+    same = all(x is None and y is None or bool(torch.equal(x, y))
+               for x, y in zip(got, again))
+    rec = {"shape": [b, s, w], "h0": with_h0, "max_abs_err": err,
+           "max_err_over_scale": nerr, "ok": ok and same}
+    if timed:
+        time_kernel(rec, kernel)
+        rec["plain_ms"] = time_ms(lambda: ref.lru_scan_backward(
+            a, h, dh, dl, h0))
+        rec["library_ms"] = None   # no single PyTorch call computes it
+        rec["library_device_ms"] = None
+        # a, h, dh read, da and db written; h0, dh_last, dh0
+        add_bound(rec, 4 * (5 * b * s * w + (3 if with_h0 else 0) * b * w),
+                  3 * b * s * w, "float32")
+    print(f"  lru_scan_bwd {(b, s, w)} {'h0, dh_last' if with_h0 else 'zero'}"
+          f": max_abs_err {err:.3g}, over the gradient's scale {nerr:.3g} "
+          f"(atol 2e-4 rtol 2e-4){'' if same else ', REPEAT DIFFERS'} "
+          f"{'ok' if rec['ok'] else 'FAIL'}"
+          + (_timing_text(rec, "library") if timed else ""))
+    check(ok, f"lru_scan_bwd {(b, s, w)} disagrees with its plain version")
+    check(same, f"lru_scan_bwd {(b, s, w)}: a repeat call changed the bits")
+    return rec
+
+
 def family_requests(arch):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_parser, make_requests
@@ -785,6 +980,33 @@ def phase_kernels():
         for b, h, kv, s, d, window in FA_BWD_CASES:
             flash_bwd_case(b, h, kv, s, d, dt, True, timed=False,
                            window=window)
+    # the backwards of the recurrent families' training: B2 at D = 256
+    # (recurrentgemma's local attention), B3, B4, each at its training
+    # shape and its edges
+    recs["flash_attention_bwd_d256"] = flash_bwd_case(
+        *FA_BWD_256_MAIN, "bfloat16", True, timed=True,
+        window=FA_BWD_256_WINDOW)
+    recs["flash_attention_bwd_d256_fp32"] = flash_bwd_case(
+        *FA_BWD_256_MAIN, "float32", True, timed=True,
+        window=FA_BWD_256_WINDOW)
+    flash_bwd_mutant_case(1, 10, 1, 700, 256, "bfloat16", window=200)
+    for dt in ("float32", "bfloat16"):
+        for b, h, kv, s, d, causal, window in FA_BWD_256_CASES:
+            flash_bwd_case(b, h, kv, s, d, dt, causal, timed=False,
+                           window=window)
+    recs["wkv6_bwd"] = wkv6_bwd_case(*WKV_BWD_MAIN, "bfloat16", False,
+                                     timed=True)
+    wkv6_bwd_case(*WKV_BWD_MAIN[:3], 64, "float32", False, timed=False)
+    for t in WKV_BWD_EDGE_T:
+        for dt in ("float32", "bfloat16"):
+            wkv6_bwd_case(1, WKV_BWD_MAIN[1], t, 64, dt, True, timed=False)
+    for fill in ("min", "max"):
+        wkv6_bwd_case(1, 4, 3000, 64, "float32", True, timed=False,
+                      fill=fill)
+    recs["lru_scan_bwd"] = lru_bwd_case(*LRU_BWD_MAIN, False, timed=True)
+    for shape in LRU_BWD_EDGES:
+        for with_h0 in (False, True):
+            lru_bwd_case(*shape, with_h0, timed=False)
     return recs
 
 
@@ -973,7 +1195,7 @@ def _prefill_len(cfg, plen):
 
 # the port's own kernels, by the names the profiler gives them
 PORT_KERNELS = ("pairwise_distance_kernel", "flash_fwd", "flash_bwd",
-                "wkv6_", "lru_chunk")
+                "wkv6_", "lru_chunk", "lru_bwd")
 
 
 def _profile(label, fn, reps):
@@ -1160,8 +1382,11 @@ def phase_family(arch):
 # ---------------------------------------------------------------------------
 
 # full width and depth, global batch 4 x 2048; a checkpoint every 10 steps
-# (the interval's floor), a host crash forced at step 6
-TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", "10", "--global-batch", "4",
+# (the interval's floor), a host crash forced at step 6.  9 steps, so that
+# only step 0's checkpoint (14 GB) is written: with the chaos phase's and
+# the recurrent families' crash runs' checkpoints the whole script then
+# writes ~40 GB to disk, where a second save here would take it past 50
+TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", "9", "--global-batch", "4",
               "--seq-len", "2048", "--seed", "0", "--device", "cuda",
               "--ckpt-gamma-s", "0.001"]
 TRAIN_CRASH_STEP = 6
@@ -1210,21 +1435,52 @@ def tree_digest(tree):
         for path, t in flatten(tree)]
 
 
+def matmul_params(cfg):
+    """Parameters that enter a matrix product a token (the embedding is a
+    gather; the output head a product), by family."""
+    from repro_torch.models import lm
+    from repro_torch.models.rwkv6 import LORA_R
+    d, ff = cfg.d_model, cfg.d_ff
+    head = d * cfg.vocab_size
+    if cfg.rwkv:
+        # r, k, v, g, o; the ddlerp and decay LoRAs; the channel mix
+        layer = 6 * d * d + 10 * d * LORA_R + 2 * d * LORA_R + 2 * d * ff
+        return cfg.n_layers * layer + head
+    mlp = 3 * d * ff
+    attn = (2 * d * cfg.n_heads * cfg.head_dim
+            + 2 * d * cfg.n_kv_heads * cfg.head_dim)
+    if cfg.rglru:
+        w = cfg.lru_width
+        rec = 2 * d * w + 2 * w * w + w * d + mlp
+        n_super, n_tail = lm.hybrid_layout(cfg)
+        return (n_super * (cfg.rec_per_attn * rec + attn + mlp)
+                + n_tail * rec + head)
+    return cfg.n_layers * (attn + mlp) + head
+
+
+def mixing_flops(cfg, b, s):
+    """FLOPs of one forward's sequence mixing outside the matmuls: causal
+    or windowed attention (2 products of 2 B H pairs D a layer), or the
+    WKV6 recurrence (4 N^2 a token and head: the state update and the
+    output)."""
+    from repro_torch.models import lm
+    from repro_torch.models.rwkv6 import HEAD_N
+    if cfg.rwkv:
+        return cfg.n_layers * 4 * b * s * cfg.d_model * HEAD_N
+    pairs = attended_pairs(s, True, cfg.window if cfg.rglru else 0)
+    layers = lm.hybrid_layout(cfg)[0] if cfg.rglru else cfg.n_layers
+    return layers * 4 * b * cfg.n_heads * pairs * cfg.head_dim
+
+
 def train_flops(cfg, b, s):
     """(model FLOPs, executed FLOPs) of one train step: 6 x the matmul
-    parameters x tokens plus three times the causal attention's forward
-    (2 products of 2 B H pairs D a layer); executed adds what remat
-    recomputes (each layer's forward and each xent chunk's logits)."""
-    d, hd = cfg.d_model, cfg.head_dim
-    layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-             + 3 * d * cfg.d_ff)
+    parameters x tokens plus three times the sequence mixing's forward;
+    executed adds what remat recomputes (each remat unit's forward and
+    each xent chunk's logits)."""
     tokens = b * s
-    attn = 4 * b * cfg.n_heads * (s * (s + 1) // 2) * hd
-    model = (6 * tokens * (cfg.n_layers * layer + d * cfg.vocab_size)
-             + 3 * cfg.n_layers * attn)
-    recompute = (2 * tokens * (cfg.n_layers * layer + d * cfg.vocab_size)
-                 + cfg.n_layers * attn)
-    return model, model + recompute
+    mm, mix = matmul_params(cfg), mixing_flops(cfg, b, s)
+    model = 6 * tokens * mm + 3 * mix
+    return model, model + 2 * tokens * mm + mix
 
 
 def _launch_train(cfg, args, built):
@@ -1237,57 +1493,70 @@ def _launch_train(cfg, args, built):
         raise SmokeFailure(f"train launcher: {e}") from None
 
 
-def phase_train(tmp):
-    """olmo-1b at full width through the launcher's code path with a forced
-    crash, then the same steps without faults; returns the path's launch
-    counts."""
+def _zero_launches():
+    counted = wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    return counted
+
+
+def crash_then_replay(cfg, argv, crash_step, tmp, label, kernels):
+    """The launcher's code path (``launch.build``/``run``) on ``cfg`` with
+    a host crash forced at ``crash_step``, then the same steps from the same
+    init on the same batches without faults: every step completes,
+    restores == failures == 1, finite losses, every kernel in ``kernels``
+    launched, and final params (sha1 of every leaf) and losses equal to the
+    fault-free run's.  Returns the crash run's launch counts, report,
+    checkpoint spans and bytes, and the fault-free run's final trees, step
+    function, pipeline, step times and losses."""
     import numpy as np
-    import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import train as launch
     from repro_torch.obs import Tracer
     from repro_torch.tree import flatten
-    cfg = get_config("olmo-1b")
     parser = launch.build_parser()
-    args = parser.parse_args(TRAIN_ARGS + [
-        "--inject-mtbf-steps", "1e9", "--ckpt-dir", os.path.join(tmp, "run")])
+    args = parser.parse_args(argv + [
+        "--inject-mtbf-steps", "1e9", "--ckpt-dir",
+        os.path.join(tmp, f"{label}-run")])
     log = SpanLog()
     built = launch.build(cfg, args, tracer=Tracer(log))
     coord = built["coord"]
     coord.store.keep = 2
-    built["injector"].fail_steps = {TRAIN_CRASH_STEP: 1}
+    built["injector"].fail_steps = {crash_step: 1}
     ckpt_bytes = sum(t.numel() * t.element_size() for _, t in flatten(
         {"params": coord.params, "opt": coord.opt_state}))
-    counted = wrappers()
-    for fn in counted.values():
-        fn.launches = 0
+    counted = _zero_launches()
     t0 = time.perf_counter()
     res = _launch_train(cfg, args, built)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
     rep = res["report"]
-    print(f"train olmo-1b (crash at step {TRAIN_CRASH_STEP}): "
+    print(f"train {label} (crash at step {crash_step}): "
           f"{rep.steps_completed}/{args.steps} steps, failures "
           f"{rep.failures}, restores {rep.restores}, replayed "
           f"{rep.wasted_steps}, checkpoints {rep.checkpoints}, phase "
           f"{wall:.1f} s; launches {launches}")
-    check(rep.steps_completed == args.steps, "the crash run did not finish")
+    check(rep.steps_completed == args.steps,
+          f"{label}: the crash run did not finish")
     check(rep.restores == rep.failures == 1,
-          f"restores {rep.restores}, failures {rep.failures}: want 1 each")
-    check(all(np.isfinite(rep.losses)), "a non-finite loss")
-    for name in ("flash_attention", "flash_attention_bwd"):
-        check(launches[name] > 0, f"the train path never launched {name}")
+          f"{label}: restores {rep.restores}, failures {rep.failures}: want "
+          f"1 each")
+    check(all(np.isfinite(rep.losses)), f"{label}: a non-finite loss")
+    for name in kernels:
+        check(launches[name] > 0, f"the {label} train path never launched "
+                                  f"{name}")
     digest = tree_digest(coord.params)
-    saves, restores = log.seconds("ckpt.save"), log.seconds("ckpt.restore")
+    out = {"launches": launches, "report": rep, "ckpt_bytes": ckpt_bytes,
+           "saves": log.seconds("ckpt.save"),
+           "restores": log.seconds("ckpt.restore")}
     losses_run = list(rep.losses)
     del res, built, coord
     gc.collect()
+    import torch
     torch.cuda.empty_cache()
 
     # the same steps from the same init on the same batches, no faults
-    ref_args = parser.parse_args(TRAIN_ARGS + [
-        "--ckpt-dir", os.path.join(tmp, "ref")])
-    ref = launch.build(cfg, ref_args)
+    ref = launch.build(cfg, parser.parse_args(argv + [
+        "--ckpt-dir", os.path.join(tmp, f"{label}-ref")]))
     params, opt = ref["coord"].params, ref["coord"].opt_state
     step_fn, pipe = ref["step_fn"], ref["pipeline"]
     del ref
@@ -1298,15 +1567,33 @@ def phase_train(tmp):
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
     same = tree_digest(params) == digest
-    print(f"train olmo-1b: final params {'bit-identical' if same else 'DIFFER'}"
-          f" to the fault-free run ({len(digest)} leaves, sha1 of each); "
-          f"last {args.steps} losses of the crash run "
+    print(f"train {label}: final params "
+          f"{'bit-identical' if same else 'DIFFER'} to the fault-free run "
+          f"({len(digest)} leaves, sha1 of each); last {args.steps} losses "
+          f"of the crash run "
           f"{'equal' if losses_run[-args.steps:] == losses else 'DIFFER'}; "
           f"losses {[round(x, 4) for x in losses]}")
-    check(same, "the crash run's final params differ from the fault-free "
-                "run's")
+    check(same, f"{label}: the crash run's final params differ from the "
+                f"fault-free run's")
     check(losses_run[-args.steps:] == losses,
-          "the crash run's losses differ from the fault-free run's")
+          f"{label}: the crash run's losses differ from the fault-free "
+          f"run's")
+    out.update(params=params, opt=opt, step_fn=step_fn, pipe=pipe,
+               times=times, losses=losses, args=args)
+    return out
+
+
+def phase_train(tmp):
+    """olmo-1b at full width through the launcher's code path with a forced
+    crash, then the same steps without faults; returns the path's launch
+    counts."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("olmo-1b")
+    run = crash_then_replay(cfg, TRAIN_ARGS, TRAIN_CRASH_STEP, tmp,
+                            "olmo-1b", ("flash_attention",
+                                        "flash_attention_bwd"))
+    args, times = run["args"], run["times"]
     step_s = statistics.median(times[1:])
     b, seq = args.global_batch, args.seq_len
     model, executed = train_flops(cfg, b, seq)
@@ -1316,15 +1603,135 @@ def phase_train(tmp):
           f"{model / 1e12:.2f} TFLOP a step ({executed / 1e12:.2f} executed "
           f"with remat), {model / step_s / 1e12:.1f} TFLOP/s, "
           f"{model / step_s / PEAK_BF16:.3f} of the bf16 peak")
-    print(f"train olmo-1b checkpoints: {ckpt_bytes / 1e9:.2f} GB each "
+    print(f"train olmo-1b checkpoints: {run['ckpt_bytes'] / 1e9:.2f} GB each "
           f"(params, mu, nu, step); saves "
-          f"{[round(x, 2) for x in saves]} s, restores "
-          f"{[round(x, 2) for x in restores]} s (host copy, np.save, sha1 "
-          f"of every leaf; the restore reads, verifies, copies back)")
-    batch = pipe.batch_at(args.steps)
+          f"{[round(x, 2) for x in run['saves']]} s, restores "
+          f"{[round(x, 2) for x in run['restores']]} s (host copy, np.save, "
+          f"sha1 of every leaf; the restore reads, verifies, copies back)")
+    params, opt, step_fn = run["params"], run["opt"], run["step_fn"]
+    batch = run["pipe"].batch_at(args.steps)
     _profile("olmo-1b train step (4 x 2048)",
              lambda: float(step_fn(params, opt, batch)[2]["loss"]), 1)
+    launches = run["launches"]
+    del params, opt, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: rwkv6-3b and recurrentgemma-2b training
+# ---------------------------------------------------------------------------
+
+#: the published widths at a cut depth, the largest whose peak device
+#: memory stays under ~70 GB (fp32 params, their gradients, mu and nu, and
+#: AdamW's out-of-place new params, mu and nu: ~28 bytes a parameter, plus
+#: activations); recurrentgemma at 3k + 2 layers, so that its super blocks
+#: and its tail both run.  Global batch: rwkv6 4 x 2048 (the tokens of
+#: olmo's step), recurrentgemma 2 x 4096 (at 2048 tokens its 2048-token
+#: window would mask no key)
+FAMILY_TRAIN = {
+    "rwkv6-3b": dict(layers=24, batch=4, seq=2048,
+                     kernels=("wkv6", "wkv6_bwd")),
+    "recurrentgemma-2b": dict(layers=20, batch=2, seq=4096,
+                              kernels=("lru_scan", "lru_scan_bwd",
+                                       "flash_attention",
+                                       "flash_attention_bwd")),
+}
+FAMILY_TRAIN_STEPS = 4   # the first warms up; the time is the others' median
+MEM_TARGET = 70e9
+# the crash runs at reduced depth (recurrentgemma: one super block)
+CRASH_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3}
+CRASH_ARGS = ["--steps", "6", "--global-batch", "4", "--seq-len", "512",
+              "--seed", "0", "--device", "cuda", "--ckpt-gamma-s", "0.001"]
+CRASH_STEP = 4
+
+
+def phase_train_family(arch, tmp):
+    """``arch`` at its published widths and the cut depth of
+    :data:`FAMILY_TRAIN`, deterministic, bf16 compute, fp32 params: the
+    launcher's ``build`` (params, AdamW state, train step, pipeline), then
+    a few steps of its train step (no checkpoint: a save of these trees
+    would take most of the phase); step time, tokens/s, model FLOPs and
+    their share of the bf16 peak, peak device memory and bytes a
+    parameter, the path's kernel launches, and a profiled step.  Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.tree import flatten
+    spec = FAMILY_TRAIN[arch]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    args = launch.build_parser().parse_args([
+        "--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--global-batch",
+        str(spec["batch"]), "--seq-len", str(spec["seq"]), "--seed", "0",
+        "--device", "cuda", "--ckpt-dir", os.path.join(tmp, arch)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    built = launch.build(cfg, args)
+    params, opt = built["coord"].params, built["coord"].opt_state
+    step_fn, pipe = built["step_fn"], built["pipeline"]
+    del built
+    n_params = sum(t.numel() for _, t in flatten(params))
+    counted = _zero_launches()
+    times, losses = [], []
+    for i in range(FAMILY_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, pipe.batch_at(i))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    b, seq = spec["batch"], spec["seq"]
+    model, executed = train_flops(cfg, b, seq)
+    print(f"train {arch}: published widths (d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}), depth {cfg.n_layers} of {full.n_layers}, "
+          f"{n_params / 1e9:.3f} B params, global batch {b} x {seq}; peak "
+          f"device memory {peak / 1e9:.2f} GB ({peak / n_params:.1f} bytes a "
+          f"parameter; target under {MEM_TARGET / 1e9:.0f} GB); launches "
+          f"{launches}")
+    print(f"train {arch} step: {1e3 * step_s:.1f} ms (median of "
+          f"{len(times) - 1}, host clock, each step ends in a copy of its "
+          f"loss), {b * seq / step_s:.0f} tokens/s, model "
+          f"{model / 1e12:.2f} TFLOP a step ({executed / 1e12:.2f} executed "
+          f"with remat), {model / step_s / 1e12:.1f} TFLOP/s, "
+          f"{model / step_s / PEAK_BF16:.3f} of the bf16 peak; losses "
+          f"{[round(x, 4) for x in losses]}")
+    check(all(np.isfinite(losses)), f"{arch}: a non-finite loss")
+    check(peak < 80e9, f"{arch}: peak device memory {peak / 1e9:.1f} GB")
+    for name in spec["kernels"]:
+        check(launches[name] > 0, f"the {arch} train path never launched "
+                                  f"{name}")
+    batch = pipe.batch_at(FAMILY_TRAIN_STEPS)
+    _profile(f"{arch} train step ({b} x {seq}, {cfg.n_layers} layers)",
+             lambda: float(step_fn(params, opt, batch)[2]["loss"]), 1)
     del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_crash(arch, tmp):
+    """``arch`` at its published widths and :data:`CRASH_LAYERS` layers,
+    4 x 512 tokens, through the launcher's code path with a forced crash
+    against a fault-free run (:func:`crash_then_replay`); returns the
+    path's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=CRASH_LAYERS[arch])
+    run = crash_then_replay(cfg, ["--arch", arch] + CRASH_ARGS, CRASH_STEP,
+                            tmp, f"{arch} x {cfg.n_layers} layers",
+                            FAMILY_TRAIN[arch]["kernels"])
+    print(f"train {arch} x {cfg.n_layers} layers checkpoints: "
+          f"{run['ckpt_bytes'] / 1e9:.2f} GB each; saves "
+          f"{[round(x, 2) for x in run['saves']]} s, restores "
+          f"{[round(x, 2) for x in run['restores']]} s")
+    launches = run["launches"]
+    del run
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1384,8 +1791,16 @@ KERNEL_SOURCES = {
         "src/repro/kernels/flash_attention/kernel.py:24"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:27"),
+    # B3's gradient: JAX differentiates its chunked jnp form
+    # (src/repro/models/rwkv6.py:95)
+    "wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                 "src/repro/kernels/rwkv6_scan/kernel.py:27"),
     "lru_scan": ("src/repro_torch/kernels/csrc/lru_scan.cu",
                  "src/repro/kernels/rglru_scan/kernel.py:20"),
+    # B4's gradient: JAX differentiates its associative scan
+    # (src/repro/models/rglru.py:75)
+    "lru_scan_bwd": ("src/repro_torch/kernels/csrc/lru_scan.cu",
+                     "src/repro/kernels/rglru_scan/kernel.py:20"),
 }
 TIMED_KEYS = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "bound_share", "library_ms",
@@ -1400,7 +1815,9 @@ def kernel_records(recs, by_path):
     shape and its case at olmo-1b's training shape ride along, as do
     pairwise_distance's (4096, 10) case and its planner case (montage's
     700-task projection).  flash_attention_bwd's record is olmo-1b's
-    training shape."""
+    training shape; its D = 256 SIMT instance at recurrentgemma-2b's
+    (bf16, and fp32) rides along.  wkv6_bwd's and lru_scan_bwd's records
+    are rwkv6-3b's and recurrentgemma-2b's training shapes."""
     out = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         paths = {arch: counts[name] for arch, counts in by_path.items()
@@ -1417,6 +1834,11 @@ def kernel_records(recs, by_path):
                                 for k in TIMED_KEYS}
             rec["train_case"] = {k: recs[name + "_train"][k]
                                  for k in TIMED_KEYS}
+        if name == "flash_attention_bwd":
+            for case in ("d256", "d256_fp32"):
+                rec[case + "_case"] = {
+                    "window": recs[f"{name}_{case}"]["window"],
+                    **{k: recs[f"{name}_{case}"][k] for k in TIMED_KEYS}}
         if name == "pairwise_distance":
             rec["large_case"] = {k: recs[name + "_large"][k]
                                  for k in TIMED_KEYS}
@@ -1474,7 +1896,8 @@ def main() -> int:
     for arch in FAMILIES:
         by_path[arch] = phase_family(arch)
         print(f"{arch} done at {time.perf_counter() - t_start:.1f} s")
-    # 6-7. olmo-1b training: full width with a crash, then every fault class
+    # 6-9. training: olmo-1b at full width with a crash, then every fault
+    # class; the recurrent families
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     torch.use_deterministic_algorithms(True)
     try:
@@ -1482,6 +1905,15 @@ def main() -> int:
         print(f"train done at {time.perf_counter() - t_start:.1f} s")
         by_path["train_chaos"] = phase_train_chaos(tmp)
         print(f"train chaos done at {time.perf_counter() - t_start:.1f} s")
+        # 8-9. rwkv6-3b and recurrentgemma-2b training: published widths
+        # at a cut depth, then a crash run each at reduced depth
+        for arch in FAMILY_TRAIN:
+            by_path[f"train_{arch}"] = phase_train_family(arch, tmp)
+            print(f"train {arch} done at "
+                  f"{time.perf_counter() - t_start:.1f} s")
+            by_path[f"train_crash_{arch}"] = phase_train_crash(arch, tmp)
+            print(f"train crash {arch} done at "
+                  f"{time.perf_counter() - t_start:.1f} s")
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)

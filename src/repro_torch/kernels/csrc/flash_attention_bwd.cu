@@ -77,6 +77,16 @@
 // tensor cores would take fp32 as TF32, which breaks the 2e-4 fp32 limit.
 // Each thread holds a 4 x 4 score tile and a 4 x D/16 accumulator in
 // registers over padded fp32 tiles in shared memory.
+//
+// D = 256 (recurrentgemma's local attention: 10 query heads of 256 on one
+// KV head, window 2048) runs the SIMT kernels for fp32 and for bf16, on
+// 32-row tiles (2 x 2 score tiles a thread, 2 x 16 accumulators): four
+// staged fp32 tiles of 64 rows would take 263 KB of shared memory.  bf16
+// inputs are widened to fp32 as they are staged, so P and dS stay fp32 and
+// each gradient is rounded to bf16 once: the arithmetic of
+// ref.attention_backward, not of ref.attention_backward_rounded.  A
+// tensor-core instance at D = 256, where one warpgroup's registers cannot
+// hold dK and dV of 256 columns, is later work (ROADMAP).
 
 #include <math.h>
 
@@ -135,13 +145,15 @@ int launch_delta(const void* o, const void* dout, float* delta, int B, int H,
 
 namespace simt {
 
-constexpr int kB = 64;           // rows of a query tile and of a key tile
 constexpr int kThreads = 256;    // 16 x 16
-constexpr int kRows = 4;         // tile rows per thread (16 * 4 = kB)
-constexpr int kCols = kB / 16;   // tile columns per thread
 
+// tiles of kB rows (queries or keys): 64 up to D = 128; 32 at D = 256, so
+// that the four staged fp32 tiles fit in shared memory (141 KB)
 template <int D>
 struct Cfg {
+  static constexpr int kB = D <= 128 ? 64 : 32;
+  static constexpr int kRows = kB / 16;  // tile rows per thread
+  static constexpr int kCols = kB / 16;  // tile columns per thread
   static constexpr int kLd = D + 1;      // padded fp32 row of a staged tile
   static constexpr int kPld = kB + 4;    // padded row of a P or dS tile
   static constexpr int kOcols = D / 16;  // accumulator columns per thread
@@ -153,30 +165,36 @@ struct Cfg {
       sizeof(float) * (4 * kB * kLd + kB * kPld + 2 * kB);
 };
 
-// rows [r0, r0 + kB) of a (seq, D) slab into a padded tile; rows past `n`
-// are zeros
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      int64_t ss, int r0, int n) {
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// rows [r0, r0 + kB) of a (seq, D) slab into a padded fp32 tile; rows past
+// `n` are zeros
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* src, int64_t ss,
+                                      int r0, int n) {
+  constexpr int kB = Cfg<D>::kB;
   for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
-    dst[r * Cfg<D>::kLd + d] = r0 + r < n ? src[(r0 + r) * ss + d] : 0.f;
+    dst[r * Cfg<D>::kLd + d] = r0 + r < n ? ld(src + (r0 + r) * ss + d) : 0.f;
   }
 }
 
-// dK and dV of 64 keys of one (batch, KV head)
-template <int D>
+// dK and dV of kB keys of one (batch, KV head)
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
+flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, int H, int group, int Sq, int Sk,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, int H, int group, int Sq, int Sk,
                     int causal, int window, float scale, Strides qst,
                     Strides kst, Strides vst, Strides dost, Strides dkst,
                     Strides dvst) {
   using C = Cfg<D>;
+  constexpr int kB = C::kB, kRows = C::kRows, kCols = C::kCols;
   constexpr int L = C::kLd, PL = C::kPld, OC = C::kOcols;
   extern __shared__ float smem[];
   float* Ks = smem;           // [kB][L]
@@ -193,8 +211,8 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.x / KV, hk = blockIdx.x % KV;
   const int k0 = blockIdx.y * kB;  // key tile 0 sees the most queries: first
 
-  stage<D>(Ks, k + b * kst.b + hk * kst.h, kst.s, k0, Sk);
-  stage<D>(Vs, v + b * vst.b + hk * vst.h, vst.s, k0, Sk);
+  stage<T, D>(Ks, k + b * kst.b + hk * kst.h, kst.s, k0, Sk);
+  stage<T, D>(Vs, v + b * vst.b + hk * vst.h, vst.s, k0, Sk);
 
   float dka[kRows][OC], dva[kRows][OC];
 #pragma unroll
@@ -210,15 +228,15 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = hk * group + hh;
-    const float* qb = q + b * qst.b + h * qst.h;
-    const float* db = dout + b * dost.b + h * dost.h;
+    const T* qb = q + b * qst.b + h * qst.h;
+    const T* db = dout + b * dost.b + h * dost.h;
     const float* lb = lse + ((int64_t)b * H + h) * Sq;
     const float* deb = delta + ((int64_t)b * H + h) * Sq;
     for (int it = i_first; it < i_end; ++it) {
       const int q0 = it * kB;
       __syncthreads();  // the previous tile's reads are done
-      stage<D>(Qs, qb, qst.s, q0, Sq);
-      stage<D>(dOs, db, dost.s, q0, Sq);
+      stage<T, D>(Qs, qb, qst.s, q0, Sq);
+      stage<T, D>(dOs, db, dost.s, q0, Sq);
       if (tid < kB) {
         const bool ok = q0 + tid < Sq;
         lse_s[tid] = ok ? lb[q0 + tid] : 0.f;
@@ -226,7 +244,7 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
 
-      // S^T = K Q^T and dP^T = V dO^T: keys ty*4+i, queries tx+16j
+      // S^T = K Q^T and dP^T = V dO^T: keys ty*kRows+i, queries tx+16j
       float s[kRows][kCols], dp[kRows][kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -290,31 +308,32 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* dkb = dk + b * dkst.b + hk * dkst.h;
-  float* dvb = dv + b * dvst.b + hk * dvst.h;
+  T* dkb = dk + b * dkst.b + hk * dkst.h;
+  T* dvb = dv + b * dvst.b + hk * dvst.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int kj = k0 + ty * kRows + i;
     if (kj >= Sk) continue;
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
-      dkb[kj * dkst.s + tx + 16 * c] = dka[i][c] * scale;
-      dvb[kj * dvst.s + tx + 16 * c] = dva[i][c];
+      put(dkb + kj * dkst.s + tx + 16 * c, dka[i][c] * scale);
+      put(dvb + kj * dvst.s + tx + 16 * c, dva[i][c]);
     }
   }
 }
 
-// dQ of 64 query rows of one (batch, head)
-template <int D>
+// dQ of kB query rows of one (batch, head)
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dq,
+                  const float* __restrict__ delta, T* __restrict__ dq,
                   int H, int group, int Sq, int Sk, int causal, int window,
                   float scale, Strides qst, Strides kst, Strides vst,
                   Strides dost, Strides dqst) {
   using C = Cfg<D>;
+  constexpr int kB = C::kB, kRows = C::kRows, kCols = C::kCols;
   constexpr int L = C::kLd, PL = C::kPld, OC = C::kOcols;
   extern __shared__ float smem[];
   float* Qs = smem;           // [kB][L]
@@ -330,16 +349,16 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
   // the last query tiles see the most keys under causal: they start first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;
 
-  stage<D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
-  stage<D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, Sq);
+  stage<T, D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
+  stage<T, D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, Sq);
   if (tid < kB) {
     const bool ok = q0 + tid < Sq;
     const int64_t row = ((int64_t)b * H + h) * Sq + q0 + tid;
     lse_s[tid] = ok ? lse[row] : 0.f;
     dl_s[tid] = ok ? delta[row] : 0.f;
   }
-  const float* kb = k + b * kst.b + hk * kst.h;
-  const float* vb = v + b * vst.b + hk * vst.h;
+  const T* kb = k + b * kst.b + hk * kst.h;
+  const T* vb = v + b * vst.b + hk * vst.h;
 
   float dqa[kRows][OC];
 #pragma unroll
@@ -355,11 +374,11 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kB;
     __syncthreads();  // the previous tile's reads are done
-    stage<D>(Ks, kb, kst.s, k0, Sk);
-    stage<D>(Vs, vb, vst.s, k0, Sk);
+    stage<T, D>(Ks, kb, kst.s, k0, Sk);
+    stage<T, D>(Vs, vb, vst.s, k0, Sk);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T: queries ty*4+i, keys tx+16j
+    // S = Q K^T and dP = dO V^T: queries ty*kRows+i, keys tx+16j
     float s[kRows][kCols], dp[kRows][kCols];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
@@ -413,51 +432,51 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* dqb = dq + b * dqst.b + h * dqst.h;
+  T* dqb = dq + b * dqst.b + h * dqst.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty * kRows + i;
     if (qi >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < OC; ++c)
-      dqb[qi * dqst.s + tx + 16 * c] = dqa[i][c] * scale;
+      put(dqb + qi * dqst.s + tx + 16 * c, dqa[i][c] * scale);
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
            int causal, int window, float scale, const Strides* st,
            cudaStream_t stream) {
   using C = Cfg<D>;
+  constexpr int kB = C::kB;
   const Strides &qst = st[0], &kst = st[1], &vst = st[2], &ost = st[3],
                 &dost = st[4], &dqst = st[5], &dkst = st[6], &dvst = st[7];
-  int err = launch_delta<float>(o, dout, delta, B, H, Sq, D, ost, dost,
-                                stream);
+  int err = launch_delta<T>(o, dout, delta, B, H, Sq, D, ost, dost, stream);
   if (err) return err;
 
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_simt<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)C::kSmemQ);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_simt<D><<<dim3(B * H, (Sq + kB - 1) / kB), kThreads,
-                         C::kSmemQ, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, delta, (float*)dq, H, H / KV, Sq, Sk, causal, window, scale, qst,
-      kst, vst, dost, dqst);
+  flash_bwd_dq_simt<T, D><<<dim3(B * H, (Sq + kB - 1) / kB), kThreads,
+                            C::kSmemQ, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dq, H, H / KV, Sq, Sk, causal, window, scale, qst, kst, vst, dost,
+      dqst);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_simt<D>,
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_simt<T, D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)C::kSmemKV);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_simt<D><<<dim3(B * KV, (Sk + kB - 1) / kB), kThreads,
-                           C::kSmemKV, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, delta, (float*)dk, (float*)dv, H, H / KV, Sq, Sk, causal, window,
-      scale, qst, kst, vst, dost, dkst, dvst);
+  flash_bwd_dkdv_simt<T, D><<<dim3(B * KV, (Sk + kB - 1) / kB), kThreads,
+                              C::kSmemKV, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dk, (T*)dv, H, H / KV, Sq, Sk, causal, window, scale, qst, kst,
+      vst, dost, dkst, dvst);
   return (int)cudaGetLastError();
 }
 
@@ -989,8 +1008,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // (q, k, v, o, dout, dq, dk, dv) as 24 int64 in `strides`, with a
 // contiguous head dim; all of one dtype (is_bf16 ? bf16 : fp32).  lse:
 // (B, H, Sq) fp32 contiguous, the forward's natural-log row log-sum-exp of
-// the scaled scores; delta: (B, H, Sq) fp32 scratch.  D must be 64 or 128.
-// bf16 needs 16-byte aligned q, k, v, dout pointers and strides (TMA).
+// the scaled scores; delta: (B, H, Sq) fp32 scratch.  D must be 64, 128 or
+// 256.  bf16 at D = 64 or 128 (the tensor cores) needs 16-byte aligned q,
+// k, v, dout pointers and strides (TMA); at D = 256 it runs the SIMT
+// kernels and needs no alignment.
 // Launches three kernels on `stream`; returns a CUDA error code (0 on
 // success).
 extern "C" int flash_attention_bwd(
@@ -1011,16 +1032,24 @@ extern "C" int flash_attention_bwd(
       return is_bf16 ? tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk,
                                       dv, B, H, KV, Sq, Sk, causal, window,
                                       scale, st, s)
-                     : simt::launch<64>(q, k, v, o, dout, lse, delta, dq, dk,
-                                        dv, B, H, KV, Sq, Sk, causal, window,
-                                        scale, st, s);
+                     : simt::launch<float, 64>(q, k, v, o, dout, lse, delta,
+                                               dq, dk, dv, B, H, KV, Sq, Sk,
+                                               causal, window, scale, st, s);
     case 128:
       return is_bf16 ? tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk,
                                        dv, B, H, KV, Sq, Sk, causal, window,
                                        scale, st, s)
-                     : simt::launch<128>(q, k, v, o, dout, lse, delta, dq,
-                                         dk, dv, B, H, KV, Sq, Sk, causal,
-                                         window, scale, st, s);
+                     : simt::launch<float, 128>(q, k, v, o, dout, lse, delta,
+                                                dq, dk, dv, B, H, KV, Sq, Sk,
+                                                causal, window, scale, st, s);
+    case 256:
+      return is_bf16
+                 ? simt::launch<__nv_bfloat16, 256>(
+                       q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV,
+                       Sq, Sk, causal, window, scale, st, s)
+                 : simt::launch<float, 256>(q, k, v, o, dout, lse, delta, dq,
+                                            dk, dv, B, H, KV, Sq, Sk, causal,
+                                            window, scale, st, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -62,6 +62,38 @@
 //
 // Determinism: no atomics, and every sum runs in one fixed order with
 // fmaf, so two calls give the same bits.
+//
+// The backward (wkv6_bwd below; no Pallas counterpart: JAX differentiates
+// its chunked jnp form, src/repro/models/rwkv6.py) takes the forward's
+// scratch, whose U part holds the state S_c entering each chunk after
+// pass 2, so states inside a chunk are rebuilt from S_c by the factored
+// decays and never by dividing a state by w.  With G^c the gradient of the
+// state leaving chunk c and B[i, j] = do_i . v_j, it mirrors the forward:
+//   bwd pass 1, one block per (b, h, c): V_c = q^T do, from the forward's
+//     q^T (an L-deep outer-product sum, as U_c);
+//   bwd pass 2, one thread per (b, h, n, 4 columns): in reverse chunk
+//     order G^{C-1} = dS (or 0), G^{c-1} = d_c[n] G^c + V_c, each G^c
+//     stored over V_c, dS0 = G^{-1};
+//   bwd pass 3, one block per (b, h, c), three groups of N threads, each
+//     thread a 4-token x 4-channel register tile of one gradient:
+//       dr_i = P_{i-1} (S_c do_i + sum_{j<i} B[i, j] k_j / P_j) + u k_i B_ii
+//       dk_i = u r_i B_ii + exp(cum_L - cum_i) G^c v_i
+//              + exp(-cum_i) sum_{j>i} B[j, i] q_j
+//       dv_i = sum_{j>=i} A[j, i] do_j + kd_i G^c
+//     (A the forward's intra-chunk matrix, recomputed), then per channel
+//     the chunk's reverse sums of r dr' and k dk' (dr', dk' without the
+//     bonus terms) and its share of du;
+//   bwd passes 4 and 5: the decay's gradient
+//     dlog_w_s = sum_{t>s} r_t dr'_t - sum_{t>=s} k_t dk'_t
+//                + rowsum(dS * S_T)
+//     (the gradient of every in-chunk log-decay sum, gathered: the form
+//     w_t rowsum(G_t * S_{t-1}) would need every token's N x N state):
+//     one thread per (b, h, n) walks the chunks' totals in reverse into
+//     each chunk's carry and sums du's per-(b, h) partial over the chunks
+//     in order (the wrapper sums the batch); then one block per (b, h, c)
+//     adds its carry to the chunk's in-chunk part.
+// ref.wkv6_backward_chunked is this arithmetic on the CPU.  It is exact in
+// fp32 on the forward's domain (the clamp above); no atomics, one order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -516,6 +548,407 @@ int dispatch_n(int N, const void* r, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the backward
+// ---------------------------------------------------------------------------
+
+// bwd pass 1: V_c = q^T do.  4N threads; thread (gn, gm) owns rows
+// n0 .. n0 + TN - 1 and columns m .. m + 3, as the forward's U_c
+template <typename T, int N>
+__global__ void __launch_bounds__(4 * N)
+wkv6_bwd_chunk_v(const T* __restrict__ dout, Scratch sc,
+                 float* __restrict__ V, int H, int T_len, int C,
+                 Strides dst) {
+  constexpr int TN = N / 16;
+  extern __shared__ float4 smem4[];
+  float* dos = reinterpret_cast<float*>(smem4);  // [L][N]
+  float* qs = dos + kL * N;                      // [L][N]
+  const int bh = blockIdx.x / C, c = blockIdx.x % C;
+  const int b = bh / H, h = bh % H;
+  const int t0 = c * kL, len = min(kL, T_len - t0);
+  const int64_t chunk = (int64_t)bh * C + c;
+  load_tile<T, N>(dos, dout + b * dst.b + h * dst.h, dst.t, t0, len);
+  const float* qTg = sc.qT + chunk * kL * N;
+  for (int e = threadIdx.x; e < kL * N; e += blockDim.x) {
+    const int n = e / kL, t = e % kL;
+    qs[t * N + n] = qTg[e];
+  }
+  __syncthreads();
+  const int n0 = (threadIdx.x / (N / 4)) * TN;
+  const int m = (threadIdx.x % (N / 4)) * 4;
+  float acc[TN][4];
+#pragma unroll
+  for (int i = 0; i < TN; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kL; ++j) {
+    const float4 dd = *reinterpret_cast<const float4*>(dos + j * N + m);
+#pragma unroll
+    for (int i4 = 0; i4 < TN; i4 += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(qs + j * N + n0 + i4);
+      fma4(q.x, dd, acc[i4]);
+      fma4(q.y, dd, acc[i4 + 1]);
+      fma4(q.z, dd, acc[i4 + 2]);
+      fma4(q.w, dd, acc[i4 + 3]);
+    }
+  }
+  float* Vg = V + chunk * N * N;
+#pragma unroll
+  for (int i = 0; i < TN; ++i)
+    store4(Vg + (n0 + i) * N + m,
+           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+}
+
+// bwd pass 2: the reverse fold of the state's gradient, one thread per
+// (b, h, n, m .. m + 3)
+template <int N>
+__global__ void __launch_bounds__(kFoldThreads)
+wkv6_bwd_fold(float* __restrict__ V, const float* __restrict__ dec,
+              const float* __restrict__ dS, float* __restrict__ dS0, int BH,
+              int C) {
+  constexpr int Q = N * N / 4;
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (int64_t)BH * Q) return;
+  const int64_t bh = e / Q;
+  const int w = (int)(e % Q), n = w / (N / 4);
+  float4 G = dS ? reinterpret_cast<const float4*>(dS)[e]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* Vb = reinterpret_cast<float4*>(V) + bh * C * Q + w;
+  const float* db = dec + bh * C * N + n;
+  for (int c = C - 1; c >= 0; --c) {
+    const float4 vv = Vb[(int64_t)c * Q];
+    const float d = db[(int64_t)c * N];
+    Vb[(int64_t)c * Q] = G;   // the gradient of the state leaving chunk c
+    G.x = fmaf(d, G.x, vv.x);
+    G.y = fmaf(d, G.y, vv.y);
+    G.z = fmaf(d, G.z, vv.z);
+    G.w = fmaf(d, G.w, vv.w);
+  }
+  if (dS0) reinterpret_cast<float4*>(dS0)[e] = G;
+}
+
+// bwd pass 3: each chunk's gradients.  3 x (L N / 16) threads: group 0
+// writes dr, group 1 dk, group 2 dv; thread (g, x) of a group owns tokens
+// 4g .. 4g + 3 and channels 4x .. 4x + 3.
+template <int N>
+__host__ __device__ constexpr int bwd_group_threads() { return kL * N / 16; }
+
+template <int N>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  // S_c^T, G, G^T; r, k, v, do, cum, q, k/P, the reverse sums' terms
+  // (2 tiles); do^T, v^T, kd^T; A, the two masked B's, B's diagonal
+  return (3 * N * N + 9 * kL * N + 3 * N * kQS + 3 * kL * kL + kL) * 4;
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(3 * bwd_group_threads<N>())
+wkv6_bwd_chunk_grads(const T* __restrict__ r, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ log_w,
+                     const float* __restrict__ u, const T* __restrict__ dout,
+                     Scratch sc, const float* __restrict__ Gg,
+                     float* __restrict__ part, T* __restrict__ dr,
+                     T* __restrict__ dk, T* __restrict__ dv,
+                     float* __restrict__ dlw, int H, int T_len, int C,
+                     Strides rst, Strides kst, Strides vst, Strides wst,
+                     Strides dst, Strides drst, Strides dkst, Strides dvst,
+                     Strides dwst) {
+  constexpr int NT = 3 * bwd_group_threads<N>();
+  extern __shared__ float4 smem4[];
+  float* STs = reinterpret_cast<float*>(smem4);  // STs[m * N + n] = S_c[n][m]
+  float* Gs = STs + N * N;                       // G^c[n][m]
+  float* GTs = Gs + N * N;                       // G^c[m][n]
+  float* rs = GTs + N * N;                       // [L][N] tiles
+  float* ks = rs + kL * N;
+  float* vs = ks + kL * N;
+  float* dos = vs + kL * N;
+  float* cs = dos + kL * N;                      // cum
+  float* qs = cs + kL * N;                       // r_t P_{t-1}
+  float* kps = qs + kL * N;                      // k_t / P_t
+  float* as = kps + kL * N;                      // r dr' (no bonus)
+  float* bs = as + kL * N;                       // k dk' (no bonus)
+  float* doT = bs + kL * N;                      // [N][kQS] transposed
+  float* vT = doT + N * kQS;
+  float* kdT = vT + N * kQS;                     // k_t exp(cum_L - cum_t)
+  float* As = kdT + N * kQS;                     // As[j * L + i] = A[j][i]
+  float* Bl = As + kL * kL;                      // Bl[j * L + i] = j < i ? B[i][j]
+  float* Bu = Bl + kL * kL;                      // Bu[j * L + i] = j > i ? B[j][i]
+  float* Bd = Bu + kL * kL;                      // B[i][i]
+  const int bh = blockIdx.x / C, c = blockIdx.x % C;
+  const int b = bh / H, h = bh % H;
+  const int t0 = c * kL, len = min(kL, T_len - t0);
+  const int64_t chunk = (int64_t)bh * C + c;
+  load_tile<T, N>(rs, r + b * rst.b + h * rst.h, rst.t, t0, len);
+  load_tile<T, N>(ks, k + b * kst.b + h * kst.h, kst.t, t0, len);
+  load_tile<T, N>(vs, v + b * vst.b + h * vst.h, vst.t, t0, len);
+  load_tile<T, N>(dos, dout + b * dst.b + h * dst.h, dst.t, t0, len);
+  load_tile<float, N>(cs, log_w + b * wst.b + h * wst.h, wst.t, t0, len);
+  const float* Sg = sc.U + chunk * N * N;
+  const float* Gc = Gg + chunk * N * N;
+  for (int e = threadIdx.x; e < N * N; e += NT) {
+    const int n = e / N, m = e % N;
+    STs[m * N + n] = Sg[e];
+    const float g = Gc[e];
+    Gs[e] = g;
+    GTs[m * N + n] = g;
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {   // the in-chunk cumsum of log_w
+    const int n = threadIdx.x;
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kL; ++i) {
+      acc += cs[i * N + n];
+      cs[i * N + n] = acc;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kL * N; e += NT) {
+    const int i = e / N, n = e % N;
+    const float cum = cs[e], prev = i ? cs[e - N] : 0.f;
+    const float tot = cs[(kL - 1) * N + n];
+    qs[e] = rs[e] * expf(prev);
+    kps[e] = ks[e] * expf(-cum);
+    kdT[n * kQS + i] = ks[e] * expf(tot - cum);
+    doT[n * kQS + i] = dos[e];
+    vT[n * kQS + i] = vs[e];
+  }
+  __syncthreads();
+  // A (strictly lower q . k/P, the bonus r . (u k) on the diagonal, 0
+  // above) and B = do v^T; each dot starts at a channel rotated by its
+  // entry (fewer bank conflicts), one fixed order an entry
+  for (int e = threadIdx.x; e < 2 * kL * kL; e += NT) {
+    const int which = e / (kL * kL), i = e / kL % kL, j = e % kL;
+    float acc = 0.f;
+    if (which == 0) {   // A[i][j]
+      if (j < i) {
+        for (int nn = 0; nn < N; ++nn) {
+          const int n = (nn + e) & (N - 1);
+          acc = fmaf(qs[i * N + n], kps[j * N + n], acc);
+        }
+      } else if (j == i) {
+        for (int nn = 0; nn < N; ++nn) {
+          const int n = (nn + e) & (N - 1);
+          acc = fmaf(rs[i * N + n] * u[h * N + n], ks[i * N + n], acc);
+        }
+      }
+      As[i * kL + j] = acc;
+    } else {            // B[i][j] = do_i . v_j
+      for (int nn = 0; nn < N; ++nn) {
+        const int n = (nn + e) & (N - 1);
+        acc = fmaf(dos[i * N + n], vs[j * N + n], acc);
+      }
+      Bl[j * kL + i] = j < i ? acc : 0.f;
+      Bu[i * kL + j] = i > j ? acc : 0.f;
+      if (i == j) Bd[i] = acc;
+    }
+  }
+  __syncthreads();
+
+  const int grp = threadIdx.x / bwd_group_threads<N>();
+  const int lt = threadIdx.x % bwd_group_threads<N>();
+  const int i0 = (lt / (N / 4)) * 4, x0 = (lt % (N / 4)) * 4;
+  float acc[4][4], acc2[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) acc[a][y] = acc2[a][y] = 0.f;
+  if (grp == 0) {
+    // S_c do_i (channels x0..), then sum_{j<i} B[i][j] k_j / P_j
+#pragma unroll 8
+    for (int m = 0; m < N; ++m) {
+      const float4 dd = *reinterpret_cast<const float4*>(doT + m * kQS + i0);
+      const float4 ss = *reinterpret_cast<const float4*>(STs + m * N + x0);
+      fma4(dd.x, ss, acc[0]);
+      fma4(dd.y, ss, acc[1]);
+      fma4(dd.z, ss, acc[2]);
+      fma4(dd.w, ss, acc[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      const float4 bb = *reinterpret_cast<const float4*>(Bl + j * kL + i0);
+      const float4 kp = *reinterpret_cast<const float4*>(kps + j * N + x0);
+      fma4(bb.x, kp, acc2[0]);
+      fma4(bb.y, kp, acc2[1]);
+      fma4(bb.z, kp, acc2[2]);
+      fma4(bb.w, kp, acc2[3]);
+    }
+  } else if (grp == 1) {
+    // G^c v_i, then sum_{j>i} B[j][i] q_j
+#pragma unroll 8
+    for (int m = 0; m < N; ++m) {
+      const float4 vv = *reinterpret_cast<const float4*>(vT + m * kQS + i0);
+      const float4 gg = *reinterpret_cast<const float4*>(GTs + m * N + x0);
+      fma4(vv.x, gg, acc[0]);
+      fma4(vv.y, gg, acc[1]);
+      fma4(vv.z, gg, acc[2]);
+      fma4(vv.w, gg, acc[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      const float4 bb = *reinterpret_cast<const float4*>(Bu + j * kL + i0);
+      const float4 q = *reinterpret_cast<const float4*>(qs + j * N + x0);
+      fma4(bb.x, q, acc2[0]);
+      fma4(bb.y, q, acc2[1]);
+      fma4(bb.z, q, acc2[2]);
+      fma4(bb.w, q, acc2[3]);
+    }
+  } else {
+    // kd_i G^c (columns x0..), then sum_{j>=i} A[j][i] do_j
+#pragma unroll 8
+    for (int n = 0; n < N; ++n) {
+      const float4 kd = *reinterpret_cast<const float4*>(kdT + n * kQS + i0);
+      const float4 gg = *reinterpret_cast<const float4*>(Gs + n * N + x0);
+      fma4(kd.x, gg, acc[0]);
+      fma4(kd.y, gg, acc[1]);
+      fma4(kd.z, gg, acc[2]);
+      fma4(kd.w, gg, acc[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      const float4 aa = *reinterpret_cast<const float4*>(As + j * kL + i0);
+      const float4 dd = *reinterpret_cast<const float4*>(dos + j * N + x0);
+      fma4(aa.x, dd, acc2[0]);
+      fma4(aa.y, dd, acc2[1]);
+      fma4(aa.z, dd, acc2[2]);
+      fma4(aa.w, dd, acc2[3]);
+    }
+  }
+  const Strides ost = grp == 0 ? drst : grp == 1 ? dkst : dvst;
+  T* ob = (grp == 0 ? dr : grp == 1 ? dk : dv) + b * ost.b + h * ost.h;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + a;
+    float out[4];
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int n = x0 + y, e = i * N + n;
+      if (grp == 0) {
+        const float prev = i ? cs[e - N] : 0.f;
+        const float nb = expf(prev) * (acc[a][y] + acc2[a][y]);
+        as[e] = rs[e] * nb;
+        out[y] = fmaf(u[h * N + n] * ks[e], Bd[i], nb);
+      } else if (grp == 1) {
+        const float tot = cs[(kL - 1) * N + n], cum = cs[e];
+        const float nb = fmaf(expf(tot - cum), acc[a][y],
+                              expf(-cum) * acc2[a][y]);
+        bs[e] = ks[e] * nb;
+        out[y] = fmaf(u[h * N + n] * rs[e], Bd[i], nb);
+      } else {
+        out[y] = acc[a][y] + acc2[a][y];
+      }
+    }
+    if (i < len)
+      store4(ob + (t0 + i) * ost.t + x0,
+             make_float4(out[0], out[1], out[2], out[3]));
+  }
+  __syncthreads();
+  // per channel: the in-chunk part of the decay's gradient, the chunk's
+  // totals for pass 4 and its share of du
+  if (threadIdx.x < N) {
+    const int n = threadIdx.x;
+    float sa = 0.f, sb = 0.f, du = 0.f;
+    float* wb = dlw + b * dwst.b + h * dwst.h + n;
+    for (int i = kL - 1; i >= 0; --i) {
+      const int e = i * N + n;
+      sb += bs[e];
+      if (i < len) wb[(t0 + i) * dwst.t] = sa - sb;
+      sa += as[e];
+      du = fmaf(rs[e] * ks[e], Bd[i], du);
+    }
+    float* pc = part + chunk * 2 * N;
+    pc[n] = sa - sb;
+    pc[N + n] = du;
+  }
+}
+
+// bwd pass 4, one thread per (b, h, n): the carry of each chunk, the
+// chunks' totals summed in reverse order from rowsum(dS * S_T), written
+// over the totals; and du's partial of (b, h), the chunks summed in order
+template <int N>
+__global__ void wkv6_bwd_carry(float* __restrict__ part,
+                               const float* __restrict__ dS,
+                               const float* __restrict__ S_T,
+                               float* __restrict__ du_part, int BH, int C) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= BH * N) return;
+  const int bh = e / N, n = e % N;
+  float carry = 0.f;
+  if (dS) {
+    const float* g = dS + ((int64_t)bh * N + n) * N;
+    const float* st = S_T + ((int64_t)bh * N + n) * N;
+    for (int m = 0; m < N; ++m) carry = fmaf(g[m], st[m], carry);
+  }
+  float* pb = part + (int64_t)bh * C * 2 * N + n;
+  float du = 0.f;
+  for (int c = 0; c < C; ++c) du += pb[(int64_t)c * 2 * N + N];
+  for (int c = C - 1; c >= 0; --c) {
+    const float tot = pb[(int64_t)c * 2 * N];
+    pb[(int64_t)c * 2 * N] = carry;
+    carry += tot;
+  }
+  du_part[e] = du;
+}
+
+// bwd pass 5, one block of N threads per (b, h, c): each token's decay
+// gradient gets its chunk's carry
+template <int N>
+__global__ void __launch_bounds__(N)
+wkv6_bwd_decay(const float* __restrict__ part, float* __restrict__ dlw,
+               int H, int T_len, int C, Strides dwst) {
+  const int bh = blockIdx.x / C, c = blockIdx.x % C, n = threadIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int t0 = c * kL, len = min(kL, T_len - t0);
+  const float carry = part[((int64_t)bh * C + c) * 2 * N + n];
+  float* wb = dlw + b * dwst.b + h * dwst.h + n;
+  for (int i = 0; i < len; ++i) wb[(t0 + i) * dwst.t] += carry;
+}
+
+template <typename T, int N>
+int launch_bwd(const void* r, const void* k, const void* v, const float* lw,
+               const float* u, const void* dout, const float* dS,
+               const float* S_T, float* scratch, float* bscratch, void* dr,
+               void* dk, void* dv, float* dlw, float* du_part, float* dS0,
+               int B, int H, int T_len, Strides rst, Strides kst,
+               Strides vst, Strides wst, Strides dst, Strides drst,
+               Strides dkst, Strides dvst, Strides dwst,
+               cudaStream_t stream) {
+  const int C = (T_len + kL - 1) / kL;
+  const int BH = B * H;
+  const Scratch sc = split_scratch(scratch, (int64_t)BH * C, N);
+  float* V = bscratch;                                 // (BH, C, N, N)
+  float* part = bscratch + (int64_t)BH * C * N * N;    // (BH, C, 2, N)
+  cudaError_t err;
+  if (C > 0) {
+    constexpr int smem = 2 * kL * N * 4;
+    wkv6_bwd_chunk_v<T, N><<<BH * C, 4 * N, smem, stream>>>(
+        (const T*)dout, sc, V, H, T_len, C, dst);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t fold_threads = (int64_t)BH * N * N / 4;
+  wkv6_bwd_fold<N><<<(unsigned)((fold_threads + kFoldThreads - 1) /
+                                kFoldThreads),
+                     kFoldThreads, 0, stream>>>(V, sc.dec, dS, dS0, BH, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || C == 0) return (int)err;
+  constexpr int smem = bwd_smem_bytes<N>();
+  err = allow_smem(wkv6_bwd_chunk_grads<T, N>, smem);
+  if (err != cudaSuccess) return (int)err;
+  wkv6_bwd_chunk_grads<T, N><<<BH * C, 3 * bwd_group_threads<N>(), smem,
+                               stream>>>(
+      (const T*)r, (const T*)k, (const T*)v, lw, u, (const T*)dout, sc, V,
+      part, (T*)dr, (T*)dk, (T*)dv, dlw, H, T_len, C, rst, kst, vst, wst,
+      dst, drst, dkst, dvst, dwst);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wkv6_bwd_carry<N><<<(BH * N + 127) / 128, 128, 0, stream>>>(
+      part, dS, S_T, du_part, BH, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wkv6_bwd_decay<N><<<BH * C, N, 0, stream>>>(part, dlw, H, T_len, C, dwst);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // tokens a chunk
@@ -554,4 +987,42 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                                      wst, ost, s);
   return dispatch_n<float>(N, r, k, v, log_w, u, s0, o, s_out, scratch, B,
                            H, T_len, rst, kst, vst, wst, ost, s);
+}
+
+// fp32 elements of the scratch that wkv6_bwd needs beside the forward's
+extern "C" int64_t wkv6_bwd_scratch_floats(int B, int H, int T_len, int N) {
+  return (int64_t)B * H * ((T_len + kL - 1) / kL) * ((int64_t)N * N + 2 * N);
+}
+
+// Backward of wkv6_fwd.  r, k, v, log_w, u, S0's shapes and layouts as
+// there; dout: (B, H, T, N) in r's dtype, by its strides (4-aligned, as
+// r); scratch: the forward's scratch, as that call left it; dS (may be
+// null: zero) and S_T (the forward's s_out; read only with dS): (B, H, N,
+// N) fp32 contiguous; bscratch: wkv6_bwd_scratch_floats fp32; dr, dk, dv:
+// (B, H, T, N) in r's dtype and dlw (B, H, T, N) fp32, each by its
+// strides (4-aligned); du_part: (B, H, N) fp32, the per-(b, h) partial of
+// du; dS0 (may be null: not wanted): (B, H, N, N) fp32.  N must be 64.
+// Launches the five passes on `stream`; returns the first launch error.
+extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
+                        const float* log_w, const float* u, const void* dout,
+                        const float* dS, const float* S_T, float* scratch,
+                        float* bscratch, void* dr, void* dk, void* dv,
+                        float* dlw, float* du_part, float* dS0, int is_bf16,
+                        int B, int H, int T_len, int N, const int64_t* st,
+                        void* stream) {
+  if (B <= 0 || H <= 0 || T_len < 0 || N != 64)
+    return (int)cudaErrorInvalidValue;
+  Strides ss[9];
+  for (int i = 0; i < 9; ++i) ss[i] = Strides{st[3 * i], st[3 * i + 1],
+                                              st[3 * i + 2]};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_bwd<__nv_bfloat16, 64>(
+        r, k, v, log_w, u, dout, dS, S_T, scratch, bscratch, dr, dk, dv, dlw,
+        du_part, dS0, B, H, T_len, ss[0], ss[1], ss[2], ss[3], ss[4], ss[5],
+        ss[6], ss[7], ss[8], s);
+  return launch_bwd<float, 64>(
+      r, k, v, log_w, u, dout, dS, S_T, scratch, bscratch, dr, dk, dv, dlw,
+      du_part, dS0, B, H, T_len, ss[0], ss[1], ss[2], ss[3], ss[4], ss[5],
+      ss[6], ss[7], ss[8], s);
 }

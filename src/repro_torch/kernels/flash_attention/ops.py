@@ -6,7 +6,7 @@ launches a kernel or raises.  ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count the launches.  :func:`attention` is
 the differentiable entry the model calls: under autograd its forward keeps
 q, k, v, the output and the row log-sum-exp, and its backward is the
-backward kernels (D = 64 or 128); without a gradient it is
+backward kernels (D = 64, 128 or 256); without a gradient it is
 :func:`flash_attention`.
 
 bf16 runs on the tensor cores in both directions (wgmma, with tiles brought
@@ -15,10 +15,11 @@ stride of q, k, v (and, backward, o) 16-byte aligned, and the wrapper
 raises otherwise (every caller in the port passes aligned tensors); a
 misaligned output gradient is copied.  The forward takes 128 query rows a
 block where the head dim is at most 128 and that grid covers every SM
-once, else 64; the result has the same bits either way.  The backward
-rounds P and dS to bf16 before their products
-(``ref.attention_backward_rounded`` is its arithmetic on the CPU).  fp32
-runs on the SIMT kernels at full fp32 precision, with no alignment
+once, else 64; the result has the same bits either way.  The backward at
+D = 64 and 128 rounds P and dS to bf16 before their products
+(``ref.attention_backward_rounded`` is its arithmetic on the CPU).  fp32,
+and bf16 at D = 256 (the backward), run on the SIMT kernels with every
+product in fp32 (``ref.attention_backward``), with no alignment
 condition.
 
 The kernels read q, k, v through their (batch, head, seq) strides, so the
@@ -41,7 +42,9 @@ __all__ = ["attention", "flash_attention", "flash_attention_bwd",
            "HEAD_DIMS", "BWD_HEAD_DIMS"]
 
 HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
+#: head dims whose bf16 backward runs on the tensor cores (TMA-aligned)
+TC_BWD_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -163,9 +166,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     the inputs' dtype.  dq is a ``(B, H, Sq, D)`` view of a contiguous
     ``(B, Sq, H, D)`` buffer and dk, dv views of ``(B, Sk, KV, D)`` ones, so
     the gradients of the model's transposed projection views come back
-    contiguous without a copy.  On CUDA the head dim must be 64 or 128;
-    bf16 runs on the tensor cores and needs q, k, v and o 16-byte aligned
-    (it raises otherwise; ``do`` is copied where it is not)."""
+    contiguous without a copy.  On CUDA the head dim must be 64, 128 or
+    256; bf16 at 64 and 128 runs on the tensor cores and needs q, k, v and
+    o 16-byte aligned (it raises otherwise; ``do`` is copied where it is
+    not)."""
     _check(q, k, v)
     _check_window(causal, window)
     b, h, sq, d = q.shape
@@ -194,9 +198,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if o.stride(3) != 1:
         raise ValueError("the head dim of o must be contiguous")
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    tma = bf16 and d in TC_BWD_HEAD_DIMS
+    if tma:
         _check_tma_aligned(q, k, v, o)
-    if do.stride(3) != 1 or (bf16 and not _tma_aligned(do)):
+    if do.stride(3) != 1 or (tma and not _tma_aligned(do)):
         do = do.clone(memory_format=torch.contiguous_format)
     lse = lse.contiguous()
     dq = torch.empty((b, sq, h, d), dtype=q.dtype,

@@ -5,13 +5,15 @@
 step, computed as JAX's ``associative_scan`` does, by recursive doubling
 over time.  ``lru_scan_chunked`` does the CUDA kernel's arithmetic: chunk
 summaries, carry-ins folded in chunk order, each chunk re-run from its
-carry-in.
+carry-in.  ``lru_scan_backward`` is the recurrence's gradient, the same
+recurrence run backward in time with ``a`` shifted by one step, as the
+backward kernel computes it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["lru_scan", "lru_scan_chunked"]
+__all__ = ["lru_scan", "lru_scan_chunked", "lru_scan_backward"]
 
 
 def lru_scan(a, b, h0=None):
@@ -64,3 +66,28 @@ def lru_scan_chunked(a, b, h0=None, chunk: int = 128):
         h[:, :, t] = hv
     h = h.reshape(bsz, n * chunk, w)[:, :s]
     return h, h[:, -1]
+
+
+def lru_scan_backward(a, h, dh, dh_last=None, h0=None):
+    """Gradient of :func:`lru_scan` at output gradients ``dh`` (B, S, W) and
+    ``dh_last`` (B, W) (None: zero), from ``a`` and the forward's ``h``:
+
+        g_S = dh_S + dh_last,   g_t = dh_t + a_{t+1} g_{t+1}
+        db_t = g_t,   da_t = g_t h_{t-1} (h_0 = h0, or 0),   dh0 = a_1 g_1
+
+    all in fp32.  The reverse recurrence is :func:`lru_scan` on reversed
+    time (its entering state ``dh_last``).  Returns (da, db, dh0) fp32,
+    ``dh0`` None when ``h0`` is None."""
+    a = a.to(torch.float32)
+    h = h.to(torch.float32)
+    dh = dh.to(torch.float32)
+    # reversed time: the step of t multiplies the carry by a_{t+1} (by 1 at
+    # t = S - 1, where the carry is dh_last)
+    a_rev = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], 1).flip(1)
+    g, _ = lru_scan(a_rev, dh.flip(1), dh_last)
+    g = g.flip(1)
+    prev = torch.zeros_like(h[:, :1]) if h0 is None else \
+        h0.to(torch.float32)[:, None]
+    da = g * torch.cat([prev, h[:, :-1]], 1)
+    dh0 = None if h0 is None else a[:, 0] * g[:, 0]
+    return da, g, dh0

@@ -1,7 +1,11 @@
 """Wrapper of the WKV6 kernel (``csrc/wkv6.cu``).
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  ``wkv6.launches`` counts the launches.
+the kernel or raises.  ``wkv6.launches`` and ``wkv6_bwd.launches`` count
+the launches.  :func:`wkv6` is differentiable: under autograd it goes
+through :class:`_WKV6`, whose forward keeps the kernel's scratch (the state
+entering each chunk) and whose backward is :func:`wkv6_bwd` (head size 64
+on the card); without a gradient it is the forward alone.
 
 The kernel reads r, k, v and log_w through their (batch, head, token)
 strides, so the model passes its ``(B, T, H, N)`` projections as transposed
@@ -25,9 +29,11 @@ import torch
 from .. import _build
 from . import ref
 
-__all__ = ["wkv6", "HEAD_SIZES", "CHUNK"]
+__all__ = ["wkv6", "wkv6_forward", "wkv6_bwd", "HEAD_SIZES",
+           "BWD_HEAD_SIZES", "CHUNK"]
 
 HEAD_SIZES = (64, 128)
+BWD_HEAD_SIZES = (64,)   # RWKV-6's head size
 CHUNK = 16   # tokens a chunk; the library's wkv6_chunk_tokens must agree
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -41,6 +47,11 @@ def _lib():
     lib.wkv6_scratch_floats.argtypes = [ctypes.c_int] * 4
     lib.wkv6_scratch_floats.restype = ctypes.c_int64
     lib.wkv6_chunk_tokens.restype = ctypes.c_int
+    lib.wkv6_bwd.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                             + [ctypes.c_void_p] * 2)
+    lib.wkv6_bwd.restype = ctypes.c_int
+    lib.wkv6_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.wkv6_bwd_scratch_floats.restype = ctypes.c_int64
     if lib.wkv6_chunk_tokens() != CHUNK:
         raise RuntimeError(f"csrc/wkv6.cu chunks {lib.wkv6_chunk_tokens()} "
                            f"tokens, ops.CHUNK says {CHUNK}")
@@ -76,10 +87,21 @@ def _check(r, k, v, log_w, u, S0):
 def wkv6(r, k, v, log_w, u, S0=None):
     """r, k, v, log_w: (B, H, T, N); u: (H, N); S0: (B, H, N, N) fp32 or
     None (zero state).  Returns (o (B, H, T, N) in r's dtype, S_final
-    (B, H, N, N) fp32).  Any T: the kernel masks the ragged last chunk."""
+    (B, H, N, N) fp32).  Any T: the kernel masks the ragged last chunk.
+    Differentiable in every input (:class:`_WKV6`)."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (r, k, v, log_w, u, S0)):
+        return _WKV6.apply(r, k, v, log_w, u, S0)
+    return wkv6_forward(r, k, v, log_w, u, S0)[:2]
+
+
+def wkv6_forward(r, k, v, log_w, u, S0=None):
+    """:func:`wkv6`'s forward alone: (o, S_final, scratch), the scratch
+    the kernel left (the backward's input; None on the CPU)."""
     _check(r, k, v, log_w, u, S0)
     if r.device.type == "cpu":
-        return ref.wkv6(r, k, v, log_w, u, S0)
+        return (*ref.wkv6(r, k, v, log_w, u, S0), None)
     if r.device.type != "cuda":
         raise ValueError(f"no wkv6 kernel for {r.device}")
     b, h, t, n = r.shape
@@ -111,7 +133,117 @@ def wkv6(r, k, v, log_w, u, S0=None):
     if err:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
-    return o, s_out
+    return o, s_out, scratch
 
 
 wkv6.launches = 0
+
+
+def _layout_like_forward(b, t, h, n, dtype, device):
+    """A (B, H, T, N) view of a contiguous (B, T, H, N) buffer, as the
+    forward writes o: the gradients of the model's transposed projection
+    views come back contiguous."""
+    return torch.empty((b, t, h, n), dtype=dtype,
+                       device=device).transpose(1, 2)
+
+
+def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None,
+             S_final=None):
+    """Gradient of :func:`wkv6` at output gradient ``do`` (B, H, T, N) and
+    final-state gradient ``dS`` ((B, H, N, N) fp32 or None: zero).  Returns
+    (dr, dk, dv in r's dtype, dlog_w (B, H, T, N) fp32, du (H, N) fp32,
+    dS0 (B, H, N, N) fp32 or None when S0 is None).  On CUDA it takes the
+    forward's ``scratch`` (:func:`wkv6_forward`) and, with ``dS``, its
+    ``S_final``; the head size must be 64."""
+    _check(r, k, v, log_w, u, S0)
+    if do.shape != r.shape:
+        raise ValueError(f"do must have r's shape {tuple(r.shape)}, got "
+                         f"{tuple(do.shape)}")
+    b, h, t, n = r.shape
+    if dS is not None and tuple(dS.shape) != (b, h, n, n):
+        raise ValueError(f"dS must be {(b, h, n, n)}, got "
+                         f"{tuple(dS.shape)}")
+    if any(x is not None and x.device != r.device for x in (do, dS)):
+        raise ValueError("wkv6_bwd inputs must lie on one device")
+    if r.device.type == "cpu":
+        return ref.wkv6_backward(r, k, v, log_w, u, do, S0, dS)
+    if r.device.type != "cuda":
+        raise ValueError(f"no wkv6 backward kernel for {r.device}")
+    if n not in BWD_HEAD_SIZES:
+        raise ValueError(f"head size {n} not in the backward kernel's "
+                         f"{BWD_HEAD_SIZES}")
+    if scratch is None or (dS is not None and S_final is None):
+        raise ValueError("the backward kernel needs the forward's scratch "
+                         "(and its S_final with dS): see wkv6_forward")
+    if do.dtype != r.dtype:
+        raise ValueError("do must have r's dtype")
+    lib = _lib()
+    if scratch.numel() != lib.wkv6_scratch_floats(b, h, t, n):
+        raise ValueError("scratch is not the forward's for this shape")
+    dr, dk, dv = (_layout_like_forward(b, t, h, n, r.dtype, r.device)
+                  for _ in range(3))
+    dlw = _layout_like_forward(b, t, h, n, torch.float32, r.device)
+    dS0 = None if S0 is None else torch.empty(
+        (b, h, n, n), dtype=torch.float32, device=r.device)
+    if t == 0:
+        zero = torch.zeros((h, n), dtype=torch.float32, device=r.device)
+        if dS0 is not None:
+            dS0.copy_(torch.zeros_like(dS0) if dS is None else dS)
+        return dr, dk, dv, dlw, zero, dS0
+    r, k, v, log_w = (_aligned(x) for x in (r, k, v, log_w))
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    do = _aligned(do)
+    u = u.contiguous()
+    dS = None if dS is None else dS.to(torch.float32).contiguous()
+    S_final = None if dS is None else S_final.contiguous()
+    bscratch = torch.empty(lib.wkv6_bwd_scratch_floats(b, h, t, n),
+                           dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+    strides = (ctypes.c_int64 * 27)(*(s for x in (r, k, v, log_w, do, dr,
+                                                  dk, dv, dlw)
+                                      for s in x.stride()[:3]))
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(r.device):
+        err = lib.wkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u.data_ptr(), do.data_ptr(), ptr(dS), ptr(S_final),
+            scratch.data_ptr(), bscratch.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du_part.data_ptr(),
+            ptr(dS0), int(r.dtype == torch.bfloat16), b, h, t, n,
+            ctypes.addressof(strides),
+            torch.cuda.current_stream(r.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    wkv6_bwd.launches += 1
+    # du summed over the batch in one fixed order
+    return dr, dk, dv, dlw, du_part.sum(0), dS0
+
+
+wkv6_bwd.launches = 0
+
+
+class _WKV6(torch.autograd.Function):
+    """WKV6 with the backward kernel as its gradient: the forward keeps its
+    inputs, its final state and the kernel's scratch."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, S0):
+        o, S_final, scratch = wkv6_forward(r, k, v, log_w, u, S0)
+        ctx.save_for_backward(r, k, v, log_w, u, S0, S_final, scratch)
+        # an unused output's gradient arrives as None, not as zeros: the
+        # training path never reads S_final, so the kernel skips dS
+        ctx.set_materialize_grads(False)
+        return o, S_final
+
+    @staticmethod
+    def backward(ctx, do, dS):
+        r, k, v, log_w, u, S0, S_final, scratch = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        dr, dk, dv, dlw, du, dS0 = wkv6_bwd(r, k, v, log_w, u, do, S0, dS,
+                                            scratch=scratch,
+                                            S_final=S_final)
+        return (dr, dk, dv, dlw.to(log_w.dtype), du.to(u.dtype),
+                None if dS0 is None else dS0.to(S0.dtype))

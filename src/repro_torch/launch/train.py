@@ -7,10 +7,13 @@ recorder), which wait for later slices.  The train step runs under
 store, the dynamic checkpoint interval, an optional Weibull failure
 injector and the ``--chaos*`` fault traces, and prints the JAX launcher's
 lines.  Runs on the GPU unless ``--device cpu`` is given; ``--arch`` takes
-the families the port trains (olmo-1b).
+the families the port trains (olmo-1b, rwkv6-3b, recurrentgemma-2b).
 
     PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
         --steps 20 --global-batch 4 --seq-len 32 --inject-mtbf-steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+        --tiny --device cpu --steps 12 --global-batch 4 --seq-len 32 \\
+        --inject-mtbf-steps 5
 
 On the GPU the run is deterministic (``torch.use_deterministic_algorithms``
 and a fixed cuBLAS workspace, set before the first cuBLAS call), so a step

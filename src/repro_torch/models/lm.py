@@ -19,9 +19,9 @@ loops walk them.  Weights are stored in ``param_dtype`` and cast to the
 compute dtype at every use, as in JAX; :func:`cast_params` makes that cast
 once, after which every ``.to(dtype)`` is a no-op.  The leaves JAX reads in
 fp32 (:data:`FP32_READ`) keep their stored dtype.  Training
-(:func:`forward_train`) runs the dense branch only and casts at each use, so
-that the fp32 parameters get fp32 gradients; the recurrent families train
-once their scans have backward kernels.
+(:func:`forward_train`) runs all three branches and casts at each use, so
+that the fp32 parameters get fp32 gradients; the scans and the attention
+differentiate through their backward kernels (``kernels/*/ops.py``).
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ FP32_READ = frozenset({"ww", "u", "ln_scale", "ba", "bx", "lam", "scale",
                        "bias"})
 
 
-#: the families the port trains (the others serve only)
-TRAIN_FAMILIES = ("olmo-1b",)
+#: the families the port trains
+TRAIN_FAMILIES = ("olmo-1b", "rwkv6-3b", "recurrentgemma-2b")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -62,10 +62,9 @@ def check_family(cfg: ModelConfig) -> None:
     if (cfg.is_encdec or cfg.is_moe or cfg.n_image_tokens or cfg.use_bias
             or cfg.block_type != "llama" or cfg.mlp_type != "swiglu"
             or not (cfg.rwkv or cfg.rglru or cfg.family == "dense")):
-        raise ValueError(f"{cfg.name}: the port serves the dense llama-block "
-                         f"(olmo-1b), RWKV-6 (rwkv6-3b) and RG-LRU hybrid "
-                         f"(recurrentgemma-2b) families and trains the dense "
-                         f"one ({', '.join(TRAIN_FAMILIES)}) so far")
+        raise ValueError(f"{cfg.name}: the port serves and trains the dense "
+                         f"llama-block, RWKV-6 and RG-LRU hybrid families "
+                         f"({', '.join(TRAIN_FAMILIES)}) so far")
     if cfg.rwkv:
         rw.n_heads(cfg)          # raises unless d_model % 64 == 0
     if cfg.rglru and cfg.window <= 0:
@@ -210,12 +209,9 @@ def _embed(params, tokens, dtype):
 
 
 def check_train_family(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` unless the port trains ``cfg``'s family."""
+    """Raise ``ValueError`` unless the port trains ``cfg``'s family (every
+    family it serves)."""
     check_family(cfg)
-    if cfg.rwkv or cfg.rglru:
-        raise ValueError(f"{cfg.name}: the port trains only the dense family "
-                         f"({', '.join(TRAIN_FAMILIES)}) so far; the RWKV-6 "
-                         f"and RG-LRU scans have no backward kernel yet")
 
 
 # ---------------------------------------------------------------------------
@@ -252,11 +248,37 @@ def chunked_xent(h, w_out, targets, mask, *, chunk: int = 512,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _dense_block(p, x, cfg: ModelConfig, positions):
+def _dense_block(p, x, cfg: ModelConfig, positions, mode="causal",
+                 window=0):
     h = apply_norm(cfg, p["ln1"], x)
     x = x + attention_forward(p["attn"], h, cfg, positions=positions,
-                              mode="causal")
+                              mode=mode, window=window)
     return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
+def _rec_block(p, x, cfg: ModelConfig):
+    h = apply_norm(cfg, p["ln1"], x)
+    r, _ = rg.rglru_block_forward(p["rec"], h, cfg)
+    x = x + r
+    return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
+def _super_block(p, x, cfg: ModelConfig, positions):
+    """The hybrid's ``rec_per_attn`` recurrent blocks, then its local
+    attention block (``p["rec"]`` a list of per-layer views)."""
+    for rp in p["rec"]:
+        x = _rec_block(rp, x, cfg)
+    return _dense_block(p["attn"], x, cfg, positions, "local", cfg.window)
+
+
+def _rwkv_block(p, x, cfg: ModelConfig):
+    h = apply_norm(cfg, p["ln1"], x)
+    zeros = torch.zeros_like(x[:, 0])
+    t, _ = rw.time_mix_forward(p["tm"], h, zeros, cfg)
+    x = x + t
+    c, _ = rw.channel_mix_forward(p["cm"], apply_norm(cfg, p["ln2"], x),
+                                  zeros)
+    return x + c
 
 
 def _unstack(layers, n: int):
@@ -267,19 +289,40 @@ def _unstack(layers, n: int):
     return [tree_map(lambda u: u[i], unbound) for i in range(n)]
 
 
+def _run(block, p, x, cfg: ModelConfig, *args):
+    """One remat unit: under ``torch.utils.checkpoint`` (non-reentrant)
+    with ``cfg.remat``, as ``jax.checkpoint`` wraps the body of JAX's
+    ``_scan_layers``."""
+    if cfg.remat:
+        return checkpoint(block, p, x, cfg, *args, use_reentrant=False)
+    return block(p, x, cfg, *args)
+
+
 def backbone(params, cfg: ModelConfig, x, positions):
     """The layer stack on the embedded input x (B, S, D), then the final
-    norm.  With ``cfg.remat`` each layer runs under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in the backward, as ``jax.checkpoint`` does in JAX's scan,
-    so the flash-attention forward runs twice a layer per step."""
+    norm, as JAX's ``backbone`` orders it: dense layers; or ``ln_in`` and
+    the RWKV layers (zero shift states); or the hybrid's super blocks of
+    ``rec_per_attn`` recurrent blocks and a local-attention block, then its
+    ``tail`` recurrent layers.  With ``cfg.remat`` each remat unit (a layer;
+    a whole super block; a tail layer) is recomputed in the backward, so
+    its kernels' forwards run twice a step."""
     check_train_family(cfg)
-    for p in _unstack(params["layers"], cfg.n_layers):
-        if cfg.remat:
-            x = checkpoint(_dense_block, p, x, cfg, positions,
-                           use_reentrant=False)
-        else:
-            x = _dense_block(p, x, cfg, positions)
+    if cfg.rwkv:
+        x = apply_norm(cfg, params["ln_in"], x)
+        for p in _unstack(params["layers"], cfg.n_layers):
+            x = _run(_rwkv_block, p, x, cfg)
+    elif cfg.rglru:
+        n_super, n_tail = hybrid_layout(cfg)
+        for sp in _unstack(params["super"], n_super):
+            sp = {"rec": _unstack(sp["rec"], cfg.rec_per_attn),
+                  "attn": sp["attn"]}
+            x = _run(_super_block, sp, x, cfg, positions)
+        if n_tail:
+            for p in _unstack(params["tail"], n_tail):
+                x = _run(_rec_block, p, x, cfg)
+    else:
+        for p in _unstack(params["layers"], cfg.n_layers):
+            x = _run(_dense_block, p, x, cfg, positions)
     return apply_norm(cfg, params["final_norm"], x)
 
 
@@ -287,7 +330,8 @@ def forward_train(params, cfg: ModelConfig, batch, *, q_chunk: int = 1024,
                   xent_chunk: int = 512):
     """batch: {"tokens": (B, S) int, "targets": (B, S) int, "loss_mask":
     (B, S) float} tensors on the params' device.  Returns (loss, {"xent",
-    "aux"}) as 0-d fp32 tensors; the dense branch has no auxiliary loss.
+    "aux"}) as 0-d fp32 tensors; no family the port trains has an
+    auxiliary loss.
     ``q_chunk`` is accepted for JAX's signature: the flash kernels take the
     whole sequence."""
     del q_chunk

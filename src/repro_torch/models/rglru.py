@@ -9,9 +9,12 @@ recurrence
     log a_t = -c * softplus(Lambda) * r_t   (c = 8)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-is a per-channel linear recurrence.  Prefill runs it on the RG-LRU scan
-kernel (``kernels/rglru_scan``) where the JAX model uses
-``jax.lax.associative_scan``; decode carries ``h`` explicitly.
+is a per-channel linear recurrence.  Prefill and training run it on the
+RG-LRU scan kernel (``kernels/rglru_scan``) where the JAX model uses
+``jax.lax.associative_scan``; under autograd its gradient is the scan's
+backward kernel (``lru_ops.lru_scan`` goes through ``_LruScan``), and the
+gates and the causal conv differentiate as plain torch ops.  Decode carries
+``h`` explicitly.
 """
 from __future__ import annotations
 

@@ -7,10 +7,12 @@ N = 64):
     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
 with *data-dependent* per-channel decay w_t = exp(-exp(ww + lora(x_t))) and
-token-shift ddlerp mixing.  Prefill runs the recurrence on the WKV6 kernel
-(``kernels/rwkv6_scan``) from a zero state and returns the final state; the
-JAX model runs its own chunked jnp scan there (the kernel and that scan
-agree, ``tests/test_kernels.py``).  Decode is one token against the
+token-shift ddlerp mixing.  Prefill and training run the recurrence on the
+WKV6 kernel (``kernels/rwkv6_scan``) from a zero state, prefill keeping the
+final state; the JAX model runs its own chunked jnp scan there (the kernel
+and that scan agree, ``tests/test_kernels.py``) and trains by
+differentiating it, where the port's gradient is the WKV6 backward kernel
+(``wkv_ops.wkv6`` under autograd).  Decode is one token against the
 (B, H, N, N) fp32 state, in plain torch ops.
 """
 from __future__ import annotations

@@ -622,8 +622,11 @@ def test_flash_backward_at_the_train_main_path(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_backward_refuses_an_unported_head_dim(cuda_device):
-    q, k, v = _qkv_on(cuda_device, 1, 2, 1, 64, 64, 256, torch.bfloat16, 3)
-    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+    """D = 32 has no kernel in either direction (the backward takes 64,
+    128 and 256); o and lse come from the plain versions on the card."""
+    q, k, v = _qkv_on(cuda_device, 1, 2, 1, 64, 64, 32, torch.bfloat16, 3)
+    o = fa_ref.attention(q, k, v)
+    lse = fa_ref.attention_lse(q, k, v)
     with pytest.raises(ValueError, match="head dim"):
         fa_ops.flash_attention_bwd(q, k, v, o, lse, o)
     with pytest.raises(ValueError, match="head dim"):
@@ -778,3 +781,225 @@ def test_train_replay_after_a_crash_is_bit_identical_on_card(cuda_device,
         torch.use_deterministic_algorithms(False)
     for (name, a), (_, b) in zip(flatten(finals[0]), flatten(finals[1])):
         assert torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels of the recurrent families' training
+# ---------------------------------------------------------------------------
+
+# B2 at D = 256 (SIMT, 32-row tiles, P and dS in fp32 in bf16 too):
+# recurrentgemma's 10 query heads on one KV head under windows 1, 37, 200
+# and 2048 (the model's, past a 2100-token sequence's first rows), and the
+# 32-row tiles' edges
+FA_BWD_256_CASES = [(1, 10, 1, 300, 256, True, 1),
+                    (1, 10, 1, 333, 256, True, 37),
+                    (2, 10, 1, 700, 256, True, 200),
+                    (1, 10, 1, 2100, 256, True, 2048),
+                    (1, 4, 2, 129, 256, True, 0),
+                    (1, 4, 1, 65, 256, False, 0)]
+FA_BWD_256_EDGES = (1, 31, 32, 33, 63, 65, 127)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", FA_BWD_256_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_d256_cases(cuda_device, b, h, kv, s, d, causal,
+                                   window, dtype):
+    q, k, v = _qkv_on(cuda_device, b, h, kv, s, s, d, dtype, s + window)
+    _check_flash_bwd(q, k, v, _do_like(q, s + 2), causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", FA_BWD_256_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_d256_tile_edges(cuda_device, s, dtype):
+    q, k, v = _qkv_on(cuda_device, 1, 10, 1, s, s, 256, dtype, s)
+    _check_flash_bwd(q, k, v, _do_like(q, s), True, 16)
+
+
+@pytest.mark.cuda
+def test_flash_backward_d256_through_autograd(cuda_device):
+    """recurrentgemma's local attention as the model calls it: (B, S, H, D)
+    projection views, window, bf16; both kernels launched, the gradients
+    those of the wrapper's backward, bit for bit."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 300, n, 256)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).requires_grad_()
+        for n in (10, 1, 1))
+    do = _do_like(q.transpose(1, 2), 5)
+    bwd = fa_ops.flash_attention_bwd.launches
+    out = fa_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), window=64)
+    out.backward(do)
+    assert fa_ops.flash_attention_bwd.launches == bwd + 1
+    for x in (q, k, v):
+        assert x.grad.is_contiguous()
+    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
+    o, lse = fa_ops.flash_attention(qt, kt, vt, window=64, return_lse=True)
+    want = fa_ops.flash_attention_bwd(qt, kt, vt, o, lse, do, window=64)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(g.transpose(1, 2), w)
+
+
+# B4's backward against the plain backward (fp32 on both sides, gradients
+# normalised by max(1, their largest magnitude)): the 128-step chunks'
+# edges and recurrentgemma's training width; with h0 and dh_last (the
+# serve-side arguments) and without (the model's)
+LRU_BWD_SHAPES = [(1, 1, 2560), (2, 57, 300), (3, 128, 256), (2, 129, 130),
+                  (1, 3055, 2560), (2, 4096, 256)]
+
+
+def _lru_bwd_inputs(dev, b, s, w, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.uniform(0.8, 0.999, (b, s, w))).to(
+        dev, torch.float32)
+    x = torch.from_numpy(0.1 * rng.normal(size=(b, s, w))).to(
+        dev, torch.float32)
+    h0 = torch.from_numpy(rng.normal(size=(b, w))).to(dev, torch.float32)
+    dh = torch.from_numpy(rng.normal(size=(b, s, w))).to(dev, torch.float32)
+    dl = torch.from_numpy(rng.normal(size=(b, w))).to(dev, torch.float32)
+    return a, x, h0, dh, dl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w", LRU_BWD_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_lru_scan_backward_on_card(cuda_device, b, s, w, with_h0):
+    a, x, h0, dh, dl = _lru_bwd_inputs(cuda_device, b, s, w, b + s + w)
+    h0, dl = (h0, dl) if with_h0 else (None, None)
+    h, _ = lru_ops.lru_scan(a, x, h0)
+    before = lru_ops.lru_scan_bwd.launches
+    got = lru_ops.lru_scan_bwd(a, h, dh, dl, h0)
+    torch.cuda.synchronize()
+    assert lru_ops.lru_scan_bwd.launches == before + 1
+    want = lru_ref.lru_scan_backward(a, h, dh, dl, h0)
+    assert (got[2] is None) == (not with_h0)
+    for g, wnt in zip(got, want):
+        if wnt is None:
+            continue
+        scale = max(1.0, float(wnt.abs().max()))
+        torch.testing.assert_close(g / scale, wnt / scale, **LRU_TOL)
+    again = lru_ops.lru_scan_bwd(a, h, dh, dl, h0)
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_lru_scan_autograd_launches_both_kernels(cuda_device):
+    a, x, h0, dh, _ = _lru_bwd_inputs(cuda_device, 2, 300, 256, 9)
+    a, x, h0 = (t.requires_grad_() for t in (a, x, h0))
+    fwd, bwd = lru_ops.lru_scan.launches, lru_ops.lru_scan_bwd.launches
+    h, _ = lru_ops.lru_scan(a, x, h0)
+    h.backward(dh)
+    assert (lru_ops.lru_scan.launches, lru_ops.lru_scan_bwd.launches) == (
+        fwd + 1, bwd + 1)
+    want = lru_ops.lru_scan_bwd(a.detach(), h.detach(), dh, None,
+                                h0.detach())
+    for g, w in zip((a.grad, x.grad, h0.grad), want):
+        assert torch.equal(g, w)
+
+
+# B3's backward against the plain backwards in fp64 (sequential and
+# chunked) on the same rounded inputs: T at the 16-token chunks' edges,
+# rwkv6's serve prompt and a long one, B = 1 and 3, the decay's clamp ends;
+# gradients normalised by max(1, their largest magnitude) (the state's
+# gradient grows with T where decays are near 1); fp32 at the forward's
+# limit, bf16 dr, dk, dv one bf16 ulp over 4e-3 (rounded once; dlog_w, du
+# and dS0 fp32 on both sides)
+WKV_BWD_T = [1, wk_ops.CHUNK - 1, wk_ops.CHUNK, wk_ops.CHUNK + 1,
+             2 * wk_ops.CHUNK + 1, 370, 3000]
+
+
+def _check_wkv6_bwd(r, k, v, lw, u, S0, dS, seed):
+    rng = np.random.default_rng(seed)
+    do = torch.from_numpy(rng.normal(size=r.shape)).to(r.device, r.dtype)
+    o, S, scratch = wk_ops.wkv6_forward(r, k, v, lw, u, S0)
+    before = wk_ops.wkv6_bwd.launches
+    got = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch,
+                          S_final=S)
+    torch.cuda.synchronize()
+    assert wk_ops.wkv6_bwd.launches == before + 1
+    assert [g.dtype for g in got[:3]] == [r.dtype] * 3
+    assert got[3].dtype == got[4].dtype == torch.float32
+    args = [x.double() for x in (r, k, v, lw, u, do)] + [
+        None if x is None else x.double() for x in (S0, dS)]
+    for want in (wk_ref.wkv6_backward(*args),
+                 wk_ref.wkv6_backward_chunked(*args, chunk=wk_ops.CHUNK)):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if w is None:
+                assert g is None
+                continue
+            tol = WKV_TOL[r.dtype] if i < 3 else WKV_TOL[torch.float32]
+            scale = max(1.0, float(w.abs().max()))
+            torch.testing.assert_close(g.double() / scale, w / scale, **tol)
+    again = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch,
+                            S_final=S)
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", WKV_BWD_T)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_backward_on_card(cuda_device, t, b, dtype, with_s0):
+    r, k, v, lw, u, S0 = _wkv_on(cuda_device, b, 4, t, 64, dtype, with_s0,
+                                 "uniform", t + b, layout="bthn")
+    dS = None
+    if with_s0:
+        rng = np.random.default_rng(t)
+        dS = torch.from_numpy(0.3 * rng.normal(size=S0.shape)).to(
+            cuda_device, torch.float32)
+    _check_wkv6_bwd(r, k, v, lw, u, S0, dS, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [wk_ops.CHUNK + 1, 370, 3000])
+@pytest.mark.parametrize("fill", ["min", "max"])
+def test_wkv6_backward_decay_extremes_on_card(cuda_device, t, fill):
+    _check_wkv6_bwd(*_wkv_on(cuda_device, 1, 4, t, 64, torch.float32, False,
+                             fill, t), None, t)
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_at_the_train_shape(cuda_device):
+    """rwkv6-3b's training shape, (4, 40, 2048, 64) bf16, as the model
+    passes it: views of (B, T, H, N) projections; the gradients come back
+    as views of contiguous (B, T, H, N) buffers."""
+    r, k, v, lw, u, _ = _wkv_on(cuda_device, 4, 40, 2048, 64,
+                                torch.bfloat16, False, "uniform", 1,
+                                layout="bthn")
+    do = _do_like(r, 2)
+    o, S, scratch = wk_ops.wkv6_forward(r, k, v, lw, u)
+    got = wk_ops.wkv6_bwd(r, k, v, lw, u, do, scratch=scratch)
+    for g in got[:4]:
+        assert g.transpose(1, 2).is_contiguous()
+    want = wk_ref.wkv6_backward_chunked(
+        *(x.double() for x in (r, k, v, lw, u, do)), chunk=wk_ops.CHUNK)
+    for i, (g, w) in enumerate(zip(got[:5], want[:5])):
+        tol = WKV_TOL[r.dtype] if i < 3 else WKV_TOL[torch.float32]
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.double() / scale, w / scale, **tol)
+
+
+@pytest.mark.cuda
+def test_wkv6_autograd_launches_both_kernels(cuda_device):
+    r, k, v, lw, u, S0 = _wkv_on(cuda_device, 2, 4, 77, 64, torch.bfloat16,
+                                 True, "uniform", 3, layout="bthn")
+    leaves = [x.detach().requires_grad_() for x in (r, k, v, lw, u, S0)]
+    do = _do_like(r, 4)
+    fwd, bwd = wk_ops.wkv6.launches, wk_ops.wkv6_bwd.launches
+    o, _ = wk_ops.wkv6(*leaves)
+    o.backward(do)
+    assert (wk_ops.wkv6.launches, wk_ops.wkv6_bwd.launches) == (fwd + 1,
+                                                                bwd + 1)
+    _, S, scratch = wk_ops.wkv6_forward(r, k, v, lw, u, S0)
+    want = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, scratch=scratch)
+    for g, w in zip((x.grad for x in leaves), want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="head size"):
+        x = _wkv_on(cuda_device, 1, 2, 20, 128, torch.float32, False,
+                    "uniform", 5)
+        wk_ops.wkv6_bwd(*x[:5], _do_like(x[0], 6),
+                        scratch=wk_ops.wkv6_forward(*x[:5])[2])
