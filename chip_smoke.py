@@ -93,9 +93,11 @@ versions: B3's at rwkv6's training shape (4, 40, 2048, 64) and its chunk
 edges, and at both ends of log_w's clamp at T = 3000, against the
 sequential and chunked plain backwards in fp64; B4's at (2, 4096, 2560)
 and its chunk edges; B2's at D = 256, (2, 10, 1, 4096, 256) window 2048 in
-bf16 and fp32 (timed beside SDPA's masked backward), its 32-row tiles'
-edges and windows, and a x1.1 softmax-scale mutant failing the limit; each
-with a bit-identical repeat.
+bf16 (the tensor cores: a dQ, a dV and a dK pass) and fp32 (SIMT), timed
+beside SDPA's masked backward, both tiles' edges (64 and 32 rows) and
+windows, and a x1.1 softmax-scale mutant failing the limit; each with a
+bit-identical repeat.  Each timed backward also prints the device time of
+each of its kernels (B3's: the fold and the chunk gradients).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -164,14 +166,15 @@ FA_BWD_CASES = [(2, 4, 4, 200, 128, 0), (2, 4, 2, 200, 128, 0),
                 (2, 8, 2, 200, 64, 0), (1, 4, 2, 300, 64, 1),
                 (1, 4, 2, 300, 128, 37), (1, 4, 4, 2100, 128, 2048)]
 
-# the flash-attention backward at D = 256 (SIMT, 32-row tiles):
-# recurrentgemma's training shape, global batch 2 x 4096 tokens, 10 query
-# heads of 256 on one KV head, window 2048; its tiles' edges and windows
+# the flash-attention backward at D = 256 (bf16 on the tensor cores in
+# 64-row tiles, a dQ, a dV and a dK pass; fp32 on the SIMT kernels in 32-row
+# tiles): recurrentgemma's training shape, global batch 2 x 4096 tokens, 10
+# query heads of 256 on one KV head, window 2048; both tiles' edges (at
+# window 16) and windows
 FA_BWD_256_MAIN = (2, 10, 1, 4096, 256)
 FA_BWD_256_WINDOW = 2048
-FA_BWD_256_CASES = [(1, 10, 1, 1, 256, True, 16),
-                    (1, 10, 1, 33, 256, True, 16),
-                    (1, 10, 1, 127, 256, True, 37),
+FA_BWD_256_EDGE_S = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)
+FA_BWD_256_CASES = [(1, 10, 1, 127, 256, True, 37),
                     (1, 10, 1, 700, 256, True, 200),
                     (1, 10, 1, 2100, 256, True, 2048),
                     (1, 4, 2, 129, 256, False, 0)]
@@ -264,6 +267,26 @@ def time_kernel(rec, fn, prefix=""):
     call)."""
     rec[prefix + "ms"] = time_ms(fn)
     rec[prefix + "device_ms"] = time_ms(fn, queued=True)
+
+
+def kernel_device_ms(fn, reps=10):
+    """{kernel name: device ms a call} of the kernels ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0][:60]
+            out[name] = e.device_time_total / e.count / 1e3
+    return out
 
 
 def add_bound(rec, bytes_, flops, dtype):
@@ -369,6 +392,11 @@ def phase_sass(build):
     check(any("flash_bwd_dq_tc" in fn for fn in tc)
           and any("flash_bwd_dkdv_tc" in fn for fn in tc),
           "no bf16 backward kernel in the SASS")
+    # D = 256: the dQ pass and the dkdv kernel's dV (1) and dK (2) parts
+    for want in ("flash_bwd_dq_tcILi256E", "flash_bwd_dkdv_tcILi256ELi1E",
+                 "flash_bwd_dkdv_tcILi256ELi2E"):
+        check(any(want in fn for fn in tc),
+              f"no {want} kernel in the backward's SASS")
     check(tc and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
                      for c in tc.values()),
           "a bf16 flash-attention kernel holds no HGMMA or no UTMALDG "
@@ -588,6 +616,8 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
         # q, o, dO and dq (B, H, S, D); k, v, dk, dv (B, KV, S, D); lse
         add_bound(rec, item * (4 * b * h * s * d + 4 * b * kv * s * d)
                   + 4 * b * h * s, 10 * b * h * pairs * d, dtype_name)
+        rec["passes_device_ms"] = kernel_device_ms(
+            lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
     tol = FA_BWD_TOL[dtype_name]
     mode = (f"window {window}" if window else
             "causal" if causal else "bidir")
@@ -600,6 +630,9 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
           f"{'same bits' if same else 'DIFFERS'} "
           f"{'ok' if rec['ok'] else 'FAIL'}"
           + (_timing_text(rec, "sdpa backward") if timed else ""))
+    for name, ms in rec.get("passes_device_ms", {}).items():
+        print(f"    flash_attention_bwd pass {name}: {ms:.4f} ms of device "
+              f"time a call")
     check(ok, f"flash_attention_bwd {(b, h, kv, s, d)} {dtype_name} {mode} "
               f"disagrees with its plain version")
     check(lse_ok, f"flash_attention lse {(b, h, kv, s, d)} {dtype_name} "
@@ -786,11 +819,10 @@ def wkv6_bwd_case(b, h, t, n, dtype_name, with_s0, *, timed,
     u = dev(0.2 * rng.normal(size=(h, n)))
     S0 = dev(0.3 * rng.normal(size=(b, h, n, n))) if with_s0 else None
     dS = dev(0.3 * rng.normal(size=(b, h, n, n))) if with_s0 else None
-    o, S, scratch = ops.wkv6_forward(r, k, v, lw, u, S0)
+    scratch = ops.wkv6_forward(r, k, v, lw, u, S0)[2]
 
     def kernel():
-        return ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch,
-                            S_final=S)
+        return ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch)
 
     got = kernel()
     torch.cuda.synchronize()
@@ -827,6 +859,7 @@ def wkv6_bwd_case(b, h, t, n, dtype_name, with_s0, *, timed,
         add_bound(rec, (7 * item + 8) * b * h * t * n + 8 * h * n + state,
                   2 * b * h * (t * (4 * n * n + 4 * ops.CHUNK * n)
                                + c * n * n), "float32")
+        rec["passes_device_ms"] = kernel_device_ms(kernel)
     print(f"  wkv6_bwd {(b, h, t, n)} {dtype_name} "
           f"{'S0, dS' if with_s0 else 'zero state'} log_w {fill}: "
           f"max_abs_err {err:.3g}, over the gradient's scale {nerr:.3g}, "
@@ -834,6 +867,8 @@ def wkv6_bwd_case(b, h, t, n, dtype_name, with_s0, *, timed,
           f"{'' if same else ', REPEAT DIFFERS'} "
           f"{'ok' if rec['ok'] else 'FAIL'}"
           + (_timing_text(rec, "library") if timed else ""))
+    for name, ms in rec.get("passes_device_ms", {}).items():
+        print(f"    wkv6_bwd pass {name}: {ms:.4f} ms of device time a call")
     check(ok, f"wkv6_bwd {(b, h, t, n)} {dtype_name} disagrees with its "
               f"plain versions")
     check(same, f"wkv6_bwd {(b, h, t, n)} {dtype_name}: a repeat call "
@@ -991,6 +1026,9 @@ def phase_kernels():
         window=FA_BWD_256_WINDOW)
     flash_bwd_mutant_case(1, 10, 1, 700, 256, "bfloat16", window=200)
     for dt in ("float32", "bfloat16"):
+        for s in FA_BWD_256_EDGE_S:
+            flash_bwd_case(1, 10, 1, s, 256, dt, True, timed=False,
+                           window=16)
         for b, h, kv, s, d, causal, window in FA_BWD_256_CASES:
             flash_bwd_case(b, h, kv, s, d, dt, causal, timed=False,
                            window=window)
@@ -1815,8 +1853,8 @@ def kernel_records(recs, by_path):
     shape and its case at olmo-1b's training shape ride along, as do
     pairwise_distance's (4096, 10) case and its planner case (montage's
     700-task projection).  flash_attention_bwd's record is olmo-1b's
-    training shape; its D = 256 SIMT instance at recurrentgemma-2b's
-    (bf16, and fp32) rides along.  wkv6_bwd's and lru_scan_bwd's records
+    training shape; its D = 256 instance at recurrentgemma-2b's (bf16 on
+    the tensor cores, and fp32 on SIMT) rides along.  wkv6_bwd's and lru_scan_bwd's records
     are rwkv6-3b's and recurrentgemma-2b's training shapes."""
     out = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -31,7 +31,8 @@
 // SDPA's backward (PERF.md, NVIDIA H100 80GB HBM3 at 700 W).
 //
 // bf16 runs on the tensor cores (the wgmma/TMA machinery of the forward,
-// csrc/hopper.cuh), in three kernels on the caller's stream:
+// csrc/hopper.cuh), in three kernels on the caller's stream (four at
+// D = 256, below):
 //   1. flash_bwd_delta: delta per query row, one warp a row (bytes-bound,
 //      ~34 MB at the training shape);
 //   2. flash_bwd_dq_tc: a block owns 64 query rows of one (batch, head),
@@ -79,14 +80,24 @@
 // registers over padded fp32 tiles in shared memory.
 //
 // D = 256 (recurrentgemma's local attention: 10 query heads of 256 on one
-// KV head, window 2048) runs the SIMT kernels for fp32 and for bf16, on
-// 32-row tiles (2 x 2 score tiles a thread, 2 x 16 accumulators): four
-// staged fp32 tiles of 64 rows would take 263 KB of shared memory.  bf16
-// inputs are widened to fp32 as they are staged, so P and dS stay fp32 and
-// each gradient is rounded to bf16 once: the arithmetic of
-// ref.attention_backward, not of ref.attention_backward_rounded.  A
-// tensor-core instance at D = 256, where one warpgroup's registers cannot
-// hold dK and dV of 256 columns, is later work (ROADMAP).
+// KV head, window 2048) runs on the tensor cores too, with the same tiles,
+// roundings and rules.  One warpgroup's registers cannot hold dK and dV of
+// 256 columns (2 x 128 a thread), and two consumers (or a second consumer
+// beside the producer warp) would leave each at most 168 registers, so the
+// dK/dV pass splits in two, each with one 128-register accumulator:
+//   3a. flash_bwd_dkdv_tc<256, kDV>: S^T, P^T, dV += P^T dO (no V loaded);
+//   3b. flash_bwd_dkdv_tc<256, kDK>: S^T, dP^T, dS^T, dK += dS^T Q.
+// S^T is then computed three times and dP twice, eight products for five
+// (0.52 ms at the bf16 peak at (2, 10, 1, 4096, 256) window 2048, against
+// 0.46 for one dK/dV pass).  ptxas gives 3a 202 registers and 3b 234 (dK,
+// S^T, dP^T and dS^T's fragments), no spill; one 160-thread block an SM.
+// Shared memory fits: K and V (64 KB) and 2 stages of Q and dO (128 KB).
+// The dQ pass at D = 256 also runs one block an SM (Q and dO 64 KB, 2 K/V
+// stages of 64 KB), its consumer holding dQ (128), S, dP and dS's
+// fragments: 218 registers, no spill.  With one KV head the dK/dV grids
+// are B x Sk / 64 blocks (128 at the training shape), each walking 10
+// heads x ~33 query tiles; each streams 64 KB of Q and dO a tile, mostly
+// from L2 (PERF.md gives each pass's time).
 
 #include <math.h>
 
@@ -165,31 +176,26 @@ struct Cfg {
       sizeof(float) * (4 * kB * kLd + kB * kPld + 2 * kB);
 };
 
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // rows [r0, r0 + kB) of a (seq, D) slab into a padded fp32 tile; rows past
 // `n` are zeros
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int64_t ss,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int64_t ss,
                                       int r0, int n) {
   constexpr int kB = Cfg<D>::kB;
   for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
-    dst[r * Cfg<D>::kLd + d] = r0 + r < n ? ld(src + (r0 + r) * ss + d) : 0.f;
+    dst[r * Cfg<D>::kLd + d] = r0 + r < n ? src[(r0 + r) * ss + d] : 0.f;
   }
 }
 
 // dK and dV of kB keys of one (batch, KV head)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int H, int group, int Sq, int Sk,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int H, int group, int Sq, int Sk,
                     int causal, int window, float scale, Strides qst,
                     Strides kst, Strides vst, Strides dost, Strides dkst,
                     Strides dvst) {
@@ -211,8 +217,8 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.x / KV, hk = blockIdx.x % KV;
   const int k0 = blockIdx.y * kB;  // key tile 0 sees the most queries: first
 
-  stage<T, D>(Ks, k + b * kst.b + hk * kst.h, kst.s, k0, Sk);
-  stage<T, D>(Vs, v + b * vst.b + hk * vst.h, vst.s, k0, Sk);
+  stage<D>(Ks, k + b * kst.b + hk * kst.h, kst.s, k0, Sk);
+  stage<D>(Vs, v + b * vst.b + hk * vst.h, vst.s, k0, Sk);
 
   float dka[kRows][OC], dva[kRows][OC];
 #pragma unroll
@@ -228,15 +234,15 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = hk * group + hh;
-    const T* qb = q + b * qst.b + h * qst.h;
-    const T* db = dout + b * dost.b + h * dost.h;
+    const float* qb = q + b * qst.b + h * qst.h;
+    const float* db = dout + b * dost.b + h * dost.h;
     const float* lb = lse + ((int64_t)b * H + h) * Sq;
     const float* deb = delta + ((int64_t)b * H + h) * Sq;
     for (int it = i_first; it < i_end; ++it) {
       const int q0 = it * kB;
       __syncthreads();  // the previous tile's reads are done
-      stage<T, D>(Qs, qb, qst.s, q0, Sq);
-      stage<T, D>(dOs, db, dost.s, q0, Sq);
+      stage<D>(Qs, qb, qst.s, q0, Sq);
+      stage<D>(dOs, db, dost.s, q0, Sq);
       if (tid < kB) {
         const bool ok = q0 + tid < Sq;
         lse_s[tid] = ok ? lb[q0 + tid] : 0.f;
@@ -308,27 +314,27 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + b * dkst.b + hk * dkst.h;
-  T* dvb = dv + b * dvst.b + hk * dvst.h;
+  float* dkb = dk + b * dkst.b + hk * dkst.h;
+  float* dvb = dv + b * dvst.b + hk * dvst.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int kj = k0 + ty * kRows + i;
     if (kj >= Sk) continue;
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
-      put(dkb + kj * dkst.s + tx + 16 * c, dka[i][c] * scale);
-      put(dvb + kj * dvst.s + tx + 16 * c, dva[i][c]);
+      dkb[kj * dkst.s + tx + 16 * c] = dka[i][c] * scale;
+      dvb[kj * dvst.s + tx + 16 * c] = dva[i][c];
     }
   }
 }
 
 // dQ of kB query rows of one (batch, head)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq,
+                  const float* __restrict__ delta, float* __restrict__ dq,
                   int H, int group, int Sq, int Sk, int causal, int window,
                   float scale, Strides qst, Strides kst, Strides vst,
                   Strides dost, Strides dqst) {
@@ -349,16 +355,16 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
   // the last query tiles see the most keys under causal: they start first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;
 
-  stage<T, D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
-  stage<T, D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, Sq);
+  stage<D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
+  stage<D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, Sq);
   if (tid < kB) {
     const bool ok = q0 + tid < Sq;
     const int64_t row = ((int64_t)b * H + h) * Sq + q0 + tid;
     lse_s[tid] = ok ? lse[row] : 0.f;
     dl_s[tid] = ok ? delta[row] : 0.f;
   }
-  const T* kb = k + b * kst.b + hk * kst.h;
-  const T* vb = v + b * vst.b + hk * vst.h;
+  const float* kb = k + b * kst.b + hk * kst.h;
+  const float* vb = v + b * vst.b + hk * vst.h;
 
   float dqa[kRows][OC];
 #pragma unroll
@@ -374,8 +380,8 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kB;
     __syncthreads();  // the previous tile's reads are done
-    stage<T, D>(Ks, kb, kst.s, k0, Sk);
-    stage<T, D>(Vs, vb, vst.s, k0, Sk);
+    stage<D>(Ks, kb, kst.s, k0, Sk);
+    stage<D>(Vs, vb, vst.s, k0, Sk);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: queries ty*kRows+i, keys tx+16j
@@ -432,18 +438,18 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqb = dq + b * dqst.b + h * dqst.h;
+  float* dqb = dq + b * dqst.b + h * dqst.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty * kRows + i;
     if (qi >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < OC; ++c)
-      put(dqb + qi * dqst.s + tx + 16 * c, dqa[i][c] * scale);
+      dqb[qi * dqst.s + tx + 16 * c] = dqa[i][c] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
@@ -453,30 +459,31 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   constexpr int kB = C::kB;
   const Strides &qst = st[0], &kst = st[1], &vst = st[2], &ost = st[3],
                 &dost = st[4], &dqst = st[5], &dkst = st[6], &dvst = st[7];
-  int err = launch_delta<T>(o, dout, delta, B, H, Sq, D, ost, dost, stream);
+  int err =
+      launch_delta<float>(o, dout, delta, B, H, Sq, D, ost, dost, stream);
   if (err) return err;
 
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_simt<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)C::kSmemQ);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_simt<T, D><<<dim3(B * H, (Sq + kB - 1) / kB), kThreads,
-                            C::kSmemQ, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, H, H / KV, Sq, Sk, causal, window, scale, qst, kst, vst, dost,
-      dqst);
+  flash_bwd_dq_simt<D><<<dim3(B * H, (Sq + kB - 1) / kB), kThreads,
+                         C::kSmemQ, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, (float*)dq, H, H / KV, Sq, Sk, causal, window, scale, qst,
+      kst, vst, dost, dqst);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_simt<T, D>,
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_simt<D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)C::kSmemKV);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_simt<T, D><<<dim3(B * KV, (Sk + kB - 1) / kB), kThreads,
-                              C::kSmemKV, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, H, H / KV, Sq, Sk, causal, window, scale, qst, kst,
-      vst, dost, dkst, dvst);
+  flash_bwd_dkdv_simt<D><<<dim3(B * KV, (Sk + kB - 1) / kB), kThreads,
+                           C::kSmemKV, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, (float*)dk, (float*)dv, H, H / KV, Sq, Sk, causal, window,
+      scale, qst, kst, vst, dost, dkst, dvst);
   return (int)cudaGetLastError();
 }
 
@@ -527,16 +534,18 @@ struct KVTile {
 
 // The dQ pass: 64 query rows a block (Q and dO loaded once) and one
 // consumer warpgroup, a ring of stages of one 64-key K tile and one V tile,
-// as many as let two blocks share an SM (up to 4).
+// as many as let two blocks share an SM (up to 4); at D = 256, where Q and
+// dO take 64 KB and a K/V stage 64 KB, one block an SM with 2 stages.
 template <int D>
 struct QTile {
   static constexpr int kBq = 64;
   static constexpr int kBk = 64;
   static constexpr int kThreads = 160;
+  static constexpr int kBlocksPerSm = D <= 128 ? 2 : 1;
   static constexpr int kQBytes = kBq * D * 2;   // the Q or the dO tile
   static constexpr int kKVBytes = kBk * D * 2;  // one K or V tile
-  static constexpr int kStages =
-      cmin(4, (kSmemMax / 2 - 2 * kQBytes - 2048) / (2 * kKVBytes));
+  static constexpr int kStages = cmin(
+      4, (kSmemMax / kBlocksPerSm - 2 * kQBytes - 2048) / (2 * kKVBytes));
   static constexpr int kOOff = kQBytes;
   static constexpr int kKOff = 2 * kQBytes;
   static constexpr int kVOff = kKOff + kStages * kKVBytes;
@@ -571,7 +580,12 @@ __device__ __forceinline__ void dscores(const float (&p)[32], float (&dp)[32],
 __device__ __forceinline__ int frag_col(int i) { return 8 * (i / 4) + (i % 2); }
 __device__ __forceinline__ bool frag_row1(int i) { return (i % 4) >= 2; }
 
-template <int D>
+// What one dK/dV block computes: both gradients (D <= 128), or, at D = 256,
+// where one warpgroup's registers cannot hold dK and dV of 256 columns, dV
+// alone (S^T, P^T, dV += P^T dO) or dK alone (S^T, dP^T, dS^T, dK += dS^T Q)
+constexpr int kBoth = 0, kDV = 1, kDK = 2;
+
+template <int D, int Part>
 __global__ void __launch_bounds__(KVTile<D>::kThreads, 1)
 flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
@@ -629,9 +643,10 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
     const int lane = tid % 32;
     if (n_iter > 0) {
       if (lane == 0) {
-        mbar_expect_tx(bar_kv, 2 * T::kKVBytes);
+        // the dV pass reads no V
+        mbar_expect_tx(bar_kv, (Part == kDV ? 1 : 2) * T::kKVBytes);
         copy_tile<D, Bk>(sK, &kmap, bar_kv, k0, hk, b);
-        copy_tile<D, Bk>(sV, &vmap, bar_kv, k0, hk, b);
+        if (Part != kDV) copy_tile<D, Bk>(sV, &vmap, bar_kv, k0, hk, b);
       }
       for (int it = 0; it < n_iter; ++it) {
         const int st = it % S;
@@ -664,6 +679,7 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
   const int key1 = key0 + 8;
   const int c0 = 2 * (lane % 4);
 
+  constexpr bool kWithDV = Part != kDK, kWithDK = Part != kDV;
   float dka[D / 2], dva[D / 2], s[32], dp[32];
   uint32_t pa[4][4], da[4][4];
 #pragma unroll
@@ -674,6 +690,15 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) pa[kk][r] = da[kk][r] = 0u;
+  // a register fence keeps its array live, so a part fences only its own
+  auto fence_all = [&] {
+    fence_regs(s);
+    if constexpr (kWithDK) fence_regs(dp);
+    if constexpr (kWithDK) fence_regs(dka);
+    if constexpr (kWithDV) fence_regs(dva);
+    if constexpr (kWithDV) fence_regs(pa);
+    if constexpr (kWithDK) fence_regs(da);
+  };
 
   auto qaddr = [&](int j) { return sQ + (j % S) * T::kQBytes; };
   auto oaddr = [&](int j) { return sO + (j % S) * T::kQBytes; };
@@ -688,20 +713,26 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss<64>(s, desc_kmajor<Bk>(k_at, kk),
                    desc_kmajor<Bq>(qaddr(j), kk), kk > 0);
+    if constexpr (kWithDK) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64>(dp, desc_kmajor<Bk>(v_at, kk),
-                   desc_kmajor<Bq>(oaddr(j), kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64>(dp, desc_kmajor<Bk>(v_at, kk),
+                     desc_kmajor<Bq>(oaddr(j), kk), kk > 0);
+    }
     wg_commit();
   };
   // dV += P^T(j) dO_j and dK += dS^T(j) Q_j, one wgmma group
   auto issue_rs = [&](int j) {
+    if constexpr (kWithDV) {
 #pragma unroll
-    for (int kk = 0; kk < Bq / 16; ++kk)
-      wgmma_rs<D>(dva, pa[kk], desc_mnmajor<Bq>(oaddr(j), kk));
+      for (int kk = 0; kk < Bq / 16; ++kk)
+        wgmma_rs<D>(dva, pa[kk], desc_mnmajor<Bq>(oaddr(j), kk));
+    }
+    if constexpr (kWithDK) {
 #pragma unroll
-    for (int kk = 0; kk < Bq / 16; ++kk)
-      wgmma_rs<D>(dka, da[kk], desc_mnmajor<Bq>(qaddr(j), kk));
+      for (int kk = 0; kk < Bq / 16; ++kk)
+        wgmma_rs<D>(dka, da[kk], desc_mnmajor<Bq>(qaddr(j), kk));
+    }
     wg_commit();
   };
   // P^T and dS^T of tile j in place; masks only where the tile crosses the
@@ -722,7 +753,7 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
       probs<true>(s, scale_log2, lse2, valid);
     else
       probs<false>(s, scale_log2, lse2, valid);
-    dscores(s, dp, dl);
+    if constexpr (kWithDK) dscores(s, dp, dl);
   };
 
   // tile j: S^T(j) and dP^T(j) with dV, dK += tile j-1's products (j > 0)
@@ -732,16 +763,11 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
     issue_ss(j);
     if (j > 0) issue_rs(j - 1);
     wg_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-    fence_regs(dka);
-    fence_regs(dva);
-    fence_regs(pa);
-    fence_regs(da);
+    fence_all();
     if (j > 0) mbar_arrive(bar_e + 8 * ((j - 1) % S));  // tile j-1 is done
     p_ds_tile(j);
-    pack_p<64>(s, pa);
-    pack_p<64>(dp, da);
+    if constexpr (kWithDV) pack_p<64>(s, pa);
+    if constexpr (kWithDK) pack_p<64>(dp, da);
   };
 
   if (n_iter > 0) {
@@ -750,8 +776,8 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
     wg_fence();
     issue_rs(n_iter - 1);
     wg_wait<0>();
-    fence_regs(dka);
-    fence_regs(dva);
+    if constexpr (kWithDK) fence_regs(dka);
+    if constexpr (kWithDV) fence_regs(dva);
     mbar_arrive(bar_e + 8 * ((n_iter - 1) % S));
   }
 
@@ -761,17 +787,21 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + c0;
     if (key0 < Sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key0 * dkst.s + col) =
-          __floats2bfloat162_rn(dka[4 * j] * scale, dka[4 * j + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key0 * dvst.s + col) =
-          __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
+      if constexpr (kWithDK)
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key0 * dkst.s + col) =
+            __floats2bfloat162_rn(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+      if constexpr (kWithDV)
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key0 * dvst.s + col) =
+            __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
     }
     if (key1 < Sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key1 * dkst.s + col) =
-          __floats2bfloat162_rn(dka[4 * j + 2] * scale,
-                                dka[4 * j + 3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key1 * dvst.s + col) =
-          __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
+      if constexpr (kWithDK)
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key1 * dkst.s + col) =
+            __floats2bfloat162_rn(dka[4 * j + 2] * scale,
+                                  dka[4 * j + 3] * scale);
+      if constexpr (kWithDV)
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key1 * dvst.s + col) =
+            __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
     }
   }
 }
@@ -987,16 +1017,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  auto kv_kernel = flash_bwd_dkdv_tc<D>;
-  e = cudaFuncSetAttribute(
-      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KT::kSmem);
-  if (e != cudaSuccess) return (int)e;
-  kv_kernel<<<dim3(B * KV, (Sk + KT::kBk - 1) / KT::kBk), KT::kThreads,
-              KT::kSmem, stream>>>(qmap, kmap, vmap, dmap, lse, delta,
-                                   (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
-                                   H, H / KV, Sq, Sk, causal, window, scale,
-                                   scale_log2, dkst, dvst);
-  return (int)cudaGetLastError();
+  // D <= 128: one dK/dV pass; D = 256: a dV pass, then a dK pass
+  auto kv_pass = [&](auto kv_kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KT::kSmem);
+    if (err != cudaSuccess) return err;
+    kv_kernel<<<dim3(B * KV, (Sk + KT::kBk - 1) / KT::kBk), KT::kThreads,
+                KT::kSmem, stream>>>(qmap, kmap, vmap, dmap, lse, delta,
+                                     (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+                                     H, H / KV, Sq, Sk, causal, window,
+                                     scale, scale_log2, dkst, dvst);
+    return cudaGetLastError();
+  };
+  if constexpr (D <= 128) {
+    e = kv_pass(flash_bwd_dkdv_tc<D, kBoth>);
+  } else {
+    e = kv_pass(flash_bwd_dkdv_tc<D, kDV>);
+    if (e == cudaSuccess) e = kv_pass(flash_bwd_dkdv_tc<D, kDK>);
+  }
+  return (int)e;
 }
 
 }  // namespace tc
@@ -1009,11 +1048,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // contiguous head dim; all of one dtype (is_bf16 ? bf16 : fp32).  lse:
 // (B, H, Sq) fp32 contiguous, the forward's natural-log row log-sum-exp of
 // the scaled scores; delta: (B, H, Sq) fp32 scratch.  D must be 64, 128 or
-// 256.  bf16 at D = 64 or 128 (the tensor cores) needs 16-byte aligned q,
-// k, v, dout pointers and strides (TMA); at D = 256 it runs the SIMT
-// kernels and needs no alignment.
-// Launches three kernels on `stream`; returns a CUDA error code (0 on
-// success).
+// 256.  bf16 (the tensor cores) needs 16-byte aligned q, k, v, dout
+// pointers and strides (TMA); fp32 (SIMT) needs no alignment.
+// Launches three kernels on `stream` (four for bf16 at D = 256); returns a
+// CUDA error code (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -1032,24 +1070,23 @@ extern "C" int flash_attention_bwd(
       return is_bf16 ? tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk,
                                       dv, B, H, KV, Sq, Sk, causal, window,
                                       scale, st, s)
-                     : simt::launch<float, 64>(q, k, v, o, dout, lse, delta,
+                     : simt::launch<64>(q, k, v, o, dout, lse, delta,
                                                dq, dk, dv, B, H, KV, Sq, Sk,
                                                causal, window, scale, st, s);
     case 128:
       return is_bf16 ? tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk,
                                        dv, B, H, KV, Sq, Sk, causal, window,
                                        scale, st, s)
-                     : simt::launch<float, 128>(q, k, v, o, dout, lse, delta,
+                     : simt::launch<128>(q, k, v, o, dout, lse, delta,
                                                 dq, dk, dv, B, H, KV, Sq, Sk,
                                                 causal, window, scale, st, s);
     case 256:
-      return is_bf16
-                 ? simt::launch<__nv_bfloat16, 256>(
-                       q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV,
-                       Sq, Sk, causal, window, scale, st, s)
-                 : simt::launch<float, 256>(q, k, v, o, dout, lse, delta, dq,
-                                            dk, dv, B, H, KV, Sq, Sk, causal,
-                                            window, scale, st, s);
+      return is_bf16 ? tc::launch<256>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, B, H, KV, Sq, Sk, causal, window,
+                                       scale, st, s)
+                     : simt::launch<256>(q, k, v, o, dout, lse, delta,
+                                                dq, dk, dv, B, H, KV, Sq, Sk,
+                                                causal, window, scale, st, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -68,30 +68,47 @@
 // scratch, whose U part holds the state S_c entering each chunk after
 // pass 2, so states inside a chunk are rebuilt from S_c by the factored
 // decays and never by dividing a state by w.  With G^c the gradient of the
-// state leaving chunk c and B[i, j] = do_i . v_j, it mirrors the forward:
-//   bwd pass 1, one block per (b, h, c): V_c = q^T do, from the forward's
-//     q^T (an L-deep outer-product sum, as U_c);
-//   bwd pass 2, one thread per (b, h, n, 4 columns): in reverse chunk
-//     order G^{C-1} = dS (or 0), G^{c-1} = d_c[n] G^c + V_c, each G^c
-//     stored over V_c, dS0 = G^{-1};
-//   bwd pass 3, one block per (b, h, c), three groups of N threads, each
-//     thread a 4-token x 4-channel register tile of one gradient:
+// state leaving chunk c and B[i, j] = do_i . v_j, it runs two passes:
+//   bwd pass 1, the fold: a block of 256 threads owns 16 rows of one
+//     (b, h)'s N x N gradient, a thread one row and 4 columns; in reverse
+//     chunk order it stores G^c (G^{C-1} = dS, or 0) and folds
+//     G^{c-1} = d_c G^c + V_c, dS0 = G^{-1}, with V_c = q^T do (an L-deep
+//     sum, from the forward's q^T) formed as it goes: each chunk's q^T
+//     rows, d_c and dO tile come into a ring of 8 chunks by cp.async, 7
+//     chunks ahead of the fold.  V_c never touches memory;
+//   bwd pass 2, one block per (b, h, c), a programmatic dependent of the
+//     fold that loads S_c, r, k, v, dO, log_w and forms A and B before it
+//     waits for G^c; three groups of N threads, each thread a 4-token x
+//     4-channel register tile of one gradient:
 //       dr_i = P_{i-1} (S_c do_i + sum_{j<i} B[i, j] k_j / P_j) + u k_i B_ii
 //       dk_i = u r_i B_ii + exp(cum_L - cum_i) G^c v_i
 //              + exp(-cum_i) sum_{j>i} B[j, i] q_j
 //       dv_i = sum_{j>=i} A[j, i] do_j + kd_i G^c
-//     (A the forward's intra-chunk matrix, recomputed), then per channel
-//     the chunk's reverse sums of r dr' and k dk' (dr', dk' without the
-//     bonus terms) and its share of du;
-//   bwd passes 4 and 5: the decay's gradient
-//     dlog_w_s = sum_{t>s} r_t dr'_t - sum_{t>=s} k_t dk'_t
-//                + rowsum(dS * S_T)
-//     (the gradient of every in-chunk log-decay sum, gathered: the form
-//     w_t rowsum(G_t * S_{t-1}) would need every token's N x N state):
-//     one thread per (b, h, n) walks the chunks' totals in reverse into
-//     each chunk's carry and sums du's per-(b, h) partial over the chunks
-//     in order (the wrapper sums the batch); then one block per (b, h, c)
-//     adds its carry to the chunk's in-chunk part.
+//     (A the forward's intra-chunk matrix, recomputed).  S_c and G^c come
+//     in by cp.async as they lie, row-major into rows padded to 68 floats:
+//     S_c do_i and G^c v_i are row dots, each thread's four channels 16
+//     apart so that a warp's 16 rows fall in distinct bank groups, and
+//     kd_i G^c reads rows of G^c, so no tile is transposed.  Then, one
+//     thread a channel, the decay's gradient
+//       dlog_w_s = sum_{t>s} r_t dr'_t - sum_{t>=s} k_t dk'_t
+//                  + rowsum(dS * S_T)
+//     (dr', dk' without the bonus terms: the gradient of every in-chunk
+//     log-decay sum, gathered; the form w_t rowsum(G_t * S_{t-1}) would
+//     need every token's N x N state) as the chunk's own reverse sums plus
+//     its carry, the pairs that cross the chunk's end:
+//       rowsum(G^c * S_{c+1}) = d_c rowsum(G^c * S_c)
+//                               + sum_i kd_i (G^c v_i),
+//     all from the chunk's own tiles; and du's share of the chunk, which
+//     the wrapper sums over chunks and the batch.  192 threads and 73 KB of
+//     shared memory a block: three blocks an SM.  ptxas gives the fold 64
+//     registers and the chunk pass 96, no spill.
+// The five passes before it (V_c, the fold and the chunk pass through
+// memory, then the carry and the decay) moved ~1.7 GB of N x N scratch at
+// rwkv6-3b's training shape, (4, 40, 2048, 64), and the chunk pass copied
+// S_c and G^c transposed, with 32-way bank conflicts: 2.83 ms a call
+// (PERF.md, NVIDIA H100 80GB HBM3 at 700 W).  This one writes G^c once and
+// reads S_c and G^c once, 1.0 GB of N x N scratch and ~1.6 GB in all
+// (PERF.md gives each pass's time).
 // ref.wkv6_backward_chunked is this arithmetic on the CPU.  It is exact in
 // fp32 on the forward's domain (the clamp above); no atomics, one order.
 
@@ -552,401 +569,486 @@ int dispatch_n(int N, const void* r, const void* k, const void* v,
 // the backward
 // ---------------------------------------------------------------------------
 
-// bwd pass 1: V_c = q^T do.  4N threads; thread (gn, gm) owns rows
-// n0 .. n0 + TN - 1 and columns m .. m + 3, as the forward's U_c
+// four elements of T from global to shared memory by cp.async (8 bytes for
+// bf16, 16 for fp32); `valid` false fills zeros and reads nothing
+template <typename T>
+__device__ __forceinline__ void cp_async4(T* smem, const T* gmem, bool valid) {
+  constexpr int kBytes = 4 * sizeof(T);
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(gmem), "n"(kBytes), "r"(valid ? kBytes : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// bwd pass 1: the reverse fold of the state's gradient with V_c = q^T do
+// formed as it goes, so that V_c never touches memory.  A block owns kFR
+// rows of one (b, h)'s N x N gradient, a thread one row and 4 columns; in
+// reverse chunk order it stores G^c (the gradient of the state leaving
+// chunk c) and folds G^{c-1} = d_c G^c + V_c.  Each chunk's q^T rows
+// (from the forward's scratch), d_c and dO tile come into a ring of
+// kFStages stages by cp.async, kFStages - 1 chunks ahead of the fold.
+constexpr int kFR = 16;       // rows of G a block owns
+constexpr int kFStages = 8;   // the ring's depth in chunks
+
+template <int N>
+__host__ __device__ constexpr int fold_threads() { return kFR * N / 4; }
+
 template <typename T, int N>
-__global__ void __launch_bounds__(4 * N)
-wkv6_bwd_chunk_v(const T* __restrict__ dout, Scratch sc,
-                 float* __restrict__ V, int H, int T_len, int C,
-                 Strides dst) {
-  constexpr int TN = N / 16;
+__host__ __device__ constexpr int fold_stage_floats() {
+  // q^T rows [kFR][kL], d_c [kFR], the dO tile [kL][N] in T
+  return kFR * kL + kFR + kL * N * (int)sizeof(T) / 4;
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(fold_threads<N>())
+wkv6_bwd_fold(const T* __restrict__ dout, Scratch sc,
+              const float* __restrict__ dS, float* __restrict__ G,
+              float* __restrict__ dS0, int H, int T_len, int C,
+              Strides dst) {
+  constexpr int NT = fold_threads<N>(), SF = fold_stage_floats<T, N>();
   extern __shared__ float4 smem4[];
-  float* dos = reinterpret_cast<float*>(smem4);  // [L][N]
-  float* qs = dos + kL * N;                      // [L][N]
+  float* ring = reinterpret_cast<float*>(smem4);
+  // the chunk pass may start now: what it loads before its wait does not
+  // depend on this pass
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int bh = blockIdx.x / (N / kFR), n0 = (blockIdx.x % (N / kFR)) * kFR;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int r = tid / (N / 4), m = (tid % (N / 4)) * 4;
+  const T* db = dout + b * dst.b + h * dst.h;
+
+  auto issue = [&](int c) {   // chunk c's copies into stage c % kFStages
+    float* st = ring + (c % kFStages) * SF;
+    const int64_t chunk = (int64_t)bh * C + c;
+    const float* qg = sc.qT + chunk * kL * N + n0 * kL;
+    for (int e = tid; e < kFR * kL / 4; e += NT)
+      cp_async4(st + 4 * e, qg + 4 * e, true);
+    if (tid < kFR / 4)
+      cp_async4(st + kFR * kL + 4 * tid, sc.dec + chunk * N + n0 + 4 * tid,
+                true);
+    T* ds = reinterpret_cast<T*>(st + kFR * kL + kFR);
+    const int t0 = c * kL, len = min(kL, T_len - t0);
+    for (int e = tid; e < kL * N / 4; e += NT) {
+      const int i = e / (N / 4), col = (e % (N / 4)) * 4;
+      cp_async4(ds + i * N + col, i < len ? db + (t0 + i) * dst.t + col : db,
+                i < len);
+    }
+  };
+
+  const int64_t gi = ((int64_t)bh * N + n0 + r) * N + m;  // (b, h, n, m)
+  float4 g = dS ? *reinterpret_cast<const float4*>(dS + gi)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < kFStages - 1; ++i) {
+    if (C - 1 - i >= 0) issue(C - 1 - i);
+    cp_async_commit();
+  }
+  for (int c = C - 1; c >= 0; --c) {
+    if (c - (kFStages - 1) >= 0) issue(c - (kFStages - 1));
+    cp_async_commit();
+    cp_async_wait<kFStages - 1>();   // chunk c's copies have landed
+    __syncthreads();
+    const float* st = ring + (c % kFStages) * SF;
+    *reinterpret_cast<float4*>(G + ((int64_t)bh * C + c) * N * N +
+                               (n0 + r) * N + m) = g;
+    // V_c[n][m .. m + 3] = sum_t q_t[n] do_t[m .. m + 3], t in order
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* qr = st + r * kL;
+    const T* ds = reinterpret_cast<const T*>(st + kFR * kL + kFR);
+#pragma unroll
+    for (int t4 = 0; t4 < kL; t4 += 4) {
+      const float4 q = lds4(qr + t4);
+      fma4(q.x, lds4(ds + (t4 + 0) * N + m), acc);
+      fma4(q.y, lds4(ds + (t4 + 1) * N + m), acc);
+      fma4(q.z, lds4(ds + (t4 + 2) * N + m), acc);
+      fma4(q.w, lds4(ds + (t4 + 3) * N + m), acc);
+    }
+    const float d = st[kFR * kL + r];
+    g.x = fmaf(d, g.x, acc[0]);
+    g.y = fmaf(d, g.y, acc[1]);
+    g.z = fmaf(d, g.z, acc[2]);
+    g.w = fmaf(d, g.w, acc[3]);
+    __syncthreads();   // the stage is free for the copies issued next
+  }
+  if (dS0) *reinterpret_cast<float4*>(dS0 + gi) = g;
+}
+
+// bwd pass 2: each chunk's gradients, with the decay's gradient whole and
+// du's share of the chunk.  3 x (L N / 16) threads: group 0 computes dr,
+// group 1 dk, group 2 dv; thread (gi, gx) of a group owns tokens
+// 4 gi .. 4 gi + 3 and, for dr and dk, channels gx + 16 c (c < 4; the rows
+// of S_c and G^c it reads are then 16 consecutive ones a warp, one bank
+// group each), for dv columns 4 gx .. 4 gx + 3.
+constexpr int kP = 68;   // row pitch of every [*][N] tile (N = 64) in floats:
+                         // consecutive rows start 16 bytes apart mod 128
+
+template <int N>
+__host__ __device__ constexpr int grads_threads() { return 3 * kL * N / 16; }
+
+template <int N>
+__host__ __device__ constexpr int grads_smem_bytes() {
+  // S_c, G^c; r, k, v, do, cum, q, k/P, kd (then r dr', k dk', kd G v);
+  // A, the two masked B's, B's diagonal, u
+  return (2 * N * kP + 8 * kL * kP + 3 * kL * kL + kL + N) * 4;
+}
+
+// an N x N fp32 matrix into [N][kP] rows by cp.async
+template <int N>
+__device__ __forceinline__ void copy_square(float* dst, const float* src) {
+  for (int e = threadIdx.x; e < N * N / 4; e += grads_threads<N>()) {
+    const int n = e / (N / 4), m = (e % (N / 4)) * 4;
+    cp_async4(dst + n * kP + m, src + n * N + m, true);
+  }
+}
+
+// the dot of two N-float rows: four partial sums, each in channel order,
+// then (p0 + p1) + (p2 + p3)
+template <int N>
+__device__ __forceinline__ float dot_rows(const float* x, const float* y) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+  for (int n = 0; n < N; n += 4) {
+    const float4 a = lds4(x + n), b = lds4(y + n);
+    a0 = fmaf(a.x, b.x, a0);
+    a1 = fmaf(a.y, b.y, a1);
+    a2 = fmaf(a.z, b.z, a2);
+    a3 = fmaf(a.w, b.w, a3);
+  }
+  return (a0 + a1) + (a2 + a3);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(grads_threads<N>(), 3)
+wkv6_bwd_chunk(const T* __restrict__ r, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ log_w,
+               const float* __restrict__ u, const T* __restrict__ dout,
+               Scratch sc, const float* __restrict__ Gg,
+               float* __restrict__ du_part, T* __restrict__ dr,
+               T* __restrict__ dk, T* __restrict__ dv,
+               float* __restrict__ dlw, int H, int T_len, int C,
+               Strides rst, Strides kst, Strides vst, Strides wst,
+               Strides dst, Strides drst, Strides dkst, Strides dvst,
+               Strides dwst) {
+  static_assert(N == 64, "the tiles' pitch and thread map are N = 64's");
+  constexpr int NT = grads_threads<N>(), TL = kL * kP;
+  extern __shared__ float4 smem4[];
+  float* Ss = reinterpret_cast<float*>(smem4);   // S_c[n][m]
+  float* Gs = Ss + N * kP;                       // G^c[n][m]
+  float* rs = Gs + N * kP;                       // [kL][kP] tiles
+  float* ks = rs + TL;
+  float* vs = ks + TL;
+  float* dos = vs + TL;
+  float* cs = dos + TL;                          // cum
+  float* qs = cs + TL;                           // r_t P_{t-1}; then r dr'
+  float* kps = qs + TL;                          // k_t / P_t; then k dk'
+  float* kds = kps + TL;                         // k_t exp(cum_L - cum_t);
+                                                 // then kd_t (G^c v_t)
+  float* As = kds + TL;                          // As[j * L + i] = A[j][i]
+  float* Bl = As + kL * kL;   // Bl[j * L + i] = j < i ? B[i][j] : 0
+  float* Bu = Bl + kL * kL;   // Bu[j * L + i] = j > i ? B[j][i] : 0
+  float* Bd = Bu + kL * kL;                      // B[i][i]
+  float* us = Bd + kL;                           // u of the head
+  const int tid = threadIdx.x;
   const int bh = blockIdx.x / C, c = blockIdx.x % C;
   const int b = bh / H, h = bh % H;
   const int t0 = c * kL, len = min(kL, T_len - t0);
   const int64_t chunk = (int64_t)bh * C + c;
-  load_tile<T, N>(dos, dout + b * dst.b + h * dst.h, dst.t, t0, len);
-  const float* qTg = sc.qT + chunk * kL * N;
-  for (int e = threadIdx.x; e < kL * N; e += blockDim.x) {
-    const int n = e / kL, t = e % kL;
-    qs[t * N + n] = qTg[e];
-  }
-  __syncthreads();
-  const int n0 = (threadIdx.x / (N / 4)) * TN;
-  const int m = (threadIdx.x % (N / 4)) * 4;
-  float acc[TN][4];
+
+  // what does not depend on the fold: S_c, the tiles, A and B.  The
+  // tiles' loads are all issued before their stores, one memory round trip
+  copy_square<N>(Ss, sc.U + chunk * N * N);
+  cp_async_commit();
+  {
+    const T* rb = r + b * rst.b + h * rst.h;
+    const T* kb = k + b * kst.b + h * kst.h;
+    const T* vb = v + b * vst.b + h * vst.h;
+    const T* ob = dout + b * dst.b + h * dst.h;
+    const float* wb = log_w + b * wst.b + h * wst.h;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int i = 0; i < TN; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kL; ++j) {
-    const float4 dd = *reinterpret_cast<const float4*>(dos + j * N + m);
-#pragma unroll
-    for (int i4 = 0; i4 < TN; i4 += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(qs + j * N + n0 + i4);
-      fma4(q.x, dd, acc[i4]);
-      fma4(q.y, dd, acc[i4 + 1]);
-      fma4(q.z, dd, acc[i4 + 2]);
-      fma4(q.w, dd, acc[i4 + 3]);
+    for (int e0 = 0; e0 < kL * N / 4; e0 += NT) {
+      const int e = e0 + tid;
+      const int i = e / (N / 4), n = (e % (N / 4)) * 4;
+      const bool ok = e < kL * N / 4 && i < len;
+      const float4 xr = ok ? load4(rb + (t0 + i) * rst.t + n) : z;
+      const float4 xk = ok ? load4(kb + (t0 + i) * kst.t + n) : z;
+      const float4 xv = ok ? load4(vb + (t0 + i) * vst.t + n) : z;
+      const float4 xo = ok ? load4(ob + (t0 + i) * dst.t + n) : z;
+      const float4 xw = ok ? load4(wb + (t0 + i) * wst.t + n) : z;
+      if (e < kL * N / 4) {
+        store4(rs + i * kP + n, xr);
+        store4(ks + i * kP + n, xk);
+        store4(vs + i * kP + n, xv);
+        store4(dos + i * kP + n, xo);
+        store4(cs + i * kP + n, xw);
+      }
     }
   }
-  float* Vg = V + chunk * N * N;
-#pragma unroll
-  for (int i = 0; i < TN; ++i)
-    store4(Vg + (n0 + i) * N + m,
-           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-}
-
-// bwd pass 2: the reverse fold of the state's gradient, one thread per
-// (b, h, n, m .. m + 3)
-template <int N>
-__global__ void __launch_bounds__(kFoldThreads)
-wkv6_bwd_fold(float* __restrict__ V, const float* __restrict__ dec,
-              const float* __restrict__ dS, float* __restrict__ dS0, int BH,
-              int C) {
-  constexpr int Q = N * N / 4;
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (int64_t)BH * Q) return;
-  const int64_t bh = e / Q;
-  const int w = (int)(e % Q), n = w / (N / 4);
-  float4 G = dS ? reinterpret_cast<const float4*>(dS)[e]
-                : make_float4(0.f, 0.f, 0.f, 0.f);
-  float4* Vb = reinterpret_cast<float4*>(V) + bh * C * Q + w;
-  const float* db = dec + bh * C * N + n;
-  for (int c = C - 1; c >= 0; --c) {
-    const float4 vv = Vb[(int64_t)c * Q];
-    const float d = db[(int64_t)c * N];
-    Vb[(int64_t)c * Q] = G;   // the gradient of the state leaving chunk c
-    G.x = fmaf(d, G.x, vv.x);
-    G.y = fmaf(d, G.y, vv.y);
-    G.z = fmaf(d, G.z, vv.z);
-    G.w = fmaf(d, G.w, vv.w);
-  }
-  if (dS0) reinterpret_cast<float4*>(dS0)[e] = G;
-}
-
-// bwd pass 3: each chunk's gradients.  3 x (L N / 16) threads: group 0
-// writes dr, group 1 dk, group 2 dv; thread (g, x) of a group owns tokens
-// 4g .. 4g + 3 and channels 4x .. 4x + 3.
-template <int N>
-__host__ __device__ constexpr int bwd_group_threads() { return kL * N / 16; }
-
-template <int N>
-__host__ __device__ constexpr int bwd_smem_bytes() {
-  // S_c^T, G, G^T; r, k, v, do, cum, q, k/P, the reverse sums' terms
-  // (2 tiles); do^T, v^T, kd^T; A, the two masked B's, B's diagonal
-  return (3 * N * N + 9 * kL * N + 3 * N * kQS + 3 * kL * kL + kL) * 4;
-}
-
-template <typename T, int N>
-__global__ void __launch_bounds__(3 * bwd_group_threads<N>())
-wkv6_bwd_chunk_grads(const T* __restrict__ r, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ log_w,
-                     const float* __restrict__ u, const T* __restrict__ dout,
-                     Scratch sc, const float* __restrict__ Gg,
-                     float* __restrict__ part, T* __restrict__ dr,
-                     T* __restrict__ dk, T* __restrict__ dv,
-                     float* __restrict__ dlw, int H, int T_len, int C,
-                     Strides rst, Strides kst, Strides vst, Strides wst,
-                     Strides dst, Strides drst, Strides dkst, Strides dvst,
-                     Strides dwst) {
-  constexpr int NT = 3 * bwd_group_threads<N>();
-  extern __shared__ float4 smem4[];
-  float* STs = reinterpret_cast<float*>(smem4);  // STs[m * N + n] = S_c[n][m]
-  float* Gs = STs + N * N;                       // G^c[n][m]
-  float* GTs = Gs + N * N;                       // G^c[m][n]
-  float* rs = GTs + N * N;                       // [L][N] tiles
-  float* ks = rs + kL * N;
-  float* vs = ks + kL * N;
-  float* dos = vs + kL * N;
-  float* cs = dos + kL * N;                      // cum
-  float* qs = cs + kL * N;                       // r_t P_{t-1}
-  float* kps = qs + kL * N;                      // k_t / P_t
-  float* as = kps + kL * N;                      // r dr' (no bonus)
-  float* bs = as + kL * N;                       // k dk' (no bonus)
-  float* doT = bs + kL * N;                      // [N][kQS] transposed
-  float* vT = doT + N * kQS;
-  float* kdT = vT + N * kQS;                     // k_t exp(cum_L - cum_t)
-  float* As = kdT + N * kQS;                     // As[j * L + i] = A[j][i]
-  float* Bl = As + kL * kL;                      // Bl[j * L + i] = j < i ? B[i][j]
-  float* Bu = Bl + kL * kL;                      // Bu[j * L + i] = j > i ? B[j][i]
-  float* Bd = Bu + kL * kL;                      // B[i][i]
-  const int bh = blockIdx.x / C, c = blockIdx.x % C;
-  const int b = bh / H, h = bh % H;
-  const int t0 = c * kL, len = min(kL, T_len - t0);
-  const int64_t chunk = (int64_t)bh * C + c;
-  load_tile<T, N>(rs, r + b * rst.b + h * rst.h, rst.t, t0, len);
-  load_tile<T, N>(ks, k + b * kst.b + h * kst.h, kst.t, t0, len);
-  load_tile<T, N>(vs, v + b * vst.b + h * vst.h, vst.t, t0, len);
-  load_tile<T, N>(dos, dout + b * dst.b + h * dst.h, dst.t, t0, len);
-  load_tile<float, N>(cs, log_w + b * wst.b + h * wst.h, wst.t, t0, len);
-  const float* Sg = sc.U + chunk * N * N;
-  const float* Gc = Gg + chunk * N * N;
-  for (int e = threadIdx.x; e < N * N; e += NT) {
-    const int n = e / N, m = e % N;
-    STs[m * N + n] = Sg[e];
-    const float g = Gc[e];
-    Gs[e] = g;
-    GTs[m * N + n] = g;
-  }
+  if (tid < N) us[tid] = u[h * N + tid];
   __syncthreads();
-  if (threadIdx.x < N) {   // the in-chunk cumsum of log_w
-    const int n = threadIdx.x;
+  if (tid < N) {   // the in-chunk cumsum of log_w, as the forward's
     float acc = 0.f;
 #pragma unroll
     for (int i = 0; i < kL; ++i) {
-      acc += cs[i * N + n];
-      cs[i * N + n] = acc;
+      acc += cs[i * kP + tid];
+      cs[i * kP + tid] = acc;
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < kL * N; e += NT) {
-    const int i = e / N, n = e % N;
-    const float cum = cs[e], prev = i ? cs[e - N] : 0.f;
-    const float tot = cs[(kL - 1) * N + n];
-    qs[e] = rs[e] * expf(prev);
-    kps[e] = ks[e] * expf(-cum);
-    kdT[n * kQS + i] = ks[e] * expf(tot - cum);
-    doT[n * kQS + i] = dos[e];
-    vT[n * kQS + i] = vs[e];
+  for (int e = tid; e < kL * N; e += NT) {
+    const int i = e / N, n = e % N, x = i * kP + n;
+    const float cum = cs[x], prev = i ? cs[x - kP] : 0.f;
+    const float tot = cs[(kL - 1) * kP + n];
+    qs[x] = rs[x] * expf(prev);
+    kps[x] = ks[x] * expf(-cum);
+    kds[x] = ks[x] * expf(tot - cum);
   }
   __syncthreads();
-  // A (strictly lower q . k/P, the bonus r . (u k) on the diagonal, 0
-  // above) and B = do v^T; each dot starts at a channel rotated by its
-  // entry (fewer bank conflicts), one fixed order an entry
-  for (int e = threadIdx.x; e < 2 * kL * kL; e += NT) {
-    const int which = e / (kL * kL), i = e / kL % kL, j = e % kL;
-    float acc = 0.f;
-    if (which == 0) {   // A[i][j]
+  // A (strictly lower q_j . k_i/P_i, the bonus r_j . (u k_j) on the
+  // diagonal, 0 above) and B[i][j] = do_i . v_j, each a dot in channel order
+  for (int e = tid; e < 2 * kL * kL; e += NT) {
+    const int i = e / kL % kL, j = e % kL;
+    if (e < kL * kL) {   // A[i][j], stored as As[i * L + j]
+      float a = 0.f;
       if (j < i) {
-        for (int nn = 0; nn < N; ++nn) {
-          const int n = (nn + e) & (N - 1);
-          acc = fmaf(qs[i * N + n], kps[j * N + n], acc);
-        }
+        a = dot_rows<N>(qs + i * kP, kps + j * kP);
       } else if (j == i) {
-        for (int nn = 0; nn < N; ++nn) {
-          const int n = (nn + e) & (N - 1);
-          acc = fmaf(rs[i * N + n] * u[h * N + n], ks[i * N + n], acc);
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+        for (int n = 0; n < N; n += 4) {
+          const float4 x = lds4(rs + i * kP + n), y = lds4(ks + i * kP + n),
+                       w = lds4(us + n);
+          a0 = fmaf(x.x * w.x, y.x, a0);
+          a1 = fmaf(x.y * w.y, y.y, a1);
+          a2 = fmaf(x.z * w.z, y.z, a2);
+          a3 = fmaf(x.w * w.w, y.w, a3);
         }
+        a = (a0 + a1) + (a2 + a3);
       }
-      As[i * kL + j] = acc;
-    } else {            // B[i][j] = do_i . v_j
-      for (int nn = 0; nn < N; ++nn) {
-        const int n = (nn + e) & (N - 1);
-        acc = fmaf(dos[i * N + n], vs[j * N + n], acc);
-      }
-      Bl[j * kL + i] = j < i ? acc : 0.f;
-      Bu[i * kL + j] = i > j ? acc : 0.f;
-      if (i == j) Bd[i] = acc;
+      As[i * kL + j] = a;
+    } else {             // B[i][j]
+      const float bij = dot_rows<N>(dos + i * kP, vs + j * kP);
+      Bl[j * kL + i] = j < i ? bij : 0.f;
+      Bu[i * kL + j] = i > j ? bij : 0.f;
+      if (i == j) Bd[i] = bij;
     }
   }
+  grid_dependency_wait();   // the fold's G^c
+  copy_square<N>(Gs, Gg + chunk * N * N);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int grp = threadIdx.x / bwd_group_threads<N>();
-  const int lt = threadIdx.x % bwd_group_threads<N>();
-  const int i0 = (lt / (N / 4)) * 4, x0 = (lt % (N / 4)) * 4;
-  float acc[4][4], acc2[4][4];
+  const int grp = tid / (kL * N / 16), lt = tid % (kL * N / 16);
+  const int i0 = (lt / 16) * 4, gx = lt % 16;
+  float acc[4][4], acc2[4][4], keep[4][4], keep2[4][4];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int y = 0; y < 4; ++y) acc[a][y] = acc2[a][y] = 0.f;
+  // acc[a][y] += sum over m of X[i0 + a][m] M[gx + 16 y][m], m in order
+  auto rowdot = [&](const float* X, const float* M) {
+#pragma unroll 2
+    for (int m = 0; m < N; m += 4) {
+      float4 x[4], y[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) x[a] = lds4(X + (i0 + a) * kP + m);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) y[w] = lds4(M + (gx + 16 * w) * kP + m);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          acc[a][w] = fmaf(x[a].x, y[w].x, acc[a][w]);
+          acc[a][w] = fmaf(x[a].y, y[w].y, acc[a][w]);
+          acc[a][w] = fmaf(x[a].z, y[w].z, acc[a][w]);
+          acc[a][w] = fmaf(x[a].w, y[w].w, acc[a][w]);
+        }
+    }
+  };
+  // acc2[a][y] += sum over j of W[j][i0 + a] Y[j][gx + 16 y], j in order
+  auto masked = [&](const float* W, const float* Y) {
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      const float4 w = lds4(W + j * kL + i0);
+      const float wa[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const float yv = Y[j * kP + gx + 16 * y];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) acc2[a][y] = fmaf(wa[a], yv, acc2[a][y]);
+      }
+    }
+  };
   if (grp == 0) {
-    // S_c do_i (channels x0..), then sum_{j<i} B[i][j] k_j / P_j
-#pragma unroll 8
-    for (int m = 0; m < N; ++m) {
-      const float4 dd = *reinterpret_cast<const float4*>(doT + m * kQS + i0);
-      const float4 ss = *reinterpret_cast<const float4*>(STs + m * N + x0);
-      fma4(dd.x, ss, acc[0]);
-      fma4(dd.y, ss, acc[1]);
-      fma4(dd.z, ss, acc[2]);
-      fma4(dd.w, ss, acc[3]);
-    }
-#pragma unroll
-    for (int j = 0; j < kL; ++j) {
-      const float4 bb = *reinterpret_cast<const float4*>(Bl + j * kL + i0);
-      const float4 kp = *reinterpret_cast<const float4*>(kps + j * N + x0);
-      fma4(bb.x, kp, acc2[0]);
-      fma4(bb.y, kp, acc2[1]);
-      fma4(bb.z, kp, acc2[2]);
-      fma4(bb.w, kp, acc2[3]);
-    }
+    // dr_i = P_{i-1} (S_c do_i + sum_{j<i} B[i][j] k_j / P_j) + u k_i B_ii
+    rowdot(dos, Ss);
+    masked(Bl, kps);
   } else if (grp == 1) {
-    // G^c v_i, then sum_{j>i} B[j][i] q_j
-#pragma unroll 8
-    for (int m = 0; m < N; ++m) {
-      const float4 vv = *reinterpret_cast<const float4*>(vT + m * kQS + i0);
-      const float4 gg = *reinterpret_cast<const float4*>(GTs + m * N + x0);
-      fma4(vv.x, gg, acc[0]);
-      fma4(vv.y, gg, acc[1]);
-      fma4(vv.z, gg, acc[2]);
-      fma4(vv.w, gg, acc[3]);
-    }
-#pragma unroll
-    for (int j = 0; j < kL; ++j) {
-      const float4 bb = *reinterpret_cast<const float4*>(Bu + j * kL + i0);
-      const float4 q = *reinterpret_cast<const float4*>(qs + j * N + x0);
-      fma4(bb.x, q, acc2[0]);
-      fma4(bb.y, q, acc2[1]);
-      fma4(bb.z, q, acc2[2]);
-      fma4(bb.w, q, acc2[3]);
-    }
+    // dk_i = exp(cum_L - cum_i) G^c v_i + exp(-cum_i) sum_{j>i} B[j][i] q_j
+    //        + u r_i B_ii
+    rowdot(vs, Gs);
+    masked(Bu, qs);
   } else {
-    // kd_i G^c (columns x0..), then sum_{j>=i} A[j][i] do_j
-#pragma unroll 8
-    for (int n = 0; n < N; ++n) {
-      const float4 kd = *reinterpret_cast<const float4*>(kdT + n * kQS + i0);
-      const float4 gg = *reinterpret_cast<const float4*>(Gs + n * N + x0);
-      fma4(kd.x, gg, acc[0]);
-      fma4(kd.y, gg, acc[1]);
-      fma4(kd.z, gg, acc[2]);
-      fma4(kd.w, gg, acc[3]);
+    // dv_i = kd_i G^c + sum_{j>=i} A[j][i] do_j; columns 4 gx ..
+#pragma unroll 2
+    for (int n = 0; n < N; n += 4) {
+      float4 x[4], y[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) x[a] = lds4(kds + (i0 + a) * kP + n);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) y[w] = lds4(Gs + (n + w) * kP + 4 * gx);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float xa[4] = {x[a].x, x[a].y, x[a].z, x[a].w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          acc[a][0] = fmaf(xa[w], y[w].x, acc[a][0]);
+          acc[a][1] = fmaf(xa[w], y[w].y, acc[a][1]);
+          acc[a][2] = fmaf(xa[w], y[w].z, acc[a][2]);
+          acc[a][3] = fmaf(xa[w], y[w].w, acc[a][3]);
+        }
+      }
     }
 #pragma unroll
     for (int j = 0; j < kL; ++j) {
-      const float4 aa = *reinterpret_cast<const float4*>(As + j * kL + i0);
-      const float4 dd = *reinterpret_cast<const float4*>(dos + j * N + x0);
-      fma4(aa.x, dd, acc2[0]);
-      fma4(aa.y, dd, acc2[1]);
-      fma4(aa.z, dd, acc2[2]);
-      fma4(aa.w, dd, acc2[3]);
+      const float4 w = lds4(As + j * kL + i0);
+      const float wa[4] = {w.x, w.y, w.z, w.w};
+      const float4 dd = lds4(dos + j * kP + 4 * gx);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        acc2[a][0] = fmaf(wa[a], dd.x, acc2[a][0]);
+        acc2[a][1] = fmaf(wa[a], dd.y, acc2[a][1]);
+        acc2[a][2] = fmaf(wa[a], dd.z, acc2[a][2]);
+        acc2[a][3] = fmaf(wa[a], dd.w, acc2[a][3]);
+      }
     }
   }
+  // outputs, and what the epilogue sums: r dr' (group 0), k dk' and
+  // kd (G^c v) (group 1), each kept until the tiles they replace are free
   const Strides ost = grp == 0 ? drst : grp == 1 ? dkst : dvst;
   T* ob = (grp == 0 ? dr : grp == 1 ? dk : dv) + b * ost.b + h * ost.h;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = i0 + a;
-    float out[4];
+    if (grp == 2) {
+      if (i < len)
+        store4(ob + (t0 + i) * ost.t + 4 * gx,
+               make_float4(acc[a][0] + acc2[a][0], acc[a][1] + acc2[a][1],
+                           acc[a][2] + acc2[a][2], acc[a][3] + acc2[a][3]));
+      continue;
+    }
 #pragma unroll
     for (int y = 0; y < 4; ++y) {
-      const int n = x0 + y, e = i * N + n;
+      const int n = gx + 16 * y, x = i * kP + n;
+      float out;
       if (grp == 0) {
-        const float prev = i ? cs[e - N] : 0.f;
+        const float prev = i ? cs[x - kP] : 0.f;
         const float nb = expf(prev) * (acc[a][y] + acc2[a][y]);
-        as[e] = rs[e] * nb;
-        out[y] = fmaf(u[h * N + n] * ks[e], Bd[i], nb);
-      } else if (grp == 1) {
-        const float tot = cs[(kL - 1) * N + n], cum = cs[e];
+        keep[a][y] = rs[x] * nb;
+        out = fmaf(us[n] * ks[x], Bd[i], nb);
+      } else {
+        const float tot = cs[(kL - 1) * kP + n], cum = cs[x];
         const float nb = fmaf(expf(tot - cum), acc[a][y],
                               expf(-cum) * acc2[a][y]);
-        bs[e] = ks[e] * nb;
-        out[y] = fmaf(u[h * N + n] * rs[e], Bd[i], nb);
-      } else {
-        out[y] = acc[a][y] + acc2[a][y];
+        keep[a][y] = ks[x] * nb;
+        keep2[a][y] = kds[x] * acc[a][y];
+        out = fmaf(us[n] * rs[x], Bd[i], nb);
+      }
+      if (i < len) {
+        T* p = ob + (t0 + i) * ost.t + n;
+        if constexpr (sizeof(T) == 4) *p = out;
+        else *p = __float2bfloat16_rn(out);
       }
     }
-    if (i < len)
-      store4(ob + (t0 + i) * ost.t + x0,
-             make_float4(out[0], out[1], out[2], out[3]));
+  }
+  __syncthreads();   // q, k/P and kd are read no more
+  if (grp < 2) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int x = (i0 + a) * kP + gx + 16 * y;
+        if (grp == 0) {
+          qs[x] = keep[a][y];
+        } else {
+          kps[x] = keep[a][y];
+          kds[x] = keep2[a][y];
+        }
+      }
   }
   __syncthreads();
-  // per channel: the in-chunk part of the decay's gradient, the chunk's
-  // totals for pass 4 and its share of du
-  if (threadIdx.x < N) {
-    const int n = threadIdx.x;
+  // per channel: the decay's gradient, dlog_w_i = sum_{t>i} r dr' -
+  // sum_{t>=i} k dk' over the chunk's tokens + the chunk's carry
+  // rowsum(G^c * S_{c+1}) = d_c rowsum(G^c * S_c) + sum_i kd_i (G^c v_i);
+  // and du's share of the chunk, sum_i r_i k_i B_ii
+  if (tid < N) {
+    const int n = tid;
+    float cg = 0.f;
+#pragma unroll
+    for (int i = 0; i < kL; ++i) cg += kds[i * kP + n];
+    const float carry = fmaf(expf(cs[(kL - 1) * kP + n]),
+                             dot_rows<N>(Gs + n * kP, Ss + n * kP), cg);
     float sa = 0.f, sb = 0.f, du = 0.f;
     float* wb = dlw + b * dwst.b + h * dwst.h + n;
     for (int i = kL - 1; i >= 0; --i) {
-      const int e = i * N + n;
-      sb += bs[e];
-      if (i < len) wb[(t0 + i) * dwst.t] = sa - sb;
-      sa += as[e];
-      du = fmaf(rs[e] * ks[e], Bd[i], du);
+      const int x = i * kP + n;
+      sb += kps[x];
+      if (i < len) wb[(t0 + i) * dwst.t] = (sa - sb) + carry;
+      sa += qs[x];
+      du = fmaf(rs[x] * ks[x], Bd[i], du);
     }
-    float* pc = part + chunk * 2 * N;
-    pc[n] = sa - sb;
-    pc[N + n] = du;
+    du_part[chunk * N + n] = du;
   }
-}
-
-// bwd pass 4, one thread per (b, h, n): the carry of each chunk, the
-// chunks' totals summed in reverse order from rowsum(dS * S_T), written
-// over the totals; and du's partial of (b, h), the chunks summed in order
-template <int N>
-__global__ void wkv6_bwd_carry(float* __restrict__ part,
-                               const float* __restrict__ dS,
-                               const float* __restrict__ S_T,
-                               float* __restrict__ du_part, int BH, int C) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= BH * N) return;
-  const int bh = e / N, n = e % N;
-  float carry = 0.f;
-  if (dS) {
-    const float* g = dS + ((int64_t)bh * N + n) * N;
-    const float* st = S_T + ((int64_t)bh * N + n) * N;
-    for (int m = 0; m < N; ++m) carry = fmaf(g[m], st[m], carry);
-  }
-  float* pb = part + (int64_t)bh * C * 2 * N + n;
-  float du = 0.f;
-  for (int c = 0; c < C; ++c) du += pb[(int64_t)c * 2 * N + N];
-  for (int c = C - 1; c >= 0; --c) {
-    const float tot = pb[(int64_t)c * 2 * N];
-    pb[(int64_t)c * 2 * N] = carry;
-    carry += tot;
-  }
-  du_part[e] = du;
-}
-
-// bwd pass 5, one block of N threads per (b, h, c): each token's decay
-// gradient gets its chunk's carry
-template <int N>
-__global__ void __launch_bounds__(N)
-wkv6_bwd_decay(const float* __restrict__ part, float* __restrict__ dlw,
-               int H, int T_len, int C, Strides dwst) {
-  const int bh = blockIdx.x / C, c = blockIdx.x % C, n = threadIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int t0 = c * kL, len = min(kL, T_len - t0);
-  const float carry = part[((int64_t)bh * C + c) * 2 * N + n];
-  float* wb = dlw + b * dwst.b + h * dwst.h + n;
-  for (int i = 0; i < len; ++i) wb[(t0 + i) * dwst.t] += carry;
 }
 
 template <typename T, int N>
 int launch_bwd(const void* r, const void* k, const void* v, const float* lw,
                const float* u, const void* dout, const float* dS,
-               const float* S_T, float* scratch, float* bscratch, void* dr,
-               void* dk, void* dv, float* dlw, float* du_part, float* dS0,
-               int B, int H, int T_len, Strides rst, Strides kst,
-               Strides vst, Strides wst, Strides dst, Strides drst,
-               Strides dkst, Strides dvst, Strides dwst,
-               cudaStream_t stream) {
+               float* scratch, float* bscratch, void* dr, void* dk, void* dv,
+               float* dlw, float* du_part, float* dS0, int B, int H,
+               int T_len, Strides rst, Strides kst, Strides vst, Strides wst,
+               Strides dst, Strides drst, Strides dkst, Strides dvst,
+               Strides dwst, cudaStream_t stream) {
   const int C = (T_len + kL - 1) / kL;
   const int BH = B * H;
   const Scratch sc = split_scratch(scratch, (int64_t)BH * C, N);
-  float* V = bscratch;                                 // (BH, C, N, N)
-  float* part = bscratch + (int64_t)BH * C * N * N;    // (BH, C, 2, N)
-  cudaError_t err;
-  if (C > 0) {
-    constexpr int smem = 2 * kL * N * 4;
-    wkv6_bwd_chunk_v<T, N><<<BH * C, 4 * N, smem, stream>>>(
-        (const T*)dout, sc, V, H, T_len, C, dst);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int64_t fold_threads = (int64_t)BH * N * N / 4;
-  wkv6_bwd_fold<N><<<(unsigned)((fold_threads + kFoldThreads - 1) /
-                                kFoldThreads),
-                     kFoldThreads, 0, stream>>>(V, sc.dec, dS, dS0, BH, C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || C == 0) return (int)err;
-  constexpr int smem = bwd_smem_bytes<N>();
-  err = allow_smem(wkv6_bwd_chunk_grads<T, N>, smem);
+  float* G = bscratch;   // (BH, C, N, N): the gradient leaving each chunk
+  constexpr int fold_smem = kFStages * fold_stage_floats<T, N>() * 4;
+  cudaError_t err = allow_smem(wkv6_bwd_fold<T, N>, fold_smem);
   if (err != cudaSuccess) return (int)err;
-  wkv6_bwd_chunk_grads<T, N><<<BH * C, 3 * bwd_group_threads<N>(), smem,
-                               stream>>>(
-      (const T*)r, (const T*)k, (const T*)v, lw, u, (const T*)dout, sc, V,
-      part, (T*)dr, (T*)dk, (T*)dv, dlw, H, T_len, C, rst, kst, vst, wst,
-      dst, drst, dkst, dvst, dwst);
+  wkv6_bwd_fold<T, N><<<BH * (N / kFR), fold_threads<N>(), fold_smem,
+                        stream>>>((const T*)dout, sc, dS, G, dS0, H, T_len,
+                                  C, dst);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wkv6_bwd_carry<N><<<(BH * N + 127) / 128, 128, 0, stream>>>(
-      part, dS, S_T, du_part, BH, C);
-  err = cudaGetLastError();
+  constexpr int smem = grads_smem_bytes<N>();
+  err = allow_smem(wkv6_bwd_chunk<T, N>, smem);
   if (err != cudaSuccess) return (int)err;
-  wkv6_bwd_decay<N><<<BH * C, N, 0, stream>>>(part, dlw, H, T_len, C, dwst);
-  return (int)cudaGetLastError();
+  err = launch_dependent(wkv6_bwd_chunk<T, N>, (unsigned)(BH * C),
+                         grads_threads<N>(), smem, stream, (const T*)r,
+                         (const T*)k, (const T*)v, lw, u, (const T*)dout, sc,
+                         (const float*)G, du_part, (T*)dr, (T*)dk, (T*)dv,
+                         dlw, H, T_len, C, rst, kst, vst, wst, dst, drst,
+                         dkst, dvst, dwst);
+  return (int)err;
 }
 
 }  // namespace
@@ -989,28 +1091,28 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                            H, T_len, rst, kst, vst, wst, ost, s);
 }
 
-// fp32 elements of the scratch that wkv6_bwd needs beside the forward's
+// fp32 elements of the scratch that wkv6_bwd needs beside the forward's:
+// the gradient of the state leaving each chunk
 extern "C" int64_t wkv6_bwd_scratch_floats(int B, int H, int T_len, int N) {
-  return (int64_t)B * H * ((T_len + kL - 1) / kL) * ((int64_t)N * N + 2 * N);
+  return (int64_t)B * H * ((T_len + kL - 1) / kL) * N * N;
 }
 
 // Backward of wkv6_fwd.  r, k, v, log_w, u, S0's shapes and layouts as
 // there; dout: (B, H, T, N) in r's dtype, by its strides (4-aligned, as
 // r); scratch: the forward's scratch, as that call left it; dS (may be
-// null: zero) and S_T (the forward's s_out; read only with dS): (B, H, N,
-// N) fp32 contiguous; bscratch: wkv6_bwd_scratch_floats fp32; dr, dk, dv:
-// (B, H, T, N) in r's dtype and dlw (B, H, T, N) fp32, each by its
-// strides (4-aligned); du_part: (B, H, N) fp32, the per-(b, h) partial of
-// du; dS0 (may be null: not wanted): (B, H, N, N) fp32.  N must be 64.
-// Launches the five passes on `stream`; returns the first launch error.
+// null: zero): (B, H, N, N) fp32 contiguous; bscratch:
+// wkv6_bwd_scratch_floats fp32; dr, dk, dv: (B, H, T, N) in r's dtype and
+// dlw (B, H, T, N) fp32, each by its strides (4-aligned); du_part: (B, H,
+// C, N) fp32, each chunk's share of du (C = ceil(T / 16)); dS0 (may be
+// null: not wanted): (B, H, N, N) fp32.  T > 0; N must be 64.
+// Launches the two passes on `stream`; returns the first launch error.
 extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
                         const float* log_w, const float* u, const void* dout,
-                        const float* dS, const float* S_T, float* scratch,
-                        float* bscratch, void* dr, void* dk, void* dv,
-                        float* dlw, float* du_part, float* dS0, int is_bf16,
-                        int B, int H, int T_len, int N, const int64_t* st,
-                        void* stream) {
-  if (B <= 0 || H <= 0 || T_len < 0 || N != 64)
+                        const float* dS, float* scratch, float* bscratch,
+                        void* dr, void* dk, void* dv, float* dlw,
+                        float* du_part, float* dS0, int is_bf16, int B, int H,
+                        int T_len, int N, const int64_t* st, void* stream) {
+  if (B <= 0 || H <= 0 || T_len <= 0 || N != 64)
     return (int)cudaErrorInvalidValue;
   Strides ss[9];
   for (int i = 0; i < 9; ++i) ss[i] = Strides{st[3 * i], st[3 * i + 1],
@@ -1018,11 +1120,11 @@ extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return launch_bwd<__nv_bfloat16, 64>(
-        r, k, v, log_w, u, dout, dS, S_T, scratch, bscratch, dr, dk, dv, dlw,
+        r, k, v, log_w, u, dout, dS, scratch, bscratch, dr, dk, dv, dlw,
         du_part, dS0, B, H, T_len, ss[0], ss[1], ss[2], ss[3], ss[4], ss[5],
         ss[6], ss[7], ss[8], s);
   return launch_bwd<float, 64>(
-      r, k, v, log_w, u, dout, dS, S_T, scratch, bscratch, dr, dk, dv, dlw,
+      r, k, v, log_w, u, dout, dS, scratch, bscratch, dr, dk, dv, dlw,
       du_part, dS0, B, H, T_len, ss[0], ss[1], ss[2], ss[3], ss[4], ss[5],
       ss[6], ss[7], ss[8], s);
 }

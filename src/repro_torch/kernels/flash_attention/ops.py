@@ -15,12 +15,13 @@ stride of q, k, v (and, backward, o) 16-byte aligned, and the wrapper
 raises otherwise (every caller in the port passes aligned tensors); a
 misaligned output gradient is copied.  The forward takes 128 query rows a
 block where the head dim is at most 128 and that grid covers every SM
-once, else 64; the result has the same bits either way.  The backward at
-D = 64 and 128 rounds P and dS to bf16 before their products
-(``ref.attention_backward_rounded`` is its arithmetic on the CPU).  fp32,
-and bf16 at D = 256 (the backward), run on the SIMT kernels with every
-product in fp32 (``ref.attention_backward``), with no alignment
-condition.
+once, else 64; the result has the same bits either way.  The bf16
+backward rounds P and dS to bf16 before their products
+(``ref.attention_backward_rounded`` is its arithmetic on the CPU) at every
+head dim; at D = 256 its dK/dV pass runs as a dV pass and a dK pass, since
+one warpgroup's registers cannot hold both 256-wide accumulators.  fp32
+runs on the SIMT kernels with every product in fp32
+(``ref.attention_backward``), with no alignment condition.
 
 The kernels read q, k, v through their (batch, head, seq) strides, so the
 model passes ``(B, S, H, D)`` projections as transposed views without a
@@ -44,7 +45,7 @@ __all__ = ["attention", "flash_attention", "flash_attention_bwd",
 HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
 #: head dims whose bf16 backward runs on the tensor cores (TMA-aligned)
-TC_BWD_HEAD_DIMS = (64, 128)
+TC_BWD_HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -167,9 +168,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``(B, Sq, H, D)`` buffer and dk, dv views of ``(B, Sk, KV, D)`` ones, so
     the gradients of the model's transposed projection views come back
     contiguous without a copy.  On CUDA the head dim must be 64, 128 or
-    256; bf16 at 64 and 128 runs on the tensor cores and needs q, k, v and
-    o 16-byte aligned (it raises otherwise; ``do`` is copied where it is
-    not)."""
+    256; bf16 runs on the tensor cores and needs q, k, v and o 16-byte
+    aligned (it raises otherwise; ``do`` is copied where it is not)."""
     _check(q, k, v)
     _check_window(causal, window)
     b, h, sq, d = q.shape

@@ -47,7 +47,7 @@ def _lib():
     lib.wkv6_scratch_floats.argtypes = [ctypes.c_int] * 4
     lib.wkv6_scratch_floats.restype = ctypes.c_int64
     lib.wkv6_chunk_tokens.restype = ctypes.c_int
-    lib.wkv6_bwd.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+    lib.wkv6_bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
                              + [ctypes.c_void_p] * 2)
     lib.wkv6_bwd.restype = ctypes.c_int
     lib.wkv6_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
@@ -147,14 +147,15 @@ def _layout_like_forward(b, t, h, n, dtype, device):
                        device=device).transpose(1, 2)
 
 
-def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None,
-             S_final=None):
+def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None):
     """Gradient of :func:`wkv6` at output gradient ``do`` (B, H, T, N) and
     final-state gradient ``dS`` ((B, H, N, N) fp32 or None: zero).  Returns
     (dr, dk, dv in r's dtype, dlog_w (B, H, T, N) fp32, du (H, N) fp32,
     dS0 (B, H, N, N) fp32 or None when S0 is None).  On CUDA it takes the
-    forward's ``scratch`` (:func:`wkv6_forward`) and, with ``dS``, its
-    ``S_final``; the head size must be 64."""
+    forward's ``scratch`` (:func:`wkv6_forward`); the head size must be 64.
+    The kernel runs two passes (the state gradient's fold, then each
+    chunk's gradients) and leaves each chunk's share of du, which this
+    sums over chunks and the batch."""
     _check(r, k, v, log_w, u, S0)
     if do.shape != r.shape:
         raise ValueError(f"do must have r's shape {tuple(r.shape)}, got "
@@ -172,9 +173,9 @@ def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None,
     if n not in BWD_HEAD_SIZES:
         raise ValueError(f"head size {n} not in the backward kernel's "
                          f"{BWD_HEAD_SIZES}")
-    if scratch is None or (dS is not None and S_final is None):
-        raise ValueError("the backward kernel needs the forward's scratch "
-                         "(and its S_final with dS): see wkv6_forward")
+    if scratch is None:
+        raise ValueError("the backward kernel needs the forward's scratch: "
+                         "see wkv6_forward")
     if do.dtype != r.dtype:
         raise ValueError("do must have r's dtype")
     lib = _lib()
@@ -196,10 +197,10 @@ def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None,
     do = _aligned(do)
     u = u.contiguous()
     dS = None if dS is None else dS.to(torch.float32).contiguous()
-    S_final = None if dS is None else S_final.contiguous()
     bscratch = torch.empty(lib.wkv6_bwd_scratch_floats(b, h, t, n),
                            dtype=torch.float32, device=r.device)
-    du_part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, -(-t // CHUNK), n), dtype=torch.float32,
+                          device=r.device)
     strides = (ctypes.c_int64 * 27)(*(s for x in (r, k, v, log_w, do, dr,
                                                   dk, dv, dlw)
                                       for s in x.stride()[:3]))
@@ -207,8 +208,7 @@ def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None,
     with torch.cuda.device(r.device):
         err = lib.wkv6_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-            u.data_ptr(), do.data_ptr(), ptr(dS), ptr(S_final),
-            scratch.data_ptr(), bscratch.data_ptr(), dr.data_ptr(),
+            u.data_ptr(), do.data_ptr(), ptr(dS), scratch.data_ptr(), bscratch.data_ptr(), dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du_part.data_ptr(),
             ptr(dS0), int(r.dtype == torch.bfloat16), b, h, t, n,
             ctypes.addressof(strides),
@@ -217,8 +217,9 @@ def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None,
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
                            f"{err}")
     wkv6_bwd.launches += 1
-    # du summed over the batch in one fixed order
-    return dr, dk, dv, dlw, du_part.sum(0), dS0
+    # du: the chunks' shares summed over chunks and the batch, in torch's
+    # fixed order for this shape
+    return dr, dk, dv, dlw, du_part.sum((0, 2)), dS0
 
 
 wkv6_bwd.launches = 0
@@ -226,12 +227,12 @@ wkv6_bwd.launches = 0
 
 class _WKV6(torch.autograd.Function):
     """WKV6 with the backward kernel as its gradient: the forward keeps its
-    inputs, its final state and the kernel's scratch."""
+    inputs and the kernel's scratch."""
 
     @staticmethod
     def forward(ctx, r, k, v, log_w, u, S0):
         o, S_final, scratch = wkv6_forward(r, k, v, log_w, u, S0)
-        ctx.save_for_backward(r, k, v, log_w, u, S0, S_final, scratch)
+        ctx.save_for_backward(r, k, v, log_w, u, S0, scratch)
         # an unused output's gradient arrives as None, not as zeros: the
         # training path never reads S_final, so the kernel skips dS
         ctx.set_materialize_grads(False)
@@ -239,11 +240,10 @@ class _WKV6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dS):
-        r, k, v, log_w, u, S0, S_final, scratch = ctx.saved_tensors
+        r, k, v, log_w, u, S0, scratch = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(r)
         dr, dk, dv, dlw, du, dS0 = wkv6_bwd(r, k, v, log_w, u, do, S0, dS,
-                                            scratch=scratch,
-                                            S_final=S_final)
+                                            scratch=scratch)
         return (dr, dk, dv, dlw.to(log_w.dtype), du.to(u.dtype),
                 None if dS0 is None else dS0.to(S0.dtype))

@@ -169,10 +169,14 @@ def wkv6_backward_chunked(r, k, v, log_w, u, do, S0=None, dS=None,
             + exp(-cum_i) sum_{j>i} B[j, i] q_j,
        dv = sum_{j>=i} A[j, i] do_j + kd_i G^c (A the forward's intra-chunk
        matrix, its bonus on the diagonal);
-    4. the decay's gradient as a reverse cumulative sum over the sequence,
-       dlog_w_s = sum_{t>s} r_t dr'_t - sum_{t>=s} k_t dk'_t
-       + rowsum(dS * S_T), where dr', dk' leave out the bonus terms: the
-       gradient of each in-chunk log-decay sum, gathered.
+    4. the decay's gradient, dlog_w_s = sum_{t>s} r_t dr'_t -
+       sum_{t>=s} k_t dk'_t + rowsum(dS * S_T) (dr', dk' without the bonus
+       terms: the gradient of each in-chunk log-decay sum, gathered), as
+       each chunk's reverse sums over its own tokens plus its carry,
+       rowsum(G^c * S_{c+1}): the gradient of a log-decay shift between
+       chunks c and c+1, every (j, t) pair that crosses it, with
+       S_{c+1} = diag(d_c) S_c + kd^T v, so rowsum(G^c * S_{c+1}) =
+       d_c rowsum(G^c * S_c) + sum_i kd_i (G^c v_i).
     Same arguments and results as :func:`wkv6_backward`."""
     dtype = _compute_dtype(r)
     b, h, t, n = r.shape
@@ -200,7 +204,6 @@ def wkv6_backward_chunked(r, k, v, log_w, u, do, S0=None, dS=None,
     for c in range(nc):
         entering.append(S)
         S = dec[:, :, c, :, None] * S + U[:, :, c]
-    S_T = S
     # 1. V_c, 2. the reverse fold
     V = torch.einsum("bhcin,bhcim->bhcnm", q, do32)
     G = (torch.zeros((b, h, n, n), dtype=dtype, device=r.device)
@@ -233,13 +236,14 @@ def wkv6_backward_chunked(r, k, v, log_w, u, do, S0=None, dS=None,
     dv = torch.einsum("bhcji,bhcjm->bhcim", A, do32) \
         + torch.einsum("bhcin,bhcnm->bhcim", kd, Gc)
     du = (r32 * k32 * diag).sum((0, 2, 3))
-    # 4. the decay's gradient
-    a = (r32 * dr_nb).reshape(b, h, nc * L, n)
-    bb = (k32 * dk_nb).reshape(b, h, nc * L, n)
-    rev = lambda x: torch.flip(torch.cumsum(torch.flip(x, [2]), 2), [2])  # noqa: E731
-    dlw = rev(a) - a - rev(bb)
-    if dS is not None:
-        dlw = dlw + (dS.to(dtype) * S_T).sum(-1)[:, :, None]
+    # 4. the decay's gradient: in-chunk reverse sums, then each chunk's
+    # carry, rowsum(G^c * S_{c+1}) with S_{c+1} = diag(d_c) S_c + U_c
+    a = r32 * dr_nb
+    bb = k32 * dk_nb
+    rev = lambda x: torch.flip(torch.cumsum(torch.flip(x, [3]), 3), [3])  # noqa: E731
+    gv = torch.einsum("bhcnm,bhcim->bhcin", Gc, v32)
+    carry = dec * (Gc * Sc).sum(-1) + (kd * gv).sum(3)       # (B, H, C, N)
+    dlw = rev(a) - a - rev(bb) + carry[:, :, :, None]
 
     def seq(x):
         return x.reshape(b, h, nc * L, n)[:, :, :t]

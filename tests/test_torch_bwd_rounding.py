@@ -20,10 +20,14 @@ from repro_torch.kernels.flash_attention import ref  # noqa: E402
 # card checks' limit, unchanged
 FA_BWD_TOL = dict(atol=4e-3, rtol=1e-2)
 # (B, H, KV, S, D, causal, window): olmo-1b's head dim and sequence at two
-# heads, D = 64, a GQA group of 4, window 37, bidirectional (ragged S)
+# heads, D = 64, a GQA group of 4, window 37, bidirectional (ragged S); then
+# D = 256 as recurrentgemma-2b has it (10 query heads on one KV head) under
+# windows 37 and 200, and ragged bidirectional
 CASES = [(1, 2, 2, 2048, 128, True, 0), (1, 2, 2, 2048, 64, True, 0),
          (1, 4, 1, 300, 128, True, 0), (1, 4, 2, 300, 64, True, 37),
-         (2, 4, 2, 129, 128, False, 0), (1, 4, 1, 65, 64, False, 0)]
+         (2, 4, 2, 129, 128, False, 0), (1, 4, 1, 65, 64, False, 0),
+         (1, 10, 1, 300, 256, True, 37), (1, 10, 1, 700, 256, True, 200),
+         (2, 4, 2, 129, 256, False, 0)]
 
 
 def _inputs(b, h, kv, s, d, seed):

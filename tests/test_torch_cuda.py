@@ -787,17 +787,17 @@ def test_train_replay_after_a_crash_is_bit_identical_on_card(cuda_device,
 # the backward kernels of the recurrent families' training
 # ---------------------------------------------------------------------------
 
-# B2 at D = 256 (SIMT, 32-row tiles, P and dS in fp32 in bf16 too):
-# recurrentgemma's 10 query heads on one KV head under windows 1, 37, 200
-# and 2048 (the model's, past a 2100-token sequence's first rows), and the
-# 32-row tiles' edges
+# B2 at D = 256 (bf16 on the tensor cores in 64-row tiles, with a dV pass
+# and a dK pass; fp32 on the SIMT kernels in 32-row tiles): recurrentgemma's
+# 10 query heads on one KV head under windows 1, 37, 200 and 2048 (the
+# model's, past a 2100-token sequence's first rows), and both tiles' edges
 FA_BWD_256_CASES = [(1, 10, 1, 300, 256, True, 1),
                     (1, 10, 1, 333, 256, True, 37),
                     (2, 10, 1, 700, 256, True, 200),
                     (1, 10, 1, 2100, 256, True, 2048),
                     (1, 4, 2, 129, 256, True, 0),
                     (1, 4, 1, 65, 256, False, 0)]
-FA_BWD_256_EDGES = (1, 31, 32, 33, 63, 65, 127)
+FA_BWD_256_EDGES = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)
 
 
 @pytest.mark.cuda
@@ -815,6 +815,22 @@ def test_flash_backward_d256_cases(cuda_device, b, h, kv, s, d, causal,
 def test_flash_backward_d256_tile_edges(cuda_device, s, dtype):
     q, k, v = _qkv_on(cuda_device, 1, 10, 1, s, s, 256, dtype, s)
     _check_flash_bwd(q, k, v, _do_like(q, s), True, 16)
+
+
+@pytest.mark.cuda
+def test_flash_backward_d256_refuses_misaligned_bf16(cuda_device):
+    """bf16 at D = 256 reads q, k, v and o by TMA: a view off the 16-byte
+    grid raises, with no SIMT fallback."""
+    q, k, v = _qkv_on(cuda_device, 1, 10, 1, 96, 96, 256, torch.bfloat16, 9)
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True, window=37)
+    for i in range(4):
+        args = [q, k, v, o]
+        flat = torch.zeros(args[i].numel() + 1, dtype=torch.bfloat16,
+                           device=cuda_device)
+        args[i] = flat[1:].view(args[i].shape).copy_(args[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_ops.flash_attention_bwd(*args, lse, _do_like(q, 10),
+                                       window=37)
 
 
 @pytest.mark.cuda
@@ -913,10 +929,9 @@ WKV_BWD_T = [1, wk_ops.CHUNK - 1, wk_ops.CHUNK, wk_ops.CHUNK + 1,
 def _check_wkv6_bwd(r, k, v, lw, u, S0, dS, seed):
     rng = np.random.default_rng(seed)
     do = torch.from_numpy(rng.normal(size=r.shape)).to(r.device, r.dtype)
-    o, S, scratch = wk_ops.wkv6_forward(r, k, v, lw, u, S0)
+    scratch = wk_ops.wkv6_forward(r, k, v, lw, u, S0)[2]
     before = wk_ops.wkv6_bwd.launches
-    got = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch,
-                          S_final=S)
+    got = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch)
     torch.cuda.synchronize()
     assert wk_ops.wkv6_bwd.launches == before + 1
     assert [g.dtype for g in got[:3]] == [r.dtype] * 3
@@ -932,8 +947,7 @@ def _check_wkv6_bwd(r, k, v, lw, u, S0, dS, seed):
             tol = WKV_TOL[r.dtype] if i < 3 else WKV_TOL[torch.float32]
             scale = max(1.0, float(w.abs().max()))
             torch.testing.assert_close(g.double() / scale, w / scale, **tol)
-    again = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch,
-                            S_final=S)
+    again = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch)
     assert all(x is None and y is None or torch.equal(x, y)
                for x, y in zip(got, again))
 
@@ -981,6 +995,23 @@ def test_wkv6_backward_at_the_train_shape(cuda_device):
         tol = WKV_TOL[r.dtype] if i < 3 else WKV_TOL[torch.float32]
         scale = max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g.double() / scale, w / scale, **tol)
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_repeats_its_bits_at_the_train_shape(cuda_device):
+    """Two calls at rwkv6-3b's training shape, (4, 40, 2048, 64) bf16 with
+    an entering state and a final-state gradient, give the same bits: no
+    atomics, one order for every sum."""
+    r, k, v, lw, u, S0 = _wkv_on(cuda_device, 4, 40, 2048, 64,
+                                 torch.bfloat16, True, "uniform", 7,
+                                 layout="bthn")
+    dS = torch.from_numpy(0.3 * np.random.default_rng(8).normal(
+        size=S0.shape)).to(cuda_device, torch.float32)
+    do = _do_like(r, 9)
+    scratch = wk_ops.wkv6_forward(r, k, v, lw, u, S0)[2]
+    first = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch)
+    second = wk_ops.wkv6_bwd(r, k, v, lw, u, do, S0, dS, scratch=scratch)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.cuda

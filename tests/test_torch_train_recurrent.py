@@ -267,7 +267,7 @@ def test_attention_function_at_d256_on_cpu_matches_jax_vjp(b, h, kv, s,
 
 def test_d256_is_a_backward_head_dim():
     assert 256 in fa_ops.BWD_HEAD_DIMS
-    assert 256 not in fa_ops.TC_BWD_HEAD_DIMS
+    assert 256 in fa_ops.TC_BWD_HEAD_DIMS
 
 
 # ---------------------------------------------------------------------------
