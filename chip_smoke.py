@@ -29,7 +29,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    windows 1/37/2048, in fp32 and bf16, with the forward's row
    log-sum-exp against its plain version, the forward's bits unchanged
    when it writes the lse, a bit-identical repeat, and a x1.1
-   softmax-scale mutant of the backward failing the limit;
+   softmax-scale mutant of the backward failing the limit; B2 at the
+   decoder-only families' shapes before any of them runs: the forward at
+   each one's largest prefill bucket (GQA groups 2 at D = 64, and 4, 7, 48
+   and 12), timed beside SDPA, and the backward at granite-moe-1b's
+   training shape (timed) and at groups 7, 12 and 48 (the MQA one timed);
 4. planner: the CRCH workflow planner at the paper's largest size, each
    of the four workflow types at 700 tasks on 20 VMs under each of the
    three failure environments: ``crch.plan`` on the card (PCA and B1 there,
@@ -43,7 +47,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    ``core.clustering.compare_merges``), and a repeated card plan must be
    identical;
 5. then, for each family the port serves (olmo-1b, rwkv6-3b,
-   recurrentgemma-2b), at full width (random seeded weights, bf16):
+   recurrentgemma-2b, granite-moe-1b-a400m, deepseek-coder-33b,
+   granite-20b, phi3.5-moe-42b-a6.6b, command-r-plus-104b), at full width
+   (random seeded weights drawn a layer at a time straight into bf16;
+   :data:`SERVE_LAYERS` cuts the depth of the four largest) with its peak
+   device memory:
 
    a. serve: the port's launcher with CRCH replication under the
       ``unstable`` failure environment; every request must complete,
@@ -57,7 +65,12 @@ Phases, in order; the first failure ends the run with a non-zero exit:
       change the output);
    d. reference parity: engine tokens against the batch=1 greedy reference;
       where they part, the reference's logit gap between the two tokens must
-      be below a bound derived from measured logit differences.
+      be below a bound derived from measured logit differences.  The MoE
+      families count each request's pairs dropped for capacity in both
+      runs (the engine prefills a bucket, the reference the exact length,
+      and the capacity follows the length); a request with drops that
+      diverges is printed as a capacity divergence, the rule holds on the
+      others.
 
    Each family's engines are freed before the next family starts.
 
@@ -77,13 +90,16 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    net_partition, disk_full) under the launcher's ``--chaos-assert``;
 8. train rwkv6-3b and recurrentgemma-2b at their published widths and a
    cut depth (``FAMILY_TRAIN``: the largest whose peak device memory stays
-   under ~70 GB; recurrentgemma at 3k + 2 layers), through the launcher's
+   under ~70 GB; recurrentgemma at 3k + 2 layers), and granite-moe-1b-a400m
+   whole (its logged loss must be xent + 0.01 x the MoE aux loss, aux > 0),
+   through the launcher's
    ``build`` and its train step, deterministic: step time, tokens/s, model
    FLOPs and their share of the bf16 peak, peak memory, a profiled step,
    and every kernel of the family's path launched (B3 forward and
    backward; B4 forward and backward and B2 forward and backward at
    D = 256);
-9. a crash run of each at reduced depth (rwkv6 2 layers, recurrentgemma 3),
+9. a crash run of each at reduced depth (rwkv6 2 layers, recurrentgemma 3,
+   granite-moe 2),
    4 x 512 tokens, through the launcher's code path with a forced crash:
    final params bit-identical to a fault-free run (sha1 of every leaf),
    restores == failures > 0.
@@ -166,6 +182,16 @@ FA_BWD_CASES = [(2, 4, 4, 200, 128, 0), (2, 4, 2, 200, 128, 0),
                 (2, 8, 2, 200, 64, 0), (1, 4, 2, 300, 64, 1),
                 (1, 4, 2, 300, 128, 37), (1, 4, 4, 2100, 128, 2048)]
 
+# the decoder-only families besides olmo-1b (NEW_DECODERS): B2 forward at
+# each one's largest prompt bucket (decoder_prefill_shapes), the backward at
+# granite-moe-1b-a400m's training shape (4 x 2048 tokens, 16 query heads of
+# 64 on 8 KV heads) and at the new GQA groups 7 (deepseek-coder-33b, 56:8),
+# 12 (command-r-plus-104b, 96:8) and 48 (granite-20b's MQA, 48:1) with
+# every query head of the family, at a short S
+FA_BWD_MOE_MAIN = (4, 16, 8, 2048, 64)
+FA_BWD_GROUP_CASES = [(1, 56, 8, 256, 128), (1, 96, 8, 256, 128),
+                      (1, 48, 1, 512, 128)]
+
 # the flash-attention backward at D = 256 (bf16 on the tensor cores in
 # 64-row tiles, a dQ, a dV and a dK pass; fp32 on the SIMT kernels in 32-row
 # tiles): recurrentgemma's training shape, global batch 2 x 4096 tokens, 10
@@ -193,13 +219,28 @@ LRU_BWD_EDGES = [(1, 1, 2560), (2, 57, 300), (2, 129, 130), (1, 3055, 2560)]
 
 # the families served, each with its prompt length and the kernels its
 # serve path must launch
+DECODER = (384, ("pairwise_distance", "flash_attention"))
 FAMILIES = {
-    "olmo-1b": (384, ("pairwise_distance", "flash_attention")),
+    "olmo-1b": DECODER,
     "rwkv6-3b": (384, ("pairwise_distance", "wkv6")),
     # prompts draw from 1536..3072 tokens: most exceed the 2048 window
     "recurrentgemma-2b": (3072, ("pairwise_distance", "flash_attention",
                                  "lru_scan")),
+    "granite-moe-1b-a400m": DECODER,
+    "deepseek-coder-33b": DECODER,
+    "granite-20b": DECODER,
+    "phi3.5-moe-42b-a6.6b": DECODER,
+    "command-r-plus-104b": DECODER,
 }
+#: serve depth cuts (the published widths are kept): bf16 weights of
+#: phi3.5-moe (83.7 GB) and command-r-plus (207.6 GB) do not fit one 80 GB
+#: card, 24 and 18 layers take ~63 GB each; deepseek-coder-33b and
+#: granite-20b fit whole (66.7 and 56.3 GB, peaks 71.0 and 60.7 GB) but are
+#: served at a quarter of their depth so that the script stays well within
+#: its time limit (on one H100 their phases took 137 and 118 s whole, 70
+#: and 46 s at half depth, mostly host-bound decoding)
+SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 24, "command-r-plus-104b": 18,
+                "deepseek-coder-33b": 16, "granite-20b": 13}
 
 
 def serve_args(arch):
@@ -207,6 +248,28 @@ def serve_args(arch):
             str(FAMILIES[arch][0]), "--new-tokens", "32", "--workers", "2",
             "--slots-per-worker", "2", "--policy", "crch", "--seed", "0",
             "--device", "cuda"]
+
+
+def serve_config(arch):
+    """``arch``'s published config, cut to :data:`SERVE_LAYERS`."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in SERVE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
+    return cfg
+
+
+def serve_run(arch, env, params=None):
+    """The serve launcher on ``arch`` under ``env``: its ``main`` for an
+    uncut family with its own seeded weights, else the same code path
+    (``continuous_main``) on the cut config or with ``params``."""
+    from repro_torch.launch import serve as launch
+    argv = serve_args(arch) + ["--env", env]
+    if arch not in SERVE_LAYERS and params is None:
+        return launch.main(argv)
+    return launch.continuous_main(
+        serve_config(arch), launch.build_parser().parse_args(argv),
+        params=params)
 
 # the planner phase: the paper's workflow types at its largest size
 PLANNER_KINDS = ("montage", "cybershake", "ligo", "sipht")
@@ -925,6 +988,11 @@ def lru_bwd_case(b, s, w, with_h0, *, timed):
     return rec
 
 
+#: the decoder-only families besides olmo-1b
+NEW_DECODERS = ("granite-moe-1b-a400m", "deepseek-coder-33b", "granite-20b",
+                "phi3.5-moe-42b-a6.6b", "command-r-plus-104b")
+
+
 def family_requests(arch):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_parser, make_requests
@@ -953,6 +1021,43 @@ def main_path_shapes():
     window = ((1, gcfg.n_heads, gcfg.n_kv_heads, s, gcfg.head_dim),
               gcfg.window)
     return (len(reqs), k), fa, wkv, window, (1, s, gcfg.lru_width)
+
+
+def decoder_prefill_shapes():
+    """B2's largest prefill shape in each of :data:`NEW_DECODERS`: one
+    request at its largest prompt bucket."""
+    from repro_torch.serve import prompt_bucket
+    out = {}
+    for arch in NEW_DECODERS:
+        cfg, reqs = family_requests(arch)
+        s = max(prompt_bucket(r.prompt_len) for r in reqs)
+        out[arch] = (1, cfg.n_heads, cfg.n_kv_heads, s, cfg.head_dim)
+    return out
+
+
+def decoder_kernel_cases(recs):
+    """B2 at :data:`NEW_DECODERS`' shapes, before any of them runs: the
+    forward at each one's prefill shape (GQA groups 2 at
+    D = 64, and 4, 7, 48, 12 at D = 128), timed beside SDPA; the backward at
+    granite-moe-1b's training shape (timed) and at groups 7, 12 and 48 (the
+    MQA one timed: each dK/dV block sums 48 query heads), fp32 and bf16,
+    causal and bidirectional."""
+    for arch, shape in decoder_prefill_shapes().items():
+        rec = flash_case(*shape, "bfloat16", True, timed=True)
+        rec["arch"] = arch
+        recs[f"flash_attention_{arch}"] = rec
+        flash_case(*shape, "float32", True, timed=False)
+    recs["flash_attention_bwd_moe"] = flash_bwd_case(
+        *FA_BWD_MOE_MAIN, "bfloat16", True, timed=True)
+    flash_bwd_case(*FA_BWD_MOE_MAIN, "float32", True, timed=False)
+    for shape in FA_BWD_GROUP_CASES:
+        mqa = shape[1] // shape[2] == 48
+        rec = flash_bwd_case(*shape, "bfloat16", True, timed=mqa)
+        if mqa:
+            recs["flash_attention_bwd_mqa"] = rec
+        flash_bwd_case(*shape, "float32", True, timed=False)
+        flash_bwd_case(*shape[:3], 129, shape[4], "bfloat16", False,
+                       timed=False)
 
 
 def phase_kernels():
@@ -1032,6 +1137,7 @@ def phase_kernels():
         for b, h, kv, s, d, causal, window in FA_BWD_256_CASES:
             flash_bwd_case(b, h, kv, s, d, dt, causal, timed=False,
                            window=window)
+    decoder_kernel_cases(recs)
     recs["wkv6_bwd"] = wkv6_bwd_case(*WKV_BWD_MAIN, "bfloat16", False,
                                      timed=True)
     wkv6_bwd_case(*WKV_BWD_MAIN[:3], 64, "float32", False, timed=False)
@@ -1176,14 +1282,18 @@ def phase_planner():
 # ---------------------------------------------------------------------------
 
 def phase_serve(arch):
-    from repro_torch.launch import serve as launch
+    import torch
     counted = wrappers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    res = launch.main(serve_args(arch) + ["--env", "unstable"])
+    res = serve_run(arch, "unstable")
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
     s, eng = res["summary"], res["engine"]
     tm = eng.timing
     plens = [r.prompt_len for r in res["requests"]]
@@ -1199,10 +1309,19 @@ def phase_serve(arch):
         "resubmissions": int(s["resubmissions"]),
         "restores": int(s["restores"]),
         "by_class": {str(c): r for c, r in res["policy"].by_class.items()},
-        "prompt_lens": plens, "launches": launches}
+        "prompt_lens": plens, "launches": launches,
+        "layers": eng.cfg.n_layers, "peak_gb": peak / 1e9}
     print(f"serve {arch} (unstable): {json.dumps(serve_rec)} "
           f"(phase {wall:.1f} s)")
     cfg = eng.cfg
+    from repro_torch.configs import get_config
+    from repro_torch.tree import flatten
+    leaves = [t for _, t in flatten(eng.params)]
+    print(f"  serve {arch}: published widths, {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers, "
+          f"{sum(t.numel() for t in leaves) / 1e9:.3f} B params in "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB;"
+          f" peak device memory {peak / 1e9:.2f} GB")
     if cfg.rwkv or cfg.rglru:
         odd = [p for p in plens if p % 16]
         print(f"  exact-length prefill: {len(odd)}/{len(plens)} prompt "
@@ -1323,9 +1442,9 @@ def profile_engine(res, steps=8):
 
 
 def phase_fault_transparency(arch, res):
+    """The same requests with no failures, on the same weights."""
     import torch
-    from repro_torch.launch import serve as launch
-    clean = launch.main(serve_args(arch) + ["--env", "none"])
+    clean = serve_run(arch, "none", params=res["params"])
     check(clean["summary"]["failures"] == 0, "the --env none run failed")
     diff = [r.rid for r in res["requests"]
             if res["engine"].output(r.rid) != clean["engine"].output(r.rid)]
@@ -1338,6 +1457,23 @@ def phase_fault_transparency(arch, res):
     torch.cuda.empty_cache()
 
 
+def _dropped(log, real=None):
+    """(token, choice) pairs the MoE layers dropped for capacity in the
+    calls whose keep masks ``log`` holds; with ``real``, among the first
+    ``real`` tokens of each (one-row) group only."""
+    return sum(int((~k[:, :real]).sum()) for k in log)
+
+
+def _moe_logged(fn):
+    """``fn()`` with the MoE keep masks logged: (its result, the log)."""
+    from repro_torch.models import layers
+    layers.keep_log = []
+    try:
+        return fn(), layers.keep_log
+    finally:
+        layers.keep_log = None
+
+
 def phase_reference(res):
     """Engine tokens against the batch=1 reference.  The two paths differ
     in prompt padding (dense only: the recurrent families prefill at the
@@ -1346,7 +1482,17 @@ def phase_reference(res):
     reference's logit gap between the two tokens is below BOUND = 4 * delta,
     delta the largest logit difference measured between the two paths'
     prefill (engine length vs exact) and first decode step (batch 4 vs
-    batch 1) (2 for the two logits, 2 for growth over the decode steps)."""
+    batch 1) (2 for the two logits, 2 for growth over the decode steps).
+
+    MoE families: an expert's capacity follows the dispatch group's length
+    (JAX's design), so the engine's bucket-padded prefill and the
+    reference's exact one may drop different (token, choice) pairs.  Each
+    request's dropped pairs are counted in both runs (the engine's among
+    the prompt's own tokens: the padding comes after them in token order);
+    delta is measured and the gap rule held only on requests where neither
+    dropped one, and a divergence on another is printed as a capacity
+    divergence and counted.  A decode step cannot drop: its group is the
+    batch (at most 4 slots) and a capacity is at least 4."""
     import torch
     from repro_torch.distributed.steps import (make_prefill_step,
                                                make_serve_step)
@@ -1359,13 +1505,20 @@ def phase_reference(res):
     serve = make_serve_step(cfg)
     n = eng.pool.n_slots
     delta = 0.0
+    drops = {}
     for r in res["requests"]:
         p = r.prompt_len
         toks = torch.zeros((1, _prefill_len(cfg, p)), dtype=torch.int32)
         toks[0, :p] = torch.as_tensor(r.prompt)
-        lp, _ = pre(params, {"tokens": toks.cuda()},
-                    torch.tensor([p - 1], device="cuda"))
-        le, cache = pre(params, {"tokens": toks[:, :p].cuda()})
+        (lp, _), log_p = _moe_logged(lambda: pre(
+            params, {"tokens": toks.cuda()},
+            torch.tensor([p - 1], device="cuda")))
+        (le, cache), log_e = _moe_logged(lambda: pre(
+            params, {"tokens": toks[:, :p].cuda()}))
+        drops[r.rid] = (_dropped(log_p, p), _dropped(log_e))
+        if sum(drops[r.rid]):
+            del cache
+            continue
         delta = max(delta, float((lp - le).abs().max()))
         tok = torch.argmax(le, -1).to(torch.int32)[:, None]
         wide = {k: v.repeat_interleave(n, dim=axes[k])
@@ -1377,38 +1530,68 @@ def phase_reference(res):
     bound = 4 * delta
     print(f"reference parity {cfg.name}: measured path logit difference "
           f"delta {delta:.4g}, divergence bound 4*delta = {bound:.4g}")
-    exact, worst = 0, 0.0
+    if cfg.is_moe:
+        print(f"  MoE capacity: dropped (token, choice) pairs a request, "
+              f"engine's bucket prefill / reference's exact prefill: "
+              f"{ {rid: d for rid, d in drops.items()} }")
+    exact, worst, capacity = 0, 0.0, []
     for r in res["requests"]:
-        ref_toks, logits = greedy_decode(params, cfg, r, cache_len,
-                                         device="cuda")
         got = eng.output(r.rid)
+        (ref_toks, logits), log = _moe_logged(lambda: greedy_decode(
+            params, cfg, r, cache_len, device="cuda", expect=got))
+        check(_dropped(log) == drops[r.rid][1],
+              f"rid {r.rid}: the reference's decode dropped MoE pairs")
         t = next((i for i, (a, b) in enumerate(zip(got, ref_toks))
                   if a != b), None)
         if t is None:
             check(len(got) == len(ref_toks), f"rid {r.rid}: length differs")
             exact += 1
             continue
+        # the reference stopped after the first token that differs
+        check(t == len(ref_toks) - 1, f"rid {r.rid}: decoded past a "
+                                      f"divergence")
         gap = float(logits[t, ref_toks[t]] - logits[t, got[t]])
+        if sum(drops[r.rid]):
+            capacity.append(r.rid)
+            print(f"  rid {r.rid}: CAPACITY DIVERGENCE at step {t} (engine "
+                  f"{got[t]}, reference {ref_toks[t]}, reference gap "
+                  f"{gap:.4g}): dropped pairs engine {drops[r.rid][0]}, "
+                  f"reference {drops[r.rid][1]}")
+            continue
         worst = max(worst, gap)
         print(f"  rid {r.rid}: first differs at step {t} "
               f"(engine {got[t]}, reference {ref_toks[t]}), reference gap "
               f"{gap:.4g} {'<=' if gap <= bound else '>'} bound")
         check(gap <= bound, f"rid {r.rid}: divergence at step {t} with "
                             f"logit gap {gap:.4g} > bound {bound:.4g}")
+    held = sum(1 for d in drops.values() if not sum(d))
     print(f"reference parity {cfg.name}: {exact}/{len(res['requests'])} "
           f"token-exact, largest divergence gap {worst:.4g} (bound "
-          f"{bound:.4g})")
-    return {"exact": exact, "delta": delta, "bound": bound, "worst_gap": worst}
+          f"{bound:.4g}) on the {held} requests without dropped pairs"
+          + (f"; {len(capacity)} capacity divergences (rids {capacity})"
+             if cfg.is_moe else ""))
+    return {"exact": exact, "delta": delta, "bound": bound, "worst_gap": worst,
+            "capacity_divergences": capacity, "drops": drops}
 
 
 def phase_family(arch):
     """Serve, profile, fault transparency and reference parity of one
-    family; frees its engines before returning the launch counts."""
+    family, each part's host seconds printed; frees its engines before
+    returning the launch counts."""
     import torch
+    t = [time.perf_counter()]
     res, _, launches = phase_serve(arch)
+    t.append(time.perf_counter())
     profile_engine(res)
+    t.append(time.perf_counter())
     phase_fault_transparency(arch, res)
+    t.append(time.perf_counter())
     phase_reference(res)
+    t.append(time.perf_counter())
+    print(f"{arch} parts (s): " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(
+            ("serve", "profile", "fault transparency", "reference"),
+            t, t[1:])))
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -1475,7 +1658,9 @@ def tree_digest(tree):
 
 def matmul_params(cfg):
     """Parameters that enter a matrix product a token (the embedding is a
-    gather; the output head a product), by family."""
+    gather; the output head a product), by family: an MoE layer's router
+    and its top_k of n_experts experts (as ``active_param_count``); a
+    parallel block's attention and MLP are those of a sequential one."""
     from repro_torch.models import lm
     from repro_torch.models.rwkv6 import LORA_R
     d, ff = cfg.d_model, cfg.d_ff
@@ -1484,7 +1669,8 @@ def matmul_params(cfg):
         # r, k, v, g, o; the ddlerp and decay LoRAs; the channel mix
         layer = 6 * d * d + 10 * d * LORA_R + 2 * d * LORA_R + 2 * d * ff
         return cfg.n_layers * layer + head
-    mlp = 3 * d * ff
+    mlp = (d * cfg.n_experts + cfg.top_k * 3 * d * ff if cfg.is_moe
+           else 3 * d * ff)
     attn = (2 * d * cfg.n_heads * cfg.head_dim
             + 2 * d * cfg.n_kv_heads * cfg.head_dim)
     if cfg.rglru:
@@ -1675,11 +1861,16 @@ FAMILY_TRAIN = {
                               kernels=("lru_scan", "lru_scan_bwd",
                                        "flash_attention",
                                        "flash_attention_bwd")),
+    # uncut: 1.335 B params, ~37 GB at ~28 bytes a parameter
+    "granite-moe-1b-a400m": dict(layers=24, batch=4, seq=2048,
+                                 kernels=("flash_attention",
+                                          "flash_attention_bwd")),
 }
 FAMILY_TRAIN_STEPS = 4   # the first warms up; the time is the others' median
 MEM_TARGET = 70e9
 # the crash runs at reduced depth (recurrentgemma: one super block)
-CRASH_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3}
+CRASH_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3,
+                "granite-moe-1b-a400m": 2}
 CRASH_ARGS = ["--steps", "6", "--global-batch", "4", "--seq-len", "512",
               "--seed", "0", "--device", "cuda", "--ckpt-gamma-s", "0.001"]
 CRASH_STEP = 4
@@ -1745,12 +1936,85 @@ def phase_train_family(arch, tmp):
         check(launches[name] > 0, f"the {arch} train path never launched "
                                   f"{name}")
     batch = pipe.batch_at(FAMILY_TRAIN_STEPS)
+    if cfg.is_moe:
+        moe_aux_check(arch, cfg, params, step_fn(params, opt, batch)[2],
+                      batch)
+        moe_layer_split(arch, cfg, params, b, seq)
     _profile(f"{arch} train step ({b} x {seq}, {cfg.n_layers} layers)",
              lambda: float(step_fn(params, opt, batch)[2]["loss"]), 1)
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def moe_aux_check(arch, cfg, params, metrics, batch):
+    """The load-balancing loss is in the logged loss: the train step's loss
+    on ``batch`` equals ``forward_train``'s xent + 0.01 * aux on the same
+    params, with aux > 0."""
+    import math
+    import torch
+    from repro_torch.models import lm
+    with torch.no_grad():
+        total, m = lm.forward_train(
+            params, cfg, {k: torch.as_tensor(v).cuda()
+                          for k, v in batch.items()}, xent_chunk=512)
+    logged, xent, aux = float(metrics["loss"]), float(m["xent"]), \
+        float(m["aux"])
+    print(f"train {arch}: logged loss {logged:.6f} = xent {xent:.6f} + "
+          f"0.01 x aux {aux:.6f} (forward_train on the same params and "
+          f"batch: {float(total):.6f}); aux {aux / cfg.n_layers:.4f} a layer"
+          f" (1.0 at a uniform routing)")
+    check(aux > 0, f"{arch}: the MoE aux loss is {aux}")
+    check(math.isclose(logged, xent + 0.01 * aux, rel_tol=1e-5),
+          f"{arch}: the logged loss {logged} is not xent + 0.01 aux "
+          f"{xent + 0.01 * aux}")
+
+
+def moe_layer_split(arch, cfg, params, b, s):
+    """Where an MoE layer's time goes in the train step: the device time
+    (sum of its kernels, ``torch.profiler``) of one layer's forward and
+    backward at the step's shape, beside that of its three expert products
+    alone on rows of the same (E, G_count * C, D) shape; the rest is the
+    routing (top-k, positions, the gathers both ways) and the combine."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    dt = getattr(torch, cfg.compute_dtype)
+    p = {k: v[0].detach().requires_grad_()
+         for k, v in params["layers"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda",
+                    dtype=dt).requires_grad_()
+    groups = b * s // min(s, layers.MOE_GROUP)
+    g = b * s // groups
+    cap = max(int(math.ceil(g * cfg.top_k / cfg.n_experts
+                            * cfg.capacity_factor)), 4)
+    xe = torch.randn((cfg.n_experts, groups * cap, cfg.d_model),
+                     generator=gen, device="cuda",
+                     dtype=dt).requires_grad_()
+
+    def layer():
+        out, aux = layers.moe_forward(p, x, cfg)
+        torch.autograd.grad((out, aux), [x, *p.values()],
+                            (torch.ones_like(out), torch.ones_like(aux)))
+
+    def products():
+        w = [p[k] for k in ("w_gate", "w_up", "w_down")]
+        h = F.silu(torch.bmm(xe, w[0].to(dt))) * torch.bmm(xe, w[1].to(dt))
+        ye = torch.bmm(h, w[2].to(dt))
+        torch.autograd.grad(ye, [xe, *w], torch.ones_like(ye))
+
+    whole = sum(kernel_device_ms(layer).values())
+    prods = sum(kernel_device_ms(products).values())
+    print(f"train {arch}: one MoE layer's forward and backward at "
+          f"{b} x {s} tokens ({groups} groups, {cap} slots an expert in "
+          f"each): "
+          f"{whole:.3f} ms of device time, of which its expert products "
+          f"{prods:.3f} ms and the routing and combine {whole - prods:.3f} "
+          f"ms; x {cfg.n_layers} layers (remat runs each forward twice)")
+    return whole, prods
 
 
 def phase_train_crash(arch, tmp):
@@ -1854,7 +2118,10 @@ def kernel_records(recs, by_path):
     pairwise_distance's (4096, 10) case and its planner case (montage's
     700-task projection).  flash_attention_bwd's record is olmo-1b's
     training shape; its D = 256 instance at recurrentgemma-2b's (bf16 on
-    the tensor cores, and fp32 on SIMT) rides along.  wkv6_bwd's and lru_scan_bwd's records
+    the tensor cores, and fp32 on SIMT), granite-moe-1b-a400m's training
+    shape (``moe_case``) and granite-20b's MQA group of 48 (``mqa_case``)
+    ride along, as do flash_attention's prefill shapes of the decoder-only
+    families (``decoder_cases``).  wkv6_bwd's and lru_scan_bwd's records
     are rwkv6-3b's and recurrentgemma-2b's training shapes."""
     out = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -1872,11 +2139,17 @@ def kernel_records(recs, by_path):
                                 for k in TIMED_KEYS}
             rec["train_case"] = {k: recs[name + "_train"][k]
                                  for k in TIMED_KEYS}
+            rec["decoder_cases"] = {
+                arch: {k: recs[f"{name}_{arch}"][k] for k in TIMED_KEYS}
+                for arch in NEW_DECODERS}
         if name == "flash_attention_bwd":
             for case in ("d256", "d256_fp32"):
                 rec[case + "_case"] = {
                     "window": recs[f"{name}_{case}"]["window"],
                     **{k: recs[f"{name}_{case}"][k] for k in TIMED_KEYS}}
+            for case in ("moe", "mqa"):
+                rec[case + "_case"] = {k: recs[f"{name}_{case}"][k]
+                                       for k in TIMED_KEYS}
         if name == "pairwise_distance":
             rec["large_case"] = {k: recs[name + "_large"][k]
                                  for k in TIMED_KEYS}

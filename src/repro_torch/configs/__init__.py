@@ -9,18 +9,24 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("olmo_1b", "rwkv6_3b", "recurrentgemma_2b")
+ARCHS = ("deepseek_coder_33b", "command_r_plus_104b", "olmo_1b",
+         "granite_20b", "phi35_moe_42b", "granite_moe_1b",
+         "recurrentgemma_2b", "rwkv6_3b")
 
 # CLI ids (--arch <id>) -> module names
-ALIASES = {"olmo-1b": "olmo_1b", "rwkv6-3b": "rwkv6_3b",
-           "recurrentgemma-2b": "recurrentgemma_2b"}
+ALIASES = {
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "olmo-1b": "olmo_1b",
+    "granite-20b": "granite_20b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-3b": "rwkv6_3b",
+}
 
 # families of the JAX package that the port does not run yet
-NOT_PORTED = (
-    "deepseek_coder_33b", "command_r_plus_104b", "granite_20b",
-    "phi35_moe_42b", "granite_moe_1b", "llava_next_mistral_7b",
-    "whisper_small",
-)
+NOT_PORTED = ("llava_next_mistral_7b", "whisper_small")
 
 
 def get_config(name: str, *, tiny: bool = False):

@@ -11,7 +11,11 @@ token-for-token against the batch=1 reference.  Runs on the GPU unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --tiny --device cpu --requests 6 --policy crch --env normal
 
-``--arch`` takes olmo-1b, rwkv6-3b or recurrentgemma-2b.
+``--arch`` takes olmo-1b, deepseek-coder-33b, granite-20b,
+command-r-plus-104b, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b, rwkv6-3b
+or recurrentgemma-2b (the MoE and parallel-block families on the CPU:
+``--arch granite-moe-1b-a400m --tiny --device cpu``,
+``--arch command-r-plus-104b --tiny --device cpu``).
 """
 from __future__ import annotations
 
@@ -79,9 +83,12 @@ def make_requests(cfg, n: int, prompt_len: int, new_tokens: int,
     return reqs
 
 
-def continuous_main(cfg, args) -> dict:
+def continuous_main(cfg, args, *, params=None) -> dict:
     """Run the engine over the seeded requests; returns what a caller needs
-    to check the run (engine, requests, params, cache_len, summary...)."""
+    to check the run (engine, requests, params, cache_len, summary...).
+    ``params`` (in the compute dtype, e.g. an earlier run's) replaces the
+    seeded draw, so that two runs of a model that fills the device share
+    one copy of its weights."""
     device = torch.device(args.device)
     reqs = make_requests(cfg, args.requests, args.prompt_len,
                          args.new_tokens, args.seed)
@@ -103,8 +110,9 @@ def continuous_main(cfg, args) -> dict:
         args.max_steps, 8 * max(r.max_new_tokens for r in reqs))
     chaos = make_chaos(args, kinds=SERVE_KINDS, n_targets=args.workers,
                        horizon=horizon)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm.init_params(cfg, gen)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = lm.init_params(cfg, gen, cast=True)
     engine = ServeEngine(
         cfg, EngineConfig(cache_len=cache_len,
                           max_queue_depth=args.max_queue_depth or None),
@@ -178,7 +186,8 @@ def continuous_main(cfg, args) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--arch", default="olmo-1b",
+                    help="the family: " + ", ".join(lm.TRAIN_FAMILIES))
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--requests", "--batch", type=int, default=4,
                     dest="requests")

@@ -7,13 +7,19 @@ recorder), which wait for later slices.  The train step runs under
 store, the dynamic checkpoint interval, an optional Weibull failure
 injector and the ``--chaos*`` fault traces, and prints the JAX launcher's
 lines.  Runs on the GPU unless ``--device cpu`` is given; ``--arch`` takes
-the families the port trains (olmo-1b, rwkv6-3b, recurrentgemma-2b).
+the families the port trains (``lm.TRAIN_FAMILIES``: olmo-1b,
+deepseek-coder-33b, granite-20b, command-r-plus-104b, granite-moe-1b-a400m,
+phi3.5-moe-42b-a6.6b, rwkv6-3b, recurrentgemma-2b; the MoE families add
+their load-balancing loss to the loss, as in JAX).
 
     PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
         --steps 20 --global-batch 4 --seq-len 32 --inject-mtbf-steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
         --tiny --device cpu --steps 12 --global-batch 4 --seq-len 32 \\
         --inject-mtbf-steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-1b-a400m --tiny --device cpu --steps 12 \\
+        --global-batch 4 --seq-len 32 --inject-mtbf-steps 5
 
 On the GPU the run is deterministic (``torch.use_deterministic_algorithms``
 and a fixed cuBLAS workspace, set before the first cuBLAS call), so a step
@@ -134,7 +140,8 @@ def run(cfg, args, built: dict) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--arch", default="olmo-1b",
+                    help="the family: " + ", ".join(lm.TRAIN_FAMILIES))
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)

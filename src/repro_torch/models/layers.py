@@ -1,7 +1,8 @@
-"""Model primitives: norms, rotary, GQA attention, MLP.
+"""Model primitives: norms, rotary, GQA attention, MLP, MoE.
 
 Counterpart of ``repro.models.layers`` for the families the port serves
-(olmo-1b, rwkv6-3b, recurrentgemma-2b).  Parameters are plain dicts of
+(the decoder-only dense and MoE families, rwkv6-3b, recurrentgemma-2b).
+Parameters are plain dicts of
 tensors; compute runs in the input's dtype with fp32 softmax and
 normalisation.  Layouts at the public functions are the JAX package's:
 activations ``(B, S, D)``, q/k/v ``(B, S, H, D)``, caches
@@ -10,7 +11,10 @@ attention run on the flash attention kernel, and under autograd (training)
 its gradient on the flash-attention backward kernel; one-token decode
 attention is plain torch ops (the JAX package has no kernel there either).
 Every op is differentiable: weights are cast to the compute dtype at each
-use (``.to(dtype)``), so training keeps fp32 parameters.
+use (``.to(dtype)``), so training keeps fp32 parameters.  The MoE layer
+routes each kept (token, choice) pair to its (expert, slot) row by gathers,
+forward and backward (:class:`_Route`), where the JAX function multiplies
+one-hot dispatch and combine tensors.
 """
 from __future__ import annotations
 
@@ -98,22 +102,40 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 def init_attention(generator, cfg: ModelConfig):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": dense_init((d, h * hd), generator),
         "wk": dense_init((d, kv * hd), generator),
         "wv": dense_init((d, kv * hd), generator),
         "wo": dense_init((h * hd, d), generator),
     }
+    if cfg.use_bias:
+        dev = generator.device
+        p["bq"] = torch.zeros((h * hd,), dtype=torch.float32, device=dev)
+        p["bk"] = torch.zeros((kv * hd,), dtype=torch.float32, device=dev)
+        p["bv"] = torch.zeros((kv * hd,), dtype=torch.float32, device=dev)
+        p["bo"] = torch.zeros((d,), dtype=torch.float32, device=dev)
+    return p
 
 
 def _project_qkv(p, x, cfg: ModelConfig, n_heads, n_kv, dtype):
+    """q, k, v with their biases (``use_bias``) added before rope."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = x @ p["wq"].to(dtype)
     k = x @ p["wk"].to(dtype)
     v = x @ p["wv"].to(dtype)
+    if "bq" in p:
+        q, k, v = (q + p["bq"].to(dtype), k + p["bk"].to(dtype),
+                   v + p["bv"].to(dtype))
     return (q.reshape(b, s, n_heads, hd), k.reshape(b, s, n_kv, hd),
             v.reshape(b, s, n_kv, hd))
+
+
+def _out_proj(p, out, dtype):
+    out = out @ p["wo"].to(dtype)
+    if "bo" in p:
+        out = out + p["bo"].to(dtype)
+    return out
 
 
 def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
@@ -142,7 +164,7 @@ def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
                            v.transpose(1, 2), causal=True,
                            window=window if mode == "local" else 0)
     out = out.transpose(1, 2).reshape(*x.shape[:2], h * cfg.head_dim)
-    out = out @ p["wo"].to(dtype)
+    out = _out_proj(p, out, dtype)
     if return_kv:
         return out, (k, v)
     return out
@@ -195,11 +217,11 @@ def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, window: int = 0,
     out = torch.einsum("bkgs,bskd->bkgd", w.to(dtype).to(torch.float32),
                        cv.to(dtype).to(torch.float32)).to(dtype)
     out = out.reshape(b, 1, h * hd)
-    return out @ p["wo"].to(dtype)
+    return _out_proj(p, out, dtype)
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU) and MoE
 # ---------------------------------------------------------------------------
 
 
@@ -219,3 +241,138 @@ def mlp_forward(p, x):
     gate = F.silu(x @ p["w_gate"].to(dtype))
     up = x @ p["w_up"].to(dtype)
     return (gate * up) @ p["w_down"].to(dtype)
+
+
+def init_moe(generator, cfg: ModelConfig):
+    e, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    return {
+        "router": dense_init((d, e), generator),
+        "w_gate": dense_init((e, d, ff), generator, in_axis=1),
+        "w_up": dense_init((e, d, ff), generator, in_axis=1),
+        "w_down": dense_init((e, ff, d), generator, in_axis=1),
+    }
+
+
+MOE_GROUP = 2048  # tokens per dispatch group (GShard-style local capacity)
+
+#: when a list, :func:`moe_forward` appends each call's keep mask
+#: ``(G_count, G, k)`` bool (False: the (token, choice) pair was dropped
+#: for capacity) to it; instrumentation for parity checks, off by default
+keep_log: list | None = None
+
+
+def _pick(x, idx):
+    """Rows of ``x`` at ``idx`` (any shape); index ``x.shape[0]`` picks a
+    zero row."""
+    n = x.shape[0]
+    return x[idx.clamp(max=n - 1)].masked_fill_((idx == n)[..., None], 0)
+
+
+def top_k_indices(x, k: int):
+    """Indices of the ``k`` largest entries of the last axis, largest
+    first; equal values in index order, as ``jax.lax.top_k`` gives them
+    (``torch.topk`` promises no order among equals)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+class _Route(torch.autograd.Function):
+    """``out[i] = x[idx[i]]`` (a zero row for ``idx[i] == len(x)``); the
+    gradient is gathered too: row r of ``dx`` sums the output rows listed in
+    ``inv[r]`` (the same sentinel for none) in column order, in fp32, and
+    rounds once.  With ``inv`` the exact inverse of ``idx`` this is the
+    gather's gradient, reduced in one fixed order without atomics, so a
+    train step replays bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv):
+        ctx.save_for_backward(inv)
+        return _pick(x, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv,) = ctx.saved_tensors
+        dx = _pick(grad, inv).sum(1, dtype=torch.float32)
+        return dx.to(grad.dtype), None, None
+
+
+def moe_forward(p, x, cfg: ModelConfig):
+    """GShard-style grouped top-k dispatch with capacity; returns (out,
+    aux_loss), the JAX function's values.
+
+    Tokens are dispatched within groups (:data:`MOE_GROUP` tokens when the
+    sequence length is a multiple of it; a decode step's whole batch, idle
+    rows included; else each sequence).  Each token takes the top ``k``
+    router probabilities (ties to the lower expert index, as
+    ``jax.lax.top_k``), renormalised; a (token, choice) pair takes the next
+    slot of its expert in token-major order and is dropped past the
+    capacity ``max(ceil(G k / E * capacity_factor), 4)``.  The kept pairs'
+    tokens are gathered into ``(E, G_count * C, D)`` expert rows for three
+    batched products; each token sums its kept experts' outputs in fp32,
+    each weighted as JAX's combine weights it: by the sum of the token's
+    renormalised gates.  The Switch load-balancing loss counts every choice,
+    kept or not.
+    """
+    dtype = x.dtype
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    if s >= MOE_GROUP and s % MOE_GROUP == 0:
+        g_count, g = b * (s // MOE_GROUP), MOE_GROUP
+    elif s == 1:
+        g_count, g = 1, b       # decode: one group across the batch
+    else:
+        g_count, g = b, s
+    xt = x.reshape(g_count, g, d)
+    logits = (xt @ p["router"].to(dtype)).to(torch.float32)      # (B,G,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_idx = top_k_indices(probs.detach(), k)                  # (B,G,k)
+    onehot = F.one_hot(gate_idx, e).to(torch.int32)              # (B,G,k,E)
+    # the chosen probabilities, by a product whose gradient is elementwise
+    gate_vals = (probs[..., None, :] * onehot).sum(-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    cap = max(int(math.ceil(g * k / e * cfg.capacity_factor)), 4)
+    # each pair's slot in its expert: the pairs before it, token-major (an
+    # integer scan along the innermost axis)
+    seen = onehot.reshape(g_count, g * k, e).transpose(1, 2).cumsum(
+        -1, dtype=torch.int32).transpose(1, 2).reshape(onehot.shape)
+    pos = (seen * onehot).sum(-1) - 1
+    keep = pos < cap
+    if keep_log is not None:
+        keep_log.append(keep)
+    dev = x.device
+    n_tok, n_slot = g_count * g, e * g_count * cap
+    # slot id (expert, group, position): the expert rows are contiguous;
+    # a dropped pair's slot is the sentinel n_slot
+    group = torch.arange(g_count, device=dev)[:, None, None]
+    slot = torch.where(keep, (gate_idx * g_count + group) * cap + pos,
+                       n_slot).reshape(n_tok, k)
+    # the inverse map, by gathers: a group's pairs sorted by expert (stable,
+    # so token-major within one) put the pair of slot (e, group, c) at
+    # expert e's start + c, where c < the pairs that chose e
+    order = torch.sort(gate_idx.reshape(g_count, g * k), dim=1,
+                       stable=True)[1]
+    counts = onehot.sum(dim=(1, 2))                              # (B, E)
+    c = torch.arange(cap, device=dev)
+    at = (counts.cumsum(-1) - counts)[..., None] + c             # (B,E,C)
+    pair_at = torch.gather(order, 1, at.clamp(max=g * k - 1).reshape(
+        g_count, e * cap)).reshape(g_count, e, cap) + group * (g * k)
+    pair_at = torch.where(c < counts[..., None], pair_at, n_tok * k)
+    pair_at = pair_at.transpose(0, 1).reshape(n_slot)
+    token_at = torch.where(pair_at < n_tok * k, pair_at // k, n_tok)
+    # the gathers copy values, so they run in the compute dtype; the
+    # gradients' sums run in fp32, as JAX's fp32 dispatch einsum's
+    xe = _Route.apply(xt.reshape(n_tok, d), token_at,
+                      slot).reshape(e, g_count * cap, d)
+    gate = F.silu(torch.bmm(xe, p["w_gate"].to(dtype)))
+    up = torch.bmm(xe, p["w_up"].to(dtype))
+    ye = torch.bmm(gate * up, p["w_down"].to(dtype))         # (E, B*C, D)
+    got = _Route.apply(ye.reshape(n_slot, d), slot.reshape(-1),
+                       pair_at[:, None])
+    got = got.to(torch.float32).reshape(g_count, g, k, d)
+    weight = gate_vals.sum(-1, keepdim=True)
+    out = (got * weight[..., None]).sum(2).to(dtype)
+    # load-balancing auxiliary loss (Switch)
+    me = probs.mean(dim=(0, 1))
+    ce = onehot.sum(2).to(torch.float32).mean(dim=(0, 1))
+    aux = e * (me * ce).sum()
+    return out.reshape(b, s, d), aux

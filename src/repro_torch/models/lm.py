@@ -1,9 +1,11 @@
 """Model assembly of the families the port runs.
 
-Counterpart of ``repro.models.lm`` for the dense (olmo-1b), RWKV-6
-(rwkv6-3b) and RG-LRU hybrid (recurrentgemma-2b) branches:
+Counterpart of ``repro.models.lm`` for the decoder-only dense and MoE
+(olmo-1b, deepseek-coder-33b, granite-20b, command-r-plus-104b's parallel
+block, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b), RWKV-6 (rwkv6-3b) and
+RG-LRU hybrid (recurrentgemma-2b) branches:
 
-  init_params(cfg, generator, device)            -> params dict
+  init_params(cfg, generator, device, cast=)     -> params dict
   params_from_jax(np_tree, cfg, device)          -> params dict
   cast_params(params, cfg)                       -> params in compute dtype
   forward_train(params, cfg, batch)              -> (loss, metrics)
@@ -17,11 +19,13 @@ leaves are stacked along leading axes (``layers``: ``(L, ...)``; the hybrid's
 ``(n_super, rec_per_attn, ...)``; ``tail``: ``(n_tail, ...)``) and Python
 loops walk them.  Weights are stored in ``param_dtype`` and cast to the
 compute dtype at every use, as in JAX; :func:`cast_params` makes that cast
-once, after which every ``.to(dtype)`` is a no-op.  The leaves JAX reads in
-fp32 (:data:`FP32_READ`) keep their stored dtype.  Training
-(:func:`forward_train`) runs all three branches and casts at each use, so
-that the fp32 parameters get fp32 gradients; the scans and the attention
-differentiate through their backward kernels (``kernels/*/ops.py``).
+once, after which every ``.to(dtype)`` is a no-op (``init_params(...,
+cast=True)`` draws the params already cast, a layer at a time).  The leaves
+JAX reads in fp32 (:data:`FP32_READ`) keep their stored dtype.  Training
+(:func:`forward_train`) runs every branch and casts at each use, so that
+the fp32 parameters get fp32 gradients; the scans and the attention
+differentiate through their backward kernels (``kernels/*/ops.py``), and
+the MoE layer's load-balancing loss enters the loss as in JAX.
 """
 from __future__ import annotations
 
@@ -34,8 +38,8 @@ from . import rglru as rg
 from . import rwkv6 as rw
 from .config import ModelConfig
 from .layers import (apply_norm, attention_decode, attention_forward,
-                     dense_init, init_attention, init_mlp, init_norm,
-                     mlp_forward)
+                     dense_init, init_attention, init_mlp, init_moe,
+                     init_norm, mlp_forward, moe_forward)
 
 __all__ = ["init_params", "params_from_jax", "cast_params", "init_cache",
            "prefill", "decode_step", "output_weights", "check_family",
@@ -53,18 +57,23 @@ FP32_READ = frozenset({"ww", "u", "ln_scale", "ba", "bx", "lam", "scale",
                        "bias"})
 
 
-#: the families the port trains
-TRAIN_FAMILIES = ("olmo-1b", "rwkv6-3b", "recurrentgemma-2b")
+#: the families the port serves and trains
+TRAIN_FAMILIES = ("olmo-1b", "deepseek-coder-33b", "granite-20b",
+                  "command-r-plus-104b", "granite-moe-1b-a400m",
+                  "phi3.5-moe-42b-a6.6b", "rwkv6-3b", "recurrentgemma-2b")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for a family the port does not run yet."""
-    if (cfg.is_encdec or cfg.is_moe or cfg.n_image_tokens or cfg.use_bias
-            or cfg.block_type != "llama" or cfg.mlp_type != "swiglu"
-            or not (cfg.rwkv or cfg.rglru or cfg.family == "dense")):
-        raise ValueError(f"{cfg.name}: the port serves and trains the dense "
-                         f"llama-block, RWKV-6 and RG-LRU hybrid families "
-                         f"({', '.join(TRAIN_FAMILIES)}) so far")
+    """Raise ``ValueError`` for a family the port does not run yet (the
+    encoder-decoder and the image-token families)."""
+    decoder = (cfg.family in ("dense", "moe")
+               and cfg.block_type in ("llama", "parallel"))
+    if (cfg.is_encdec or cfg.n_image_tokens or cfg.mlp_type != "swiglu"
+            or not (cfg.rwkv or cfg.rglru or decoder)):
+        raise ValueError(f"{cfg.name}: the port serves and trains the "
+                         f"decoder-only dense and MoE, RWKV-6 and RG-LRU "
+                         f"hybrid families ({', '.join(TRAIN_FAMILIES)}) "
+                         f"so far")
     if cfg.rwkv:
         rw.n_heads(cfg)          # raises unless d_model % 64 == 0
     if cfg.rglru and cfg.window <= 0:
@@ -100,16 +109,60 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # parameters
 # ---------------------------------------------------------------------------
 
-def _stack(layers: list):
-    if isinstance(layers[0], dict):
-        return {k: _stack([l[k] for l in layers]) for k in layers[0]}
-    return torch.stack(layers)
+def _stored(cfg: ModelConfig, cast: bool):
+    """leaf name -> the dtype the params keep it in: ``param_dtype``; with
+    ``cast`` the compute dtype, but for :data:`FP32_READ`."""
+    pdt, cdt = getattr(torch, cfg.param_dtype), compute_dtype(cfg)
+    return lambda name: cdt if cast and name not in FP32_READ else pdt
+
+
+def _store(tree, dtype_of, device):
+    """``tree``'s leaves on ``device`` in their stored dtypes."""
+    return {k: _store(v, dtype_of, device) if isinstance(v, dict)
+            else v.to(device=device, dtype=dtype_of(k))
+            for k, v in tree.items()}
+
+
+def _alloc(tree, n: int, dtype_of, device):
+    """Empty ``(n, ...)`` buffers for ``n`` layers shaped like ``tree``."""
+    return {k: _alloc(v, n, dtype_of, device) if isinstance(v, dict)
+            else torch.empty((n, *v.shape), dtype=dtype_of(k), device=device)
+            for k, v in tree.items()}
+
+
+def _write(bufs, layer, i: int):
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _write(bufs[k], v, i)
+        else:
+            bufs[k][i] = v          # cast and copied
+
+
+def _stack(n: int, draw, dtype_of, device):
+    """``n`` layers drawn one after another by ``draw()``, each written
+    into ``(n, ...)`` buffers allocated once on ``device`` in the stored
+    dtypes, so that only one layer is ever held in fp32."""
+    bufs = None
+    for i in range(n):
+        layer = draw()
+        if bufs is None:
+            bufs = _alloc(layer, n, dtype_of, device)
+        _write(bufs, layer, i)
+    return bufs
 
 
 def _init_dense_layer(generator, cfg: ModelConfig):
+    """A parallel block (one norm feeding attention and MLP) has no
+    ``ln2``; an MoE layer holds ``moe`` in place of ``mlp``."""
     d = cfg.d_model
-    return {"ln1": init_norm(cfg, d), "attn": init_attention(generator, cfg),
-            "ln2": init_norm(cfg, d), "mlp": init_mlp(generator, cfg)}
+    p = {"ln1": init_norm(cfg, d), "attn": init_attention(generator, cfg)}
+    if cfg.block_type != "parallel":
+        p["ln2"] = init_norm(cfg, d)
+    if cfg.is_moe:
+        p["moe"] = init_moe(generator, cfg)
+    else:
+        p["mlp"] = init_mlp(generator, cfg)
+    return p
 
 
 def _init_rec_layer(generator, cfg: ModelConfig):
@@ -127,39 +180,49 @@ def _init_rwkv_layer(generator, cfg: ModelConfig):
             "cm": rw.init_channel_mix(generator, cfg)}
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                *, cast: bool = False):
     """Seeded init with the JAX package's structure, shapes and scales.
 
-    Draws on ``generator``'s device and moves the result to ``device`` (the
-    generator's device when None).  The numbers differ from ``jax.random``;
-    the tests load JAX weights through :func:`params_from_jax` instead.
+    Draws on ``generator``'s device, one layer at a time in fp32, and
+    writes each into stacked buffers on ``device`` (the generator's device
+    when None) in ``param_dtype``; with ``cast``, in the compute dtype but
+    for :data:`FP32_READ` (the values of :func:`cast_params` on the
+    ``param_dtype`` tree, which then copies nothing), so that a model whose
+    fp32 tree would not fit the device is drawn straight into its serving
+    form.  The numbers differ from ``jax.random``; the tests load JAX
+    weights through :func:`params_from_jax` instead.
     """
     check_family(cfg)
     d = cfg.d_model
+    device = device if device is not None else generator.device
+    dtype_of = _stored(cfg, cast)
+
+    def stack(n, draw):
+        return _stack(n, draw, dtype_of, device)
+
     params = {"embed": dense_init((cfg.vocab_size, d), generator, in_axis=1),
               "final_norm": init_norm(cfg, d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((d, cfg.vocab_size), generator)
+    params = _store(params, dtype_of, device)
     if cfg.rwkv:
-        params["ln_in"] = init_norm(cfg, d)
-        params["layers"] = _stack([_init_rwkv_layer(generator, cfg)
-                                   for _ in range(cfg.n_layers)])
+        params["ln_in"] = _store(init_norm(cfg, d), dtype_of, device)
+        params["layers"] = stack(cfg.n_layers,
+                                 lambda: _init_rwkv_layer(generator, cfg))
     elif cfg.rglru:
         n_super, n_tail = hybrid_layout(cfg)
-        params["super"] = _stack([
-            {"rec": _stack([_init_rec_layer(generator, cfg)
-                            for _ in range(cfg.rec_per_attn)]),
-             "attn": _init_dense_layer(generator, cfg)}
-            for _ in range(n_super)])
+        params["super"] = stack(n_super, lambda: {
+            "rec": stack(cfg.rec_per_attn,
+                         lambda: _init_rec_layer(generator, cfg)),
+            "attn": _init_dense_layer(generator, cfg)})
         if n_tail:
-            params["tail"] = _stack([_init_rec_layer(generator, cfg)
-                                     for _ in range(n_tail)])
+            params["tail"] = stack(n_tail,
+                                   lambda: _init_rec_layer(generator, cfg))
     else:
-        params["layers"] = _stack([_init_dense_layer(generator, cfg)
-                                   for _ in range(cfg.n_layers)])
-    pdt = getattr(torch, cfg.param_dtype)
-    device = device if device is not None else generator.device
-    return tree_map(lambda t: t.to(device=device, dtype=pdt), params)
+        params["layers"] = stack(cfg.n_layers,
+                                 lambda: _init_dense_layer(generator, cfg))
+    return params
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
@@ -248,12 +311,26 @@ def chunked_xent(h, w_out, targets, mask, *, chunk: int = 512,
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def _ffn(p, h, cfg: ModelConfig):
+    """The layer's MLP or MoE on ``h``: (out, aux loss; 0 for an MLP)."""
+    if cfg.is_moe:
+        return moe_forward(p["moe"], h, cfg)
+    return mlp_forward(p["mlp"], h), 0.0
+
+
 def _dense_block(p, x, cfg: ModelConfig, positions, mode="causal",
                  window=0):
+    """One decoder layer: (x, its MoE aux loss).  A parallel block (Cohere)
+    feeds one norm's output to attention and the MLP and adds both."""
     h = apply_norm(cfg, p["ln1"], x)
-    x = x + attention_forward(p["attn"], h, cfg, positions=positions,
-                              mode=mode, window=window)
-    return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+    a = attention_forward(p["attn"], h, cfg, positions=positions, mode=mode,
+                          window=window)
+    if cfg.block_type == "parallel":
+        m, aux = _ffn(p, h, cfg)
+        return x + a + m, aux
+    x = x + a
+    m, aux = _ffn(p, apply_norm(cfg, p["ln2"], x), cfg)
+    return x + m, aux
 
 
 def _rec_block(p, x, cfg: ModelConfig):
@@ -268,7 +345,8 @@ def _super_block(p, x, cfg: ModelConfig, positions):
     attention block (``p["rec"]`` a list of per-layer views)."""
     for rp in p["rec"]:
         x = _rec_block(rp, x, cfg)
-    return _dense_block(p["attn"], x, cfg, positions, "local", cfg.window)
+    return _dense_block(p["attn"], x, cfg, positions, "local",
+                        cfg.window)[0]
 
 
 def _rwkv_block(p, x, cfg: ModelConfig):
@@ -300,13 +378,16 @@ def _run(block, p, x, cfg: ModelConfig, *args):
 
 def backbone(params, cfg: ModelConfig, x, positions):
     """The layer stack on the embedded input x (B, S, D), then the final
-    norm, as JAX's ``backbone`` orders it: dense layers; or ``ln_in`` and
-    the RWKV layers (zero shift states); or the hybrid's super blocks of
-    ``rec_per_attn`` recurrent blocks and a local-attention block, then its
-    ``tail`` recurrent layers.  With ``cfg.remat`` each remat unit (a layer;
-    a whole super block; a tail layer) is recomputed in the backward, so
-    its kernels' forwards run twice a step."""
+    norm, as JAX's ``backbone`` orders it: dense or MoE decoder layers; or
+    ``ln_in`` and the RWKV layers (zero shift states); or the hybrid's
+    super blocks of ``rec_per_attn`` recurrent blocks and a local-attention
+    block, then its ``tail`` recurrent layers.  With ``cfg.remat`` each
+    remat unit (a layer; a whole super block; a tail layer) is recomputed in
+    the backward, so its kernels' forwards run twice a step.  Returns (h,
+    aux): the MoE layers' load-balancing losses summed in layer order (0
+    for the other families)."""
     check_train_family(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.rwkv:
         x = apply_norm(cfg, params["ln_in"], x)
         for p in _unstack(params["layers"], cfg.n_layers):
@@ -322,16 +403,17 @@ def backbone(params, cfg: ModelConfig, x, positions):
                 x = _run(_rec_block, p, x, cfg)
     else:
         for p in _unstack(params["layers"], cfg.n_layers):
-            x = _run(_dense_block, p, x, cfg, positions)
-    return apply_norm(cfg, params["final_norm"], x)
+            x, a = _run(_dense_block, p, x, cfg, positions)
+            aux = aux + a
+    return apply_norm(cfg, params["final_norm"], x), aux
 
 
 def forward_train(params, cfg: ModelConfig, batch, *, q_chunk: int = 1024,
                   xent_chunk: int = 512):
     """batch: {"tokens": (B, S) int, "targets": (B, S) int, "loss_mask":
-    (B, S) float} tensors on the params' device.  Returns (loss, {"xent",
-    "aux"}) as 0-d fp32 tensors; no family the port trains has an
-    auxiliary loss.
+    (B, S) float} tensors on the params' device.  Returns (xent + 0.01 *
+    aux, {"xent", "aux"}) as 0-d fp32 tensors, aux the MoE layers' summed
+    load-balancing loss (0 for the other families).
     ``q_chunk`` is accepted for JAX's signature: the flash kernels take the
     whole sequence."""
     del q_chunk
@@ -340,11 +422,10 @@ def forward_train(params, cfg: ModelConfig, batch, *, q_chunk: int = 1024,
     x = _embed(params, tokens, dtype)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    h = backbone(params, cfg, x, positions)
+    h, aux = backbone(params, cfg, x, positions)
     loss = chunked_xent(h, output_weights(params, cfg, dtype),
                         batch["targets"], batch["loss_mask"],
                         chunk=xent_chunk, remat=cfg.remat)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
@@ -454,6 +535,17 @@ def _decode_hybrid(params, cfg: ModelConfig, cache, x, pos, rows):
     return x
 
 
+def _decoder_tail(p, x, hh, a, cfg: ModelConfig):
+    """A serving step's decoder layer after its attention ``a`` of the
+    normed ``hh``: the MLP or MoE, in a parallel block on ``hh`` beside
+    ``a``, else after the residual.  The MoE aux loss is dropped, as JAX's
+    prefill and decode drop it."""
+    if cfg.block_type == "parallel":
+        return x + a + _ffn(p, hh, cfg)[0]
+    x = x + a
+    return x + _ffn(p, apply_norm(cfg, p["ln2"], x), cfg)[0]
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, live=None):
     """tokens: (B, 1) int; pos: absolute position, a Python int or a per-row
     (B,) int tensor.  Returns (logits (B, V) fp32, cache).
@@ -476,8 +568,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, live=None):
             a = attention_decode(p["attn"], hh,
                                  {"k": cache["k"][i], "v": cache["v"][i]},
                                  cfg, pos=pos, rows=rows)
-            x = x + a
-            x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+            x = _decoder_tail(p, x, hh, a, cfg)
     h = apply_norm(cfg, params["final_norm"], x)
     logits = (h[:, 0] @ output_weights(params, cfg, dtype)).to(torch.float32)
     return logits, cache
@@ -570,8 +661,7 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
             a, (k, v) = attention_forward(p["attn"], hh, cfg,
                                           positions=positions, mode="causal",
                                           return_kv=True)
-            x = x + a
-            x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+            x = _decoder_tail(p, x, hh, a, cfg)
             cache["k"][i, :, :s] = k.to(dtype)
             cache["v"][i, :, :s] = v.to(dtype)
     h = apply_norm(cfg, params["final_norm"], x)

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.serve.engine`` on the port's PyTorch model.  The
 engine holds one batched cache on its device and updates it in place; the
-weights are cast to the compute dtype once at construction.  Dense prompts
-prefill into their power-of-two bucket; the recurrent families (RWKV-6,
+weights are cast to the compute dtype once at construction.  Dense and MoE
+prompts prefill into their power-of-two bucket; the recurrent families (RWKV-6,
 RG-LRU hybrid) prefill at the exact prompt length, since their state would
 take every padded position as an update.
 
@@ -68,8 +68,9 @@ __all__ = ["EngineConfig", "ServeEngine", "engine_supported"]
 
 def engine_supported(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the port's engine can drive ``cfg``: the families the
-    port's model runs (dense, RWKV-6 with d_model a multiple of the 64 head
-    size, RG-LRU hybrid), with the reason if not."""
+    port's model runs (decoder-only dense and MoE, RWKV-6 with d_model a
+    multiple of the 64 head size, RG-LRU hybrid), with the reason if
+    not."""
     try:
         lm.check_family(cfg)
     except ValueError as e:
@@ -137,8 +138,10 @@ class ServeEngine:
         self.policy = policy or uniform_policy(1)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = lm.init_params(cfg, gen)
-        # one compute-dtype copy, cast once (JAX casts at every use)
+            params = lm.init_params(cfg, gen, cast=True)
+        # one compute-dtype copy, cast once (JAX casts at every use); params
+        # already in that form (``init_params(..., cast=True)``) are not
+        # copied
         self.params = lm.cast_params(params, cfg)
         self.metrics = metrics or ServeMetrics()
         self.queue = AdmissionQueue(max_depth=self.ecfg.max_queue_depth,

@@ -20,10 +20,12 @@ __all__ = ["greedy_decode", "greedy_reference"]
 
 
 def greedy_decode(params, cfg: ModelConfig, req, cache_len: int, *,
-                  device="cuda"):
+                  device="cuda", expect=None):
     """Greedy tokens of one request and the fp32 logits (T, V, on the
     host) each token was taken from.  The cast to the compute dtype is a
-    no-op for params that are already cast."""
+    no-op for params that are already cast.  With ``expect`` (another
+    path's tokens) the decode stops after the first token that differs
+    from it: a parity check reads no further."""
     params = lm.cast_params(params, cfg)
     prefill = make_prefill_step(cfg, cache_len)
     serve = make_serve_step(cfg)
@@ -32,6 +34,8 @@ def greedy_decode(params, cfg: ModelConfig, req, cache_len: int, *,
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     steps = [logits[0]]
     for i in range(req.max_new_tokens - 1):
+        if expect is not None and int(tok[0, 0]) != expect[i]:
+            break
         tok, logits, cache = serve(params, cache, tok, req.prompt_len + i)
         steps.append(logits[0])
     all_logits = torch.stack(steps).cpu()

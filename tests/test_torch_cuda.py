@@ -67,10 +67,15 @@ FA_TC_EDGES = [(d, bq, s) for d in (64, 128, 256)
 # (Sq = Sk, causal, window) whose output must not depend on Bq
 FA_BQ_CASES = [(200, True, 0), (200, False, 0), (700, True, 37),
                (3055, True, 2048)]
-# (B, H, KV, Sq, Sk, D, causal, window): GQA groups 1, 2, 4 and 10 (MQA);
-# window 1, one under Bk, one off the tile grid and 2048 past its end;
-# bidirectional with a ragged Sk on either side of Sq
+# (B, H, KV, Sq, Sk, D, causal, window): GQA groups 1, 2, 4 and 10 (MQA),
+# and the decoder-only families' 2 at D = 64 (granite-moe-1b), 7
+# (deepseek-coder-33b), 12 (command-r-plus-104b) and 48 (granite-20b's
+# MQA); window 1, one under Bk, one off the tile grid and 2048 past its
+# end; bidirectional with a ragged Sk on either side of Sq
 FA_TC_CASES = [
+    (1, 16, 8, 300, 300, 64, True, 0), (1, 56, 8, 257, 257, 128, True, 0),
+    (1, 96, 8, 200, 200, 128, True, 0), (1, 48, 1, 300, 300, 128, True, 0),
+    (1, 14, 2, 130, 77, 128, False, 0),
     (2, 2, 2, 200, 200, 128, True, 0), (1, 4, 2, 300, 300, 64, True, 0),
     (1, 8, 2, 257, 257, 128, True, 0), (1, 10, 1, 333, 333, 256, True, 0),
     (1, 4, 2, 300, 300, 128, True, 1), (1, 4, 1, 300, 300, 256, True, 1),
@@ -550,10 +555,13 @@ LSE_TOL = dict(atol=2e-4, rtol=2e-4)
 # the 64-row tiles' edges
 FA_BWD_EDGES = [(d, s) for d in (64, 128)
                 for s in (1, 63, 64, 65, 127, 129, 2048)]
-# (B, H, KV, S, D, causal, window): GQA groups 1, 2, 4; windows 1, 37 and
-# 2048 (past the end of a 2100-token sequence's first tile rows);
-# bidirectional
-FA_BWD_CASES = [(2, 4, 4, 200, 128, True, 0), (2, 4, 2, 200, 128, True, 0),
+# (B, H, KV, S, D, causal, window): GQA groups 1, 2, 4, and the decoder-
+# only families' 2 at D = 64, 7, 12 and 48; windows 1, 37 and 2048 (past
+# the end of a 2100-token sequence's first tile rows); bidirectional
+FA_BWD_CASES = [(1, 16, 8, 300, 64, True, 0), (1, 56, 8, 257, 128, True, 0),
+                (1, 96, 8, 200, 128, True, 0), (1, 48, 1, 300, 128, True, 0),
+                (1, 14, 2, 129, 128, False, 0),
+                (2, 4, 4, 200, 128, True, 0), (2, 4, 2, 200, 128, True, 0),
                 (2, 8, 2, 200, 64, True, 0), (1, 4, 2, 300, 64, True, 1),
                 (1, 4, 2, 300, 128, True, 37),
                 (1, 4, 4, 2100, 128, True, 2048),
@@ -741,6 +749,48 @@ def test_tiny_train_step_on_card_matches_cpu(cuda_device):
                                  flatten(runs["cpu"][1])):
         torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=2e-4,
                                    msg=str(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 200, 2048])
+def test_moe_layer_on_card_matches_cpu_and_repeats_its_bits(cuda_device, s):
+    """granite-moe-1b's MoE layer at its published widths (32 experts,
+    top 8) on one sequence (s = 1: a decode group of 4 rows) in fp32: the
+    card's output, aux and gradients against the CPU's at the fp32 limit,
+    and a second backward under deterministic algorithms with the same
+    bits (the routing gathers; no atomics).  The tokens are drawn with a
+    margin of 1e-5 between their 8th and 9th router probabilities: the two
+    devices' fp32 products may round a closer pair the other way."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p = layers.init_moe(gen, cfg)
+    b = 4 if s == 1 else 1
+    x = torch.randn((2 * b * s, cfg.d_model), generator=gen)
+    top = torch.softmax(x @ p["router"], -1).sort(-1, descending=True)[0]
+    x = x[top[:, 7] - top[:, 8] > 1e-5][:b * s].reshape(b, s, -1)
+    dout = torch.randn((b, s, cfg.d_model), generator=gen)
+
+    def run(dev):
+        pp = {k: v.detach().to(dev, copy=True).requires_grad_()
+              for k, v in p.items()}
+        xx = x.to(dev, copy=True).requires_grad_()
+        out, aux = layers.moe_forward(pp, xx, cfg)
+        (out * dout.to(dev)).sum().add(0.5 * aux).backward()
+        return [out, aux, xx.grad] + [pp[k].grad for k in sorted(pp)]
+
+    want = run("cpu")
+    torch.use_deterministic_algorithms(True)
+    try:
+        got, again = run("cuda"), run("cuda")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g.detach().cpu(), w.detach(), atol=2e-4,
+                                   rtol=2e-4)
 
 
 @pytest.mark.cuda

@@ -275,14 +275,20 @@ def test_chunked_xent_matches_jax(s, chunk):
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(dw), **TOL)
 
 
-TRAINED = ("olmo-1b", "rwkv6-3b", "recurrentgemma-2b")
+TRAINED = ("olmo-1b", "deepseek-coder-33b", "granite-20b",
+           "command-r-plus-104b", "granite-moe-1b-a400m",
+           "phi3.5-moe-42b-a6.6b", "rwkv6-3b", "recurrentgemma-2b")
+#: the families the port does not run yet, and a config of each shape
+REFUSED = {"whisper-small": dict(encoder_layers=2),
+           "llava-next-mistral-7b": dict(n_image_tokens=8)}
 
 
-@pytest.mark.parametrize("arch", TRAINED + ("whisper-small",))
+@pytest.mark.parametrize("arch", TRAINED + tuple(REFUSED))
 def test_only_the_dense_family_trains(arch):
-    """The three families the port serves also train; another family
-    (whisper-small, or a config of a family the port does not run) raises,
-    naming the three."""
+    """The eight families the port serves also train; another family
+    (whisper-small, llava-next-mistral-7b, or a config of their shape:
+    an encoder, image tokens) raises, naming the eight."""
+    assert lm.TRAIN_FAMILIES == TRAINED
     if arch in TRAINED:
         cfg = get_config(arch, tiny=True)
         lm.check_train_family(cfg)
@@ -291,11 +297,11 @@ def test_only_the_dense_family_trains(arch):
     with pytest.raises(ValueError) as err:
         get_config(arch, tiny=True)
     assert all(name in str(err.value) for name in TRAINED)
-    moe = dataclasses.replace(get_config("olmo-1b", tiny=True), n_experts=4,
-                              top_k=2)
+    other = dataclasses.replace(get_config("olmo-1b", tiny=True),
+                                **REFUSED[arch])
     for call in (lm.check_train_family, make_train_step):
         with pytest.raises(ValueError) as err:
-            call(moe)
+            call(other)
         assert all(name in str(err.value) for name in TRAINED)
 
 
