@@ -34,6 +34,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    each one's largest prefill bucket (GQA groups 2 at D = 64, and 4, 7, 48
    and 12), timed beside SDPA, and the backward at granite-moe-1b's
    training shape (timed) and at groups 7, 12 and 48 (the MQA one timed);
+   B2 at whisper-small's and llava-next's shapes (``multimodal_shapes``):
+   the forward at the encoder's 1500 frames (bidirectional), at the
+   cross-attention of the largest prompt bucket to them (Sq != Sk, a
+   ragged last key tile) and at llava's 576 image rows + its largest
+   bucket (causal), the backward at their training shapes, each timed
+   beside SDPA, and the backward at cross and bidirectional cases with Sq
+   and Sk apart (``FA_BWD_CROSS_CASES``) in fp32 and bf16;
 4. planner: the CRCH workflow planner at the paper's largest size, each
    of the four workflow types at 700 tasks on 20 VMs under each of the
    three failure environments: ``crch.plan`` on the card (PCA and B1 there,
@@ -48,7 +55,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    identical;
 5. then, for each family the port serves (olmo-1b, rwkv6-3b,
    recurrentgemma-2b, granite-moe-1b-a400m, deepseek-coder-33b,
-   granite-20b, phi3.5-moe-42b-a6.6b, command-r-plus-104b), at full width
+   granite-20b, phi3.5-moe-42b-a6.6b, command-r-plus-104b, whisper-small
+   with 1500 frame embeddings a request, llava-next-mistral-7b with 576
+   image embeddings before each prompt), at full width
    (random seeded weights drawn a layer at a time straight into bf16;
    :data:`SERVE_LAYERS` cuts the depth of the four largest) with its peak
    device memory:
@@ -57,7 +66,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
       ``unstable`` failure environment; every request must complete,
       failures must have been recovered from snapshots, and every kernel of
       the family's path must have been launched (all launch counts are
-      zeroed just before this phase and read just after);
+      zeroed just before this phase and read just after); prints what a
+      decode snapshot of one slot row costs (bytes, host copy, hash);
    b. profile: one prefill and a few batched decode steps of that engine
       under ``torch.profiler``;
    c. fault transparency: the same requests with no failures give the same
@@ -88,18 +98,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    layers, replaying a fault trace that fires every train-side fault class
    (host_crash, slowdown, capacity_loss, ckpt_corrupt, nan_poison,
    net_partition, disk_full) under the launcher's ``--chaos-assert``;
-8. train rwkv6-3b and recurrentgemma-2b at their published widths and a
-   cut depth (``FAMILY_TRAIN``: the largest whose peak device memory stays
-   under ~70 GB; recurrentgemma at 3k + 2 layers), and granite-moe-1b-a400m
-   whole (its logged loss must be xent + 0.01 x the MoE aux loss, aux > 0),
-   through the launcher's
+8. train rwkv6-3b, recurrentgemma-2b and llava-next-mistral-7b (4 x (576 +
+   1472) positions) at their published widths and a cut depth
+   (``FAMILY_TRAIN``: the largest whose peak device memory stays under ~70
+   GB; recurrentgemma at 3k + 2 layers), granite-moe-1b-a400m whole (its
+   logged loss must be xent + 0.01 x the MoE aux loss, aux > 0) and
+   whisper-small whole (12 + 12 layers, 16 x 448 tokens, 1500 frames a
+   sample), through the launcher's
    ``build`` and its train step, deterministic: step time, tokens/s, model
    FLOPs and their share of the bf16 peak, peak memory, a profiled step,
    and every kernel of the family's path launched (B3 forward and
    backward; B4 forward and backward and B2 forward and backward at
-   D = 256);
-9. a crash run of each at reduced depth (rwkv6 2 layers, recurrentgemma 3,
-   granite-moe 2),
+   D = 256; B2 forward and backward);
+9. a crash run of each but llava at reduced depth (rwkv6 2 layers,
+   recurrentgemma 3, granite-moe 2, whisper 2 + 2 at 448 tokens;
+   ``CRASH_CUTS``: a llava checkpoint would not fit the disk),
    4 x 512 tokens, through the launcher's code path with a forced crash:
    final params bit-identical to a fault-free run (sha1 of every leaf),
    restores == failures > 0.
@@ -192,6 +205,19 @@ FA_BWD_MOE_MAIN = (4, 16, 8, 2048, 64)
 FA_BWD_GROUP_CASES = [(1, 56, 8, 256, 128), (1, 96, 8, 256, 128),
                       (1, 48, 1, 512, 128)]
 
+# B2 on the encoder-decoder's and the image family's paths: whisper-small's
+# cross-attention (its 1500 frames are off the 64-key grid: a ragged last
+# key tile) and bidirectional encoder, llava-next's causal attention over
+# 576 image rows and the text (multimodal_shapes); the backward also at the
+# card tests' (B, H, KV, Sq, Sk, D, causal) cases with Sq and Sk apart
+FA_BWD_CROSS_CASES = [(1, 12, 12, 77, 1500, 64, False),
+                      (2, 12, 12, 448, 1500, 64, False),
+                      (1, 12, 12, 1500, 1500, 64, False),
+                      (1, 4, 2, 130, 77, 128, False),
+                      (2, 4, 4, 65, 200, 64, False),
+                      (1, 8, 2, 1, 129, 128, False),
+                      (1, 32, 8, 576 + 200, 576 + 200, 128, True)]
+
 # the flash-attention backward at D = 256 (bf16 on the tensor cores in
 # 64-row tiles, a dQ, a dV and a dK pass; fp32 on the SIMT kernels in 32-row
 # tiles): recurrentgemma's training shape, global batch 2 x 4096 tokens, 10
@@ -231,16 +257,24 @@ FAMILIES = {
     "granite-20b": DECODER,
     "phi3.5-moe-42b-a6.6b": DECODER,
     "command-r-plus-104b": DECODER,
+    # Whisper's prompt limit: half of its 448-token text context; each
+    # request also carries 1500 frame embeddings
+    "whisper-small": (224, ("pairwise_distance", "flash_attention")),
+    # 576 image embeddings a request, before the prompt
+    "llava-next-mistral-7b": DECODER,
 }
 #: serve depth cuts (the published widths are kept): bf16 weights of
 #: phi3.5-moe (83.7 GB) and command-r-plus (207.6 GB) do not fit one 80 GB
-#: card, 24 and 18 layers take ~63 GB each; deepseek-coder-33b and
-#: granite-20b fit whole (66.7 and 56.3 GB, peaks 71.0 and 60.7 GB) but are
-#: served at a quarter of their depth so that the script stays well within
-#: its time limit (on one H100 their phases took 137 and 118 s whole, 70
-#: and 46 s at half depth, mostly host-bound decoding)
-SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 24, "command-r-plus-104b": 18,
-                "deepseek-coder-33b": 16, "granite-20b": 13}
+#: card; deepseek-coder-33b and granite-20b fit whole (66.7 and 56.3 GB,
+#: peaks 71.0 and 60.7 GB).  deepseek-coder, granite-20b and
+#: command-r-plus are served at about an eighth of their depth and
+#: phi3.5-moe at 12 of 32 layers, so that the script, which also serves
+#: whisper-small and llava-next whole (~190 s on one H100), stays well
+#: within its time limit: their phases are mostly host-bound decoding,
+#: whose time follows the depth (at 16, 13, 24 and 18 layers they took 29,
+#: 26, 68 and 33 s on one H100)
+SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 12, "command-r-plus-104b": 8,
+                "deepseek-coder-33b": 8, "granite-20b": 7}
 
 
 def serve_args(arch):
@@ -530,16 +564,25 @@ def flash_wide_grid_check(q, k, v, got, causal, window):
     return grid * reps
 
 
-def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
+def _mode(s, sk, causal, window):
+    return (f"window {window}" if window else "causal" if causal else
+            "bidir" if sk == s else f"cross (Sk {sk})")
+
+
+def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
+               sk=None):
+    """The forward kernel at q (b, h, s, d) and k, v (b, kv, sk, d) (sk = s
+    by default) against its plain version; timed beside SDPA."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
+    sk = s if sk is None else sk
     dt = getattr(torch, dtype_name)
     rng = np.random.default_rng(b * 7 + h * 5 + s + d + window)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                .to("cuda", dt)
-               for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+               for shape in ((b, h, s, d), (b, kv, sk, d), (b, kv, sk, d)))
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = ref.attention(q, k, v, causal=causal, window=window)
@@ -547,6 +590,8 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     ok = bool(torch.allclose(got.float(), want.float(), **FA_TOL[dtype_name]))
     rec = {"shape": [b, h, kv, s, d], "dtype": dtype_name, "causal": causal,
            "window": window, "max_abs_err": err, "ok": ok}
+    if sk != s:
+        rec["sk"] = sk
     wide = (flash_wide_grid_check(q, k, v, got, causal, window)
             if dtype_name == "bfloat16" and d <= 128 else 0)
     if timed:
@@ -565,13 +610,12 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
         else:
             time_kernel(rec, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, **gqa), "library_")
-            pairs = attended_pairs(s, causal, window)
+            pairs = attended_pairs(s, causal, window, sk)
         item = q.element_size()
-        add_bound(rec, item * (2 * b * h * s * d + 2 * b * kv * s * d),
+        add_bound(rec, item * (2 * b * h * s * d + 2 * b * kv * sk * d),
                   4 * b * h * pairs * d, dtype_name)
     tol = FA_TOL[dtype_name]
-    mode = (f"window {window}" if window else
-            "causal" if causal else "bidir")
+    mode = _mode(s, sk, causal, window)
     print(f"  flash_attention {(b, h, kv, s, d)} {dtype_name} {mode}: "
           f"max_abs_err {err:.3g} (atol {tol['atol']} rtol {tol['rtol']}) "
           f"{'ok' if ok else 'FAIL'}"
@@ -582,15 +626,16 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     return rec
 
 
-def _bwd_inputs(b, h, kv, s, d, dtype_name, window):
+def _bwd_inputs(b, h, kv, s, d, dtype_name, window, sk=None):
     """q, k, v, dO as the model hands them to the kernels: (B, H, S, D)
-    views of (B, S, H, D) tensors."""
+    views of (B, S, H, D) tensors (k and v at sk keys, s by default)."""
     import numpy as np
     import torch
+    sk = s if sk is None else sk
     rng = np.random.default_rng(b * 7 + h * 5 + s + d + window + 1)
-    return [torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(
+    return [torch.from_numpy(rng.normal(size=(b, n_s, n, d)).astype(
         np.float32)).to("cuda", getattr(torch, dtype_name)).transpose(1, 2)
-        for n in (h, kv, kv, h)]
+        for n, n_s in ((h, s), (kv, sk), (kv, sk), (h, s))]
 
 
 def _normed_check(got, want, tols):
@@ -636,14 +681,17 @@ def _sdpa_graph(q, k, v, causal, window):
     return (qq, kk, vv), F.scaled_dot_product_attention(qq, kk, vv, **kw)
 
 
-def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
+def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
+                   sk=None):
     """The backward kernel against the plain backward in fp32 on the same
     inputs, beside SDPA's backward against the same reference; the
     forward's lse against its plain version and the forward's bits with and
-    without it; a repeat call's bits."""
+    without it; a repeat call's bits.  k and v hold sk keys (s by
+    default)."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
-    q, k, v, do = _bwd_inputs(b, h, kv, s, d, dtype_name, window)
+    sk = s if sk is None else sk
+    q, k, v, do = _bwd_inputs(b, h, kv, s, d, dtype_name, window, sk)
     kw = dict(causal=causal, window=window)
     o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     same_fwd = bool(torch.equal(o, ops.flash_attention(q, k, v, **kw)))
@@ -665,6 +713,8 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
            "window": window, "max_abs_err": err, "max_err_over_scale": nerr,
            "sdpa_err_over_scale": sdpa_nerr, "lse_err": lse_err,
            "ok": ok and lse_ok and same_fwd and same}
+    if sk != s:
+        rec["sk"] = sk
     if timed:
         time_kernel(rec, lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
                                                          **kw))
@@ -674,16 +724,15 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
         leaves, out = _sdpa_graph(q, k, v, causal, window)
         time_kernel(rec, lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), "library_")
-        pairs = attended_pairs(s, causal, window)
+        pairs = attended_pairs(s, causal, window, sk)
         item = q.element_size()
-        # q, o, dO and dq (B, H, S, D); k, v, dk, dv (B, KV, S, D); lse
-        add_bound(rec, item * (4 * b * h * s * d + 4 * b * kv * s * d)
+        # q, o, dO and dq (B, H, S, D); k, v, dk, dv (B, KV, Sk, D); lse
+        add_bound(rec, item * (4 * b * h * s * d + 4 * b * kv * sk * d)
                   + 4 * b * h * s, 10 * b * h * pairs * d, dtype_name)
         rec["passes_device_ms"] = kernel_device_ms(
             lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
     tol = FA_BWD_TOL[dtype_name]
-    mode = (f"window {window}" if window else
-            "causal" if causal else "bidir")
+    mode = _mode(s, sk, causal, window)
     print(f"  flash_attention_bwd {(b, h, kv, s, d)} {dtype_name} {mode}: "
           f"max_abs_err {err:.3g}, over the gradient's scale {nerr:.3g} "
           f"(atol {tol['atol']} rtol {tol['rtol']} of max(1, |grad|max); "
@@ -707,10 +756,11 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0):
     return rec
 
 
-def attended_pairs(s, causal, window):
-    """(query, key) pairs a head attends at sequence length s."""
+def attended_pairs(s, causal, window, sk=None):
+    """(query, key) pairs a head attends at s queries (and sk keys, s by
+    default; causal only at sk = s)."""
     if not causal:
-        return s * s
+        return s * (s if sk is None else sk)
     if not window or window >= s:
         return s * (s + 1) // 2
     return window * (window + 1) // 2 + (s - window) * window
@@ -1060,6 +1110,54 @@ def decoder_kernel_cases(recs):
                        timed=False)
 
 
+def multimodal_shapes():
+    """B2's shapes on whisper-small's and llava-next's serve and train
+    paths, name -> ((B, H, KV, Sq, D), Sk, causal): the encoder over 1500
+    frames (bidirectional) and the cross-attention of the largest prompt
+    bucket (serve) or the training length (train) to them; llava's causal
+    prefill over its 576 image rows and largest bucket, and its training
+    positions (576 + the text)."""
+    from repro_torch.serve import prompt_bucket
+    out = {}
+    for arch in ("whisper-small", "llava-next-mistral-7b"):
+        cfg, reqs = family_requests(arch)
+        head = (cfg.n_heads, cfg.n_kv_heads)
+        s = max(prompt_bucket(r.prompt_len) for r in reqs)
+        b, st = FAMILY_TRAIN[arch]["batch"], FAMILY_TRAIN[arch]["seq"]
+        d = cfg.head_dim
+        if cfg.is_encdec:
+            t = cfg.n_frames
+            out.update({
+                "whisper_encoder": ((1, *head, t, d), t, False),
+                "whisper_cross": ((1, *head, s, d), t, False),
+                "whisper_encoder_train": ((b, *head, t, d), t, False),
+                "whisper_cross_train": ((b, *head, st, d), t, False)})
+        else:
+            n = cfg.n_image_tokens
+            out.update({
+                "llava": ((1, *head, n + s, d), None, True),
+                "llava_train": ((b, *head, n + st, d), None, True)})
+    return out
+
+
+def multimodal_kernel_cases(recs):
+    """B2 at :func:`multimodal_shapes`, before either family runs: the
+    forward at the serve shapes and the backward at the train shapes, bf16
+    timed beside SDPA; the forward in fp32 too; then the backward at
+    :data:`FA_BWD_CROSS_CASES` in fp32 and bf16."""
+    for name, (shape, sk, causal) in multimodal_shapes().items():
+        if name.endswith("_train"):
+            recs[f"flash_attention_bwd_{name}"] = flash_bwd_case(
+                *shape, "bfloat16", causal, timed=True, sk=sk)
+            continue
+        recs[f"flash_attention_{name}"] = flash_case(
+            *shape, "bfloat16", causal, timed=True, sk=sk)
+        flash_case(*shape, "float32", causal, timed=False, sk=sk)
+    for b, h, kv, s, sk, d, causal in FA_BWD_CROSS_CASES:
+        for dt in ("float32", "bfloat16"):
+            flash_bwd_case(b, h, kv, s, d, dt, causal, timed=False, sk=sk)
+
+
 def phase_kernels():
     pa_main, fa_main, wkv_main, (fw_shape, window), lru_main = \
         main_path_shapes()
@@ -1138,6 +1236,7 @@ def phase_kernels():
             flash_bwd_case(b, h, kv, s, d, dt, causal, timed=False,
                            window=window)
     decoder_kernel_cases(recs)
+    multimodal_kernel_cases(recs)
     recs["wkv6_bwd"] = wkv6_bwd_case(*WKV_BWD_MAIN, "bfloat16", False,
                                      timed=True)
     wkv6_bwd_case(*WKV_BWD_MAIN[:3], 64, "float32", False, timed=False)
@@ -1332,6 +1431,14 @@ def phase_serve(arch):
         print(f"  {over}/{len(plens)} prompts exceed the {cfg.window}-token "
               f"window (longest {max(plens)})")
         check(over, "no prompt exceeds the local-attention window")
+    if cfg.is_encdec or cfg.n_image_tokens:
+        print(f"  side inputs a request: "
+              + (f"{cfg.n_frames} frame embeddings (the encoder runs once "
+                 f"a prefill; cross K/V cached)" if cfg.is_encdec else
+                 f"{cfg.n_image_tokens} image embeddings before the prompt "
+                 f"(decode starts at position {cfg.n_image_tokens} + the "
+                 f"prompt)") + f"; cache_len {res['cache_len']}")
+    serve_rec["snapshot"] = snapshot_cost(eng, res["cache_len"])
     n = len(res["requests"])
     check(serve_rec["completed"] == n,
           f"{arch}: {serve_rec['completed']}/{n} requests completed")
@@ -1343,6 +1450,37 @@ def phase_serve(arch):
         check(launches[name] > 0, f"the {arch} serve path never launched "
                                   f"{name}")
     return res, serve_rec, launches
+
+
+def snapshot_cost(eng, cache_len):
+    """What one decode snapshot costs the engine: the slot row's bytes (all
+    its cache leaves: an encoder-decoder row holds its cross K/V) and the
+    host seconds to copy it off the card and to hash it into the store,
+    each the median of 5; beside the run's snapshot count."""
+    from repro_torch.serve.snapshot import (DecodeSnapshot, SnapshotStore,
+                                            cache_batch_axes, slot_get)
+    axes = cache_batch_axes(eng.cfg, cache_len)
+    copy_s, hash_s = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        row = slot_get(eng.cache, axes, 0)
+        t1 = time.perf_counter()
+        SnapshotStore().save(DecodeSnapshot(rid=0, pos=0, tokens=[0],
+                                            last_token=0, cache_row=row,
+                                            step=0))
+        copy_s.append(t1 - t0)
+        hash_s.append(time.perf_counter() - t1)
+    out = {"row_mb": sum(t.numel() * t.element_size()
+                         for t in row.values()) / 1e6,
+           "copy_ms": 1e3 * statistics.median(copy_s),
+           "hash_ms": 1e3 * statistics.median(hash_s),
+           "snapshots": int(eng.metrics.snapshots),
+           "leaves": {k: list(t.shape) for k, t in row.items()}}
+    print(f"  snapshot: a slot row of {out['row_mb']:.2f} MB "
+          f"({out['leaves']}); host copy {out['copy_ms']:.2f} ms, sha1 into "
+          f"the store {out['hash_ms']:.2f} ms (median of 5); "
+          f"{out['snapshots']} snapshots in the run")
+    return out
 
 
 def _prefill_len(cfg, plen):
@@ -1413,22 +1551,26 @@ def _profile(label, fn, reps):
 
 def profile_engine(res, steps=8):
     """Where the time goes: one prefill at the longest prompt's prefill
-    length (its bucket for dense, exact for the recurrent families) and
+    length (its bucket for dense, exact for the recurrent families; with
+    that request's frames or image embeddings) and
     ``steps`` batched decode steps at the last cache position, of the serve
     phase's engine (all slots live), after warm-up (:func:`_profile`)."""
+    import numpy as np
     import torch
+    from repro_torch.serve.engine import prefill_inputs
     eng = res["engine"]
     n = eng.pool.n_slots
-    seq = max(_prefill_len(eng.cfg, r.prompt_len) for r in res["requests"])
-    prompt = torch.ones((1, seq), dtype=torch.int32, device="cuda")
-    last = torch.tensor([seq - 1], device="cuda")
+    req = max(res["requests"], key=lambda r: r.prompt_len)
+    seq = _prefill_len(eng.cfg, req.prompt_len)
+    batch = prefill_inputs(eng.cfg, req, np.ones((1, seq), np.int32), "cuda")
+    last = torch.tensor([eng.cfg.n_image_tokens + seq - 1], device="cuda")
     toks = torch.ones((n, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((n,), res["cache_len"] - 1, dtype=torch.int64,
                      device="cuda")
     live = torch.ones((n,), dtype=torch.bool, device="cuda")
 
     def prefill():
-        logits, _ = eng._prefill_step(eng.params, {"tokens": prompt}, last)
+        logits, _ = eng._prefill_step(eng.params, batch, last)
         return logits.cpu()
 
     def decode():
@@ -1493,12 +1635,15 @@ def phase_reference(res):
     dropped one, and a divergence on another is printed as a capacity
     divergence and counted.  A decode step cannot drop: its group is the
     batch (at most 4 slots) and a capacity is at least 4."""
+    import numpy as np
     import torch
     from repro_torch.distributed.steps import (make_prefill_step,
                                                make_serve_step)
     from repro_torch.serve import greedy_decode
+    from repro_torch.serve.engine import prefill_inputs
     from repro_torch.serve.snapshot import cache_batch_axes
     eng, cfg = res["engine"], res["engine"].cfg
+    off = cfg.n_image_tokens
     params, cache_len = eng.params, res["cache_len"]
     axes = cache_batch_axes(cfg, cache_len)
     pre = make_prefill_step(cfg, cache_len)
@@ -1508,13 +1653,13 @@ def phase_reference(res):
     drops = {}
     for r in res["requests"]:
         p = r.prompt_len
-        toks = torch.zeros((1, _prefill_len(cfg, p)), dtype=torch.int32)
-        toks[0, :p] = torch.as_tensor(r.prompt)
+        toks = np.zeros((1, _prefill_len(cfg, p)), dtype=np.int32)
+        toks[0, :p] = r.prompt
         (lp, _), log_p = _moe_logged(lambda: pre(
-            params, {"tokens": toks.cuda()},
-            torch.tensor([p - 1], device="cuda")))
+            params, prefill_inputs(cfg, r, toks, "cuda"),
+            torch.tensor([off + p - 1], device="cuda")))
         (le, cache), log_e = _moe_logged(lambda: pre(
-            params, {"tokens": toks[:, :p].cuda()}))
+            params, prefill_inputs(cfg, r, toks[:, :p].copy(), "cuda")))
         drops[r.rid] = (_dropped(log_p, p), _dropped(log_e))
         if sum(drops[r.rid]):
             del cache
@@ -1523,8 +1668,8 @@ def phase_reference(res):
         tok = torch.argmax(le, -1).to(torch.int32)[:, None]
         wide = {k: v.repeat_interleave(n, dim=axes[k])
                 for k, v in cache.items()}
-        _, l1, _ = serve(params, cache, tok, p)
-        _, l4, _ = serve(params, wide, tok.expand(n, 1), p)
+        _, l1, _ = serve(params, cache, tok, off + p)
+        _, l4, _ = serve(params, wide, tok.expand(n, 1), off + p)
         delta = max(delta, float((l4 - l1).abs().max()))
         del cache, wide
     bound = 4 * delta
@@ -1696,15 +1841,36 @@ def mixing_flops(cfg, b, s):
     return layers * 4 * b * cfg.n_heads * pairs * cfg.head_dim
 
 
+def forward_flops(cfg, b, s):
+    """FLOPs of one training forward at b x s text tokens: 2 x the matmul
+    parameters each token passes, plus the sequence mixing.  The image
+    family's trunk also runs over its image rows (the head over the text
+    only); the encoder-decoder's encoder and its cross K/V projections run
+    over the frames, its decoder's cross-attention over text x frames."""
+    head = cfg.d_model * cfg.vocab_size
+    if cfg.is_encdec:
+        d, hd, t = cfg.d_model, cfg.head_dim, cfg.n_frames
+        q_o = 2 * d * cfg.n_heads * hd
+        k_v = 2 * d * cfg.n_kv_heads * hd
+        mlp = 2 * d * cfg.d_ff                      # GELU: up and down
+        enc = cfg.encoder_layers * (q_o + k_v + mlp)
+        dec = cfg.n_layers * (2 * q_o + k_v + mlp)
+        pairs = (cfg.encoder_layers * t * t
+                 + cfg.n_layers * (attended_pairs(s, True, 0) + s * t))
+        return (2 * b * t * (enc + cfg.n_layers * k_v)
+                + 2 * b * s * (dec + head) + 4 * b * cfg.n_heads * pairs * hd)
+    n = s + cfg.n_image_tokens
+    return (2 * b * n * (matmul_params(cfg) - head) + 2 * b * s * head
+            + mixing_flops(cfg, b, n))
+
+
 def train_flops(cfg, b, s):
-    """(model FLOPs, executed FLOPs) of one train step: 6 x the matmul
-    parameters x tokens plus three times the sequence mixing's forward;
-    executed adds what remat recomputes (each remat unit's forward and
-    each xent chunk's logits)."""
-    tokens = b * s
-    mm, mix = matmul_params(cfg), mixing_flops(cfg, b, s)
-    model = 6 * tokens * mm + 3 * mix
-    return model, model + 2 * tokens * mm + mix
+    """(model FLOPs, executed FLOPs) of one train step: three forwards
+    (:func:`forward_flops`: the forward and a backward of twice its
+    products); executed adds what remat recomputes (each remat unit's
+    forward and each xent chunk's logits), a fourth."""
+    f = forward_flops(cfg, b, s)
+    return 3 * f, 4 * f
 
 
 def _launch_train(cfg, args, built):
@@ -1865,12 +2031,29 @@ FAMILY_TRAIN = {
     "granite-moe-1b-a400m": dict(layers=24, batch=4, seq=2048,
                                  kernels=("flash_attention",
                                           "flash_attention_bwd")),
+    # uncut (12 + 12 layers, 0.30 B params): 16 x 448 decoder tokens (its
+    # text context), 1500 frames a sample
+    "whisper-small": dict(layers=12, batch=16, seq=448,
+                          kernels=("flash_attention", "flash_attention_bwd")),
+    # 8 of 32 layers (~2.0 B params, ~56 GB at ~28 bytes a parameter):
+    # 4 x (576 image + 1472 text) positions
+    "llava-next-mistral-7b": dict(layers=8, batch=4, seq=1472,
+                                  kernels=("flash_attention",
+                                           "flash_attention_bwd")),
 }
 FAMILY_TRAIN_STEPS = 4   # the first warms up; the time is the others' median
 MEM_TARGET = 70e9
-# the crash runs at reduced depth (recurrentgemma: one super block)
-CRASH_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3,
-                "granite-moe-1b-a400m": 2}
+# the crash runs at reduced depth (recurrentgemma: one super block;
+# whisper: 2 encoder and 2 decoder layers, at its 448-token text context),
+# each config's cut and extra flags.  llava has none: its checkpoint holds
+# the 32000 x 4096 embedding and head and their moments, ~5.8 GB even at
+# one layer, and the machine allows ~45 GiB of disk writes, ~40 GB of them
+# taken already (TRAIN_ARGS)
+CRASH_CUTS = {"rwkv6-3b": (dict(n_layers=2), []),
+              "recurrentgemma-2b": (dict(n_layers=3), []),
+              "granite-moe-1b-a400m": (dict(n_layers=2), []),
+              "whisper-small": (dict(n_layers=2, encoder_layers=2),
+                                ["--seq-len", "448"])}
 CRASH_ARGS = ["--steps", "6", "--global-batch", "4", "--seq-len", "512",
               "--seed", "0", "--device", "cuda", "--ckpt-gamma-s", "0.001"]
 CRASH_STEP = 4
@@ -1917,8 +2100,13 @@ def phase_train_family(arch, tmp):
     step_s = statistics.median(times[1:])
     b, seq = spec["batch"], spec["seq"]
     model, executed = train_flops(cfg, b, seq)
+    side = (f" + {cfg.encoder_layers} encoder layers over {cfg.n_frames} "
+            f"frames a sample" if cfg.is_encdec else
+            f", {cfg.n_image_tokens} image rows before each sample's text"
+            if cfg.n_image_tokens else "")
     print(f"train {arch}: published widths (d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab_size}), depth {cfg.n_layers} of {full.n_layers}, "
+          f"{cfg.vocab_size}), depth {cfg.n_layers} of {full.n_layers}"
+          f"{side}, "
           f"{n_params / 1e9:.3f} B params, global batch {b} x {seq}; peak "
           f"device memory {peak / 1e9:.2f} GB ({peak / n_params:.1f} bytes a "
           f"parameter; target under {MEM_TARGET / 1e9:.0f} GB); launches "
@@ -2018,15 +2206,17 @@ def moe_layer_split(arch, cfg, params, b, s):
 
 
 def phase_train_crash(arch, tmp):
-    """``arch`` at its published widths and :data:`CRASH_LAYERS` layers,
-    4 x 512 tokens, through the launcher's code path with a forced crash
-    against a fault-free run (:func:`crash_then_replay`); returns the
-    path's launch counts."""
+    """``arch`` at its published widths and the depth of
+    :data:`CRASH_CUTS`, 4 x 512 tokens (whisper 448), through the
+    launcher's code path with a forced crash against a fault-free run
+    (:func:`crash_then_replay`); returns the path's launch counts."""
     import torch
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(arch), n_layers=CRASH_LAYERS[arch])
-    run = crash_then_replay(cfg, ["--arch", arch] + CRASH_ARGS, CRASH_STEP,
-                            tmp, f"{arch} x {cfg.n_layers} layers",
+    cut, extra = CRASH_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    run = crash_then_replay(cfg, ["--arch", arch] + CRASH_ARGS + extra,
+                            CRASH_STEP, tmp,
+                            f"{arch} x {cfg.n_layers} layers",
                             FAMILY_TRAIN[arch]["kernels"])
     print(f"train {arch} x {cfg.n_layers} layers checkpoints: "
           f"{run['ckpt_bytes'] / 1e9:.2f} GB each; saves "
@@ -2142,6 +2332,13 @@ def kernel_records(recs, by_path):
             rec["decoder_cases"] = {
                 arch: {k: recs[f"{name}_{arch}"][k] for k in TIMED_KEYS}
                 for arch in NEW_DECODERS}
+        if name in ("flash_attention", "flash_attention_bwd"):
+            pre = name + "_"
+            rec["multimodal_cases"] = {
+                key[len(pre):]: {k: recs[key].get(k) for k in
+                                 TIMED_KEYS + ("sk", "causal")}
+                for key in recs
+                if key.startswith((pre + "whisper", pre + "llava"))}
         if name == "flash_attention_bwd":
             for case in ("d256", "d256_fp32"):
                 rec[case + "_case"] = {
@@ -2222,6 +2419,8 @@ def main() -> int:
             by_path[f"train_{arch}"] = phase_train_family(arch, tmp)
             print(f"train {arch} done at "
                   f"{time.perf_counter() - t_start:.1f} s")
+            if arch not in CRASH_CUTS:
+                continue
             by_path[f"train_crash_{arch}"] = phase_train_crash(arch, tmp)
             print(f"train crash {arch} done at "
                   f"{time.perf_counter() - t_start:.1f} s")

@@ -27,8 +27,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
     ``lm.forward_train``, then :func:`~repro_torch.optim.adamw_update` at the
     cosine schedule's scale of the step count before the update.
 
-    ``batch`` holds numpy arrays or tensors (the pipeline's), moved to the
-    params' device.  ``accum_steps > 1`` runs the microbatches (equal row
+    ``batch`` holds numpy arrays or tensors (the pipeline's, with the
+    encoder-decoder's frames or the image family's embeddings), moved to
+    the params' device.  ``accum_steps > 1`` runs the microbatches (equal row
     slices of the batch, in order) one after another, adds their gradients
     into an fp32 sum and takes the mean of gradients and losses, so
     activation memory is that of one microbatch.  The returned trees are
@@ -41,7 +42,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
         leaves = [t.detach().requires_grad_() for _, t in flatten(params)]
         loss, _ = lm.forward_train(unflatten(params, leaves), cfg, mb,
                                    q_chunk=q_chunk, xent_chunk=xent_chunk)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (the cross-attention's q/k/v
+        # biases) gets zeros, as JAX's gradient gives it
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return loss.detach(), unflatten(params, list(grads))
 
     def train_step(params, opt_state, batch):

@@ -736,7 +736,9 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
     wg_commit();
   };
   // P^T and dS^T of tile j in place; masks only where the tile crosses the
-  // diagonal, the window's edge or Sq
+  // diagonal, the window's edge, Sq or Sk (the keys past Sk of a ragged
+  // last tile arrive as zeros and are never stored, but masked they give
+  // P = 0 exactly, not exp(-lse), which may overflow)
   auto p_ds_tile = [&](int j) {
     const int q0 = (i_first + j % n_q) * Bq;
     const float* rs = rows + (j % S) * 2 * Bq + c0;
@@ -745,10 +747,10 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
     auto valid = [&](int i) {
       const int qi = q0 + c0 + frag_col(i);
       const int kj = frag_row1(i) ? key1 : key0;
-      return qi < Sq && (!causal || qi >= kj) &&
+      return qi < Sq && kj < Sk && (!causal || qi >= kj) &&
              (window <= 0 || qi - kj < window);
     };
-    if (q0 + Bq > Sq || (causal && q0 < k0 + Bk - 1) ||
+    if (q0 + Bq > Sq || k0 + Bk > Sk || (causal && q0 < k0 + Bk - 1) ||
         (window > 0 && q0 + Bq - 1 - k0 >= window))
       probs<true>(s, scale_log2, lse2, valid);
     else

@@ -1,21 +1,21 @@
 """Serving launcher of the port: fault-tolerant continuous batching.
 
-Counterpart of ``repro.launch.serve`` (continuous engine only).  Requests
-are admitted through ``repro_torch.serve``: freed decode slots prefill new
-requests while live ones keep decoding; replication follows ``--policy``
-(``none`` / ``all`` / ``crch``) and failed workers resume requests from
-their last decode snapshot.  ``--verify-static`` checks the engine's tokens
-token-for-token against the batch=1 reference.  Runs on the GPU unless
+Counterpart of ``repro.launch.serve``.  Requests are admitted through
+``repro_torch.serve``: freed decode slots prefill new requests while live
+ones keep decoding; replication follows ``--policy`` (``none`` / ``all`` /
+``crch``) and failed workers resume requests from their last decode
+snapshot.  ``--verify-static`` checks the engine's tokens token-for-token
+against the batch=1 reference; ``--static`` runs the one-shot static batch
+instead of the engine (a baseline, not a fallback).  Runs on the GPU unless
 ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --tiny --device cpu --requests 6 --policy crch --env normal
 
-``--arch`` takes olmo-1b, deepseek-coder-33b, granite-20b,
-command-r-plus-104b, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b, rwkv6-3b
-or recurrentgemma-2b (the MoE and parallel-block families on the CPU:
-``--arch granite-moe-1b-a400m --tiny --device cpu``,
-``--arch command-r-plus-104b --tiny --device cpu``).
+``--arch`` takes every family of the JAX package (``lm.TRAIN_FAMILIES``);
+whisper-small's requests carry frame embeddings and llava-next-mistral-7b's
+image embeddings, drawn from the seed (``--arch whisper-small --tiny
+--device cpu --verify-static``).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import torch
 
 from ..chaos import SERVE_KINDS, ChaosEngine, FaultTrace, sample_trace
 from ..configs import get_config
+from ..distributed.steps import make_prefill_step, make_serve_step
 from ..models import lm
 from ..serve import (EngineConfig, Request, ServeEngine, WorkerPool,
                      crch_policy, engine_supported, greedy_reference,
@@ -69,17 +70,24 @@ def add_chaos_args(ap: argparse.ArgumentParser) -> None:
 
 def make_requests(cfg, n: int, prompt_len: int, new_tokens: int,
                   seed: int) -> list[Request]:
-    """The launcher's seeded request mix: the JAX launcher's for the
-    text-only families (no encoder frames or image embeddings)."""
+    """The launcher's seeded request mix, the JAX launcher's: each
+    request draws its prompt length, then its frame embeddings
+    (encoder-decoder) and image embeddings (image family), then its
+    prompt, from one generator."""
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
         plen = int(rng.integers(max(prompt_len // 2, 4), prompt_len + 1))
         newt = new_tokens if i % 3 else new_tokens * 2
+        frames = (rng.normal(size=(cfg.n_frames, cfg.d_model))
+                  .astype(np.float32) if cfg.is_encdec else None)
+        embeds = (rng.normal(size=(cfg.n_image_tokens, cfg.d_model))
+                  .astype(np.float32) if cfg.n_image_tokens else None)
         reqs.append(Request(
             rid=i, prompt=rng.integers(1, cfg.vocab_size, plen,
                                        dtype=np.int64).astype(np.int32),
-            max_new_tokens=newt, arrival=0, deadline=16 * (plen + newt)))
+            max_new_tokens=newt, arrival=0, deadline=16 * (plen + newt),
+            frames=frames, image_embeds=embeds))
     return reqs
 
 
@@ -92,8 +100,8 @@ def continuous_main(cfg, args, *, params=None) -> dict:
     device = torch.device(args.device)
     reqs = make_requests(cfg, args.requests, args.prompt_len,
                          args.new_tokens, args.seed)
-    cache_len = max(prompt_bucket(r.prompt_len) + r.max_new_tokens
-                    for r in reqs)
+    cache_len = max(cfg.n_image_tokens + prompt_bucket(r.prompt_len)
+                    + r.max_new_tokens for r in reqs)
     if cfg.rglru:
         # the engine refuses a cache shorter than the rolling window
         cache_len = max(cache_len, cfg.window)
@@ -184,6 +192,64 @@ def continuous_main(cfg, args, *, params=None) -> dict:
             "wall_s": wall, "tok_s": tok_s}
 
 
+def static_batch(cfg, batch: int, seq: int, seed: int, device) -> dict:
+    """The static baseline's prompts, drawn as the JAX launcher's
+    ``make_batch`` draws them: tokens, (targets, unused here), then frames
+    or image embeddings rounded to bf16."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    rng.integers(0, cfg.vocab_size, (batch, seq))      # JAX's targets
+    out = {"tokens": torch.from_numpy(tokens)}
+    if cfg.is_encdec:
+        out["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.n_frames, cfg.d_model))).to(torch.bfloat16)
+    if cfg.n_image_tokens:
+        out["image_embeds"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.n_image_tokens, cfg.d_model))).to(torch.bfloat16)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def static_main(cfg, args, *, params=None) -> dict:
+    """The one-shot static batch, JAX's ``static_main``: one prefill of
+    ``--requests`` prompts of ``--prompt-len`` tokens, then ``--new-tokens
+    - 1`` batched greedy decode steps at one shared position.  An explicit
+    baseline, not a fallback: no replicas, failures or snapshots.  Returns
+    the tokens (B, new_tokens), the last logits and the params."""
+    device = torch.device(args.device)
+    cache_len = args.prompt_len + args.new_tokens + cfg.n_image_tokens
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = lm.init_params(cfg, gen, cast=True)
+    params = lm.cast_params(params, cfg)
+    prefill = make_prefill_step(cfg, cache_len)
+    serve = make_serve_step(cfg)
+    batch = static_batch(cfg, args.requests, args.prompt_len, args.seed,
+                         device)
+    t0 = time.time()
+    logits, cache = prefill(params, batch)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    out = [tok.cpu()]
+    t_prefill = time.time() - t0
+    pos0 = args.prompt_len + cfg.n_image_tokens
+    t0 = time.time()
+    for i in range(args.new_tokens - 1):
+        tok, logits, cache = serve(params, cache, tok, pos0 + i)
+        out.append(tok.cpu())
+    t_decode = time.time() - t0
+    gen = torch.cat(out, dim=1)
+    tok_s = args.requests * (args.new_tokens - 1) / max(t_decode, 1e-9)
+    print(f"arch={cfg.name} ({cfg.param_count() / 1e6:.0f}M params) "
+          f"batch={args.requests} prompt={args.prompt_len} "
+          f"new={args.new_tokens} device={device} [static]")
+    print(f"prefill {t_prefill * 1e3:.0f} ms | decode "
+          f"{t_decode * 1e3 / max(args.new_tokens - 1, 1):.1f} ms/token "
+          f"({tok_s:.1f} tok/s aggregate)")
+    if not torch.isfinite(logits).all():
+        raise SystemExit("static run: non-finite logits")
+    print("sample:", gen[0][:12].tolist())
+    return {"tokens": gen, "logits": logits, "params": params}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="olmo-1b",
@@ -205,6 +271,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--env", choices=("none", "stable", "normal", "unstable"),
                     default="none")
     ap.add_argument("--max-steps", type=int, default=20_000)
+    ap.add_argument("--static", action="store_true",
+                    help="run the one-shot static batch baseline")
     ap.add_argument("--verify-static", action="store_true",
                     help="check engine tokens against the batch=1 static "
                          "reference, token-for-token")
@@ -217,6 +285,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    if args.static and (args.chaos != "none" or args.chaos_trace):
+        raise SystemExit("--static has no fault tolerance to chaos-test; "
+                         "use the continuous engine")
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise SystemExit("CUDA is not available; pass --device cpu to run "
@@ -228,6 +299,8 @@ def main(argv=None) -> dict:
     supported, why = engine_supported(cfg)
     if not supported:
         raise SystemExit(f"{args.arch}: {why}")
+    if args.static:
+        return static_main(cfg, args)
     return continuous_main(cfg, args)
 
 

@@ -7,10 +7,10 @@ recorder), which wait for later slices.  The train step runs under
 store, the dynamic checkpoint interval, an optional Weibull failure
 injector and the ``--chaos*`` fault traces, and prints the JAX launcher's
 lines.  Runs on the GPU unless ``--device cpu`` is given; ``--arch`` takes
-the families the port trains (``lm.TRAIN_FAMILIES``: olmo-1b,
-deepseek-coder-33b, granite-20b, command-r-plus-104b, granite-moe-1b-a400m,
-phi3.5-moe-42b-a6.6b, rwkv6-3b, recurrentgemma-2b; the MoE families add
-their load-balancing loss to the loss, as in JAX).
+every family of the JAX package (``lm.TRAIN_FAMILIES``; the MoE families
+add their load-balancing loss to the loss, as in JAX; whisper-small's
+batches carry frame embeddings and llava-next-mistral-7b's image
+embeddings, from the pipeline's seed).
 
     PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
         --steps 20 --global-batch 4 --seq-len 32 --inject-mtbf-steps 8
@@ -20,6 +20,9 @@ their load-balancing loss to the loss, as in JAX).
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch granite-moe-1b-a400m --tiny --device cpu --steps 12 \\
         --global-batch 4 --seq-len 32 --inject-mtbf-steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+        --tiny --device cpu --steps 12 --global-batch 4 --seq-len 32 \\
+        --inject-mtbf-steps 5
 
 On the GPU the run is deterministic (``torch.use_deterministic_algorithms``
 and a fixed cuBLAS workspace, set before the first cuBLAS call), so a step

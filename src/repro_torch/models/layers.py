@@ -1,15 +1,15 @@
-"""Model primitives: norms, rotary, GQA attention, MLP, MoE.
+"""Model primitives: norms, rotary, GQA attention, MLPs, MoE.
 
-Counterpart of ``repro.models.layers`` for the families the port serves
-(the decoder-only dense and MoE families, rwkv6-3b, recurrentgemma-2b).
-Parameters are plain dicts of
+Counterpart of ``repro.models.layers`` for every family of the JAX
+package.  Parameters are plain dicts of
 tensors; compute runs in the input's dtype with fp32 softmax and
 normalisation.  Layouts at the public functions are the JAX package's:
 activations ``(B, S, D)``, q/k/v ``(B, S, H, D)``, caches
-``(B, S_cache, KV, D)``.  Causal and local (sliding-window) prefill
-attention run on the flash attention kernel, and under autograd (training)
-its gradient on the flash-attention backward kernel; one-token decode
-attention is plain torch ops (the JAX package has no kernel there either).
+``(B, S_cache, KV, D)``.  Causal, local (sliding-window), bidirectional
+and cross (encoder-decoder) attention run on the flash attention kernel,
+and under autograd (training) its gradient on the flash-attention backward
+kernel; one-token decode attention is plain torch ops (the JAX package has
+no kernel there either).
 Every op is differentiable: weights are cast to the compute dtype at each
 use (``.to(dtype)``), so training keeps fp32 parameters.  The MoE layer
 routes each kept (token, choice) pair to its (expert, slot) row by gathers,
@@ -96,7 +96,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA; causal prefill on the kernel, one-token decode)
+# attention (GQA; causal, local, bidir, cross on the kernel; decode)
 # ---------------------------------------------------------------------------
 
 
@@ -131,6 +131,18 @@ def _project_qkv(p, x, cfg: ModelConfig, n_heads, n_kv, dtype):
             v.reshape(b, s, n_kv, hd))
 
 
+def _project_cross(p, x, context, cfg: ModelConfig, dtype):
+    """Cross-attention's q from ``x`` and k, v from ``context``, without
+    the q/k/v biases (JAX adds none there, though the layer holds them)."""
+    b, s, _ = x.shape
+    sk = context.shape[1]
+    hd = cfg.head_dim
+    q = (x @ p["wq"].to(dtype)).reshape(b, s, cfg.n_heads, hd)
+    k = (context @ p["wk"].to(dtype)).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = (context @ p["wv"].to(dtype)).reshape(b, sk, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
 def _out_proj(p, out, dtype):
     out = out @ p["wo"].to(dtype)
     if "bo" in p:
@@ -139,10 +151,13 @@ def _out_proj(p, out, dtype):
 
 
 def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
-                      window: int = 0, return_kv: bool = False):
-    """Full-sequence attention: ``mode="causal"``, or ``"local"`` (causal
-    within ``window`` keys: ``q - k < window``).  Other modes of the JAX
-    function (bidir, cross) wait for the families that use them.
+                      window: int = 0, context=None,
+                      return_kv: bool = False):
+    """Full-sequence attention: ``mode="causal"``; ``"local"`` (causal
+    within ``window`` keys: ``q - k < window``); ``"bidir"`` (no mask, no
+    rope: the encoder); or ``"cross"``: queries from ``x``, keys and values
+    from ``context`` (the encoder's output, ``(B, Sk, D)``), no mask, no
+    rope, no q/k/v bias, ``bo`` added after ``wo``.
 
     The flash kernel takes the ``(B, S, H, D)`` projections as strided
     ``(B, H, S, D)`` views and returns a view whose transpose is the
@@ -151,19 +166,24 @@ def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
     gradient of each transposed view arrives as a contiguous
     ``(B, S, H, D)`` tensor, again without a copy.
     """
-    if mode not in ("causal", "local"):
-        raise ValueError(f"attention mode {mode!r} is not ported yet")
+    if mode not in ("causal", "local", "bidir", "cross"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     if mode == "local" and window <= 0:
         raise ValueError("local attention needs window > 0")
     dtype = x.dtype
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-    q, k, v = _project_qkv(p, x, cfg, h, kv, dtype)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if mode == "cross":
+        q, k, v = _project_cross(p, x, context, cfg, dtype)
+    else:
+        q, k, v = _project_qkv(p, x, cfg, cfg.n_heads, cfg.n_kv_heads, dtype)
+        if mode != "bidir":
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
     out = fa_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal=True,
+                           v.transpose(1, 2),
+                           causal=mode in ("causal", "local"),
                            window=window if mode == "local" else 0)
-    out = out.transpose(1, 2).reshape(*x.shape[:2], h * cfg.head_dim)
+    out = out.transpose(1, 2).reshape(*x.shape[:2],
+                                      cfg.n_heads * cfg.head_dim)
     out = _out_proj(p, out, dtype)
     if return_kv:
         return out, (k, v)
@@ -171,13 +191,15 @@ def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
 
 
 def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, window: int = 0,
-                     rows=None):
+                     rows=None, cross_kv=None):
     """One-token decode over a cache ``{"k","v"}: (B, S_cache, KV, D)``.
     ``pos`` is the absolute position: a Python int shared by the batch, or
     a per-row ``(B,)`` int tensor (continuous batching).  With
     ``window > 0`` the cache is a rolling ring of ``window`` slots: the new
     entry goes to slot ``pos % window``, and a slot is valid once written
-    (every slot once ``pos >= window``).
+    (every slot once ``pos >= window``).  ``cross_kv`` (the encoder's K and
+    V, each ``(B, n_frames, KV, D)``) makes it cross-attention: q without
+    its bias against every frame, no cache and no mask (``cache`` unused).
 
     Unlike the JAX function, the new K/V entry is written into ``cache``
     **in place**, and only for the batch rows in ``rows`` (a 1-d index
@@ -188,31 +210,37 @@ def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, window: int = 0,
     dtype = x.dtype
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b = x.shape[0]
-    q, k_new, v_new = _project_qkv(p, x, cfg, h, kv, dtype)
-    per_row = isinstance(pos, torch.Tensor) and pos.ndim > 0
-    if per_row:
-        posb = pos.reshape(b, 1).to(device=x.device, dtype=torch.int64)
+    if cross_kv is not None:
+        q = (x @ p["wq"].to(dtype)).reshape(b, 1, h, hd)
+        ck, cv = cross_kv
+        valid = None
     else:
-        posb = torch.full((b, 1), int(pos), dtype=torch.int64,
-                          device=x.device)
-    q = rope(q, posb, cfg.rope_theta)
-    k_new = rope(k_new, posb, cfg.rope_theta)
-    ck, cv = cache["k"], cache["v"]
-    slot = posb % window if window else posb
-    r = torch.arange(b, device=x.device) if rows is None else rows
-    ck[r, slot[r, 0]] = k_new[r, 0].to(ck.dtype)
-    cv[r, slot[r, 0]] = v_new[r, 0].to(cv.dtype)
-    idx = torch.arange(ck.shape[1], device=x.device)[None]
-    valid = idx <= slot                                          # (B, S)
-    if window:
-        valid = (valid | (posb >= window)) & (idx < window)
+        q, k_new, v_new = _project_qkv(p, x, cfg, h, kv, dtype)
+        per_row = isinstance(pos, torch.Tensor) and pos.ndim > 0
+        if per_row:
+            posb = pos.reshape(b, 1).to(device=x.device, dtype=torch.int64)
+        else:
+            posb = torch.full((b, 1), int(pos), dtype=torch.int64,
+                              device=x.device)
+        q = rope(q, posb, cfg.rope_theta)
+        k_new = rope(k_new, posb, cfg.rope_theta)
+        ck, cv = cache["k"], cache["v"]
+        slot = posb % window if window else posb
+        r = torch.arange(b, device=x.device) if rows is None else rows
+        ck[r, slot[r, 0]] = k_new[r, 0].to(ck.dtype)
+        cv[r, slot[r, 0]] = v_new[r, 0].to(cv.dtype)
+        idx = torch.arange(ck.shape[1], device=x.device)[None]
+        valid = idx <= slot                                      # (B, S)
+        if window:
+            valid = (valid | (posb >= window)) & (idx < window)
     g = h // kv
     qg = q.reshape(b, kv, g, hd).to(torch.float32)
     # bf16 operands, fp32 products and sums: preferred_element_type=f32
     scores = torch.einsum("bkgd,bskd->bkgs", qg,
                           ck.to(dtype).to(torch.float32))
     scores = scores / math.sqrt(hd)
-    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    if valid is not None:
+        scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w.to(dtype).to(torch.float32),
                        cv.to(dtype).to(torch.float32)).to(dtype)
@@ -226,9 +254,19 @@ def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, window: int = 0,
 
 
 def init_mlp(generator, cfg: ModelConfig):
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``), or whisper's GELU MLP
+    (``w_up``, ``w_down`` and, with ``use_bias``, ``b_up``, ``b_down``)."""
     d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "gelu":
+        p = {"w_up": dense_init((d, ff), generator),
+             "w_down": dense_init((ff, d), generator)}
+        if cfg.use_bias:
+            dev = generator.device
+            p["b_up"] = torch.zeros((ff,), dtype=torch.float32, device=dev)
+            p["b_down"] = torch.zeros((d,), dtype=torch.float32, device=dev)
+        return p
     if cfg.mlp_type != "swiglu":
-        raise ValueError(f"mlp {cfg.mlp_type!r} is not ported yet")
+        raise ValueError(f"unknown mlp {cfg.mlp_type!r}")
     return {
         "w_gate": dense_init((d, ff), generator),
         "w_up": dense_init((d, ff), generator),
@@ -238,6 +276,15 @@ def init_mlp(generator, cfg: ModelConfig):
 
 def mlp_forward(p, x):
     dtype = x.dtype
+    if "w_gate" not in p:                       # GELU MLP (whisper)
+        h = x @ p["w_up"].to(dtype)
+        if "b_up" in p:
+            h = h + p["b_up"].to(dtype)
+        # jax.nn.gelu's default is the tanh approximation
+        out = F.gelu(h, approximate="tanh") @ p["w_down"].to(dtype)
+        if "b_down" in p:
+            out = out + p["b_down"].to(dtype)
+        return out
     gate = F.silu(x @ p["w_gate"].to(dtype))
     up = x @ p["w_up"].to(dtype)
     return (gate * up) @ p["w_down"].to(dtype)

@@ -1,9 +1,12 @@
 """Model assembly of the families the port runs.
 
-Counterpart of ``repro.models.lm`` for the decoder-only dense and MoE
-(olmo-1b, deepseek-coder-33b, granite-20b, command-r-plus-104b's parallel
-block, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b), RWKV-6 (rwkv6-3b) and
-RG-LRU hybrid (recurrentgemma-2b) branches:
+Counterpart of ``repro.models.lm`` for all its branches: the decoder-only
+dense and MoE (olmo-1b, deepseek-coder-33b, granite-20b, command-r-plus-104b's
+parallel block, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b, and
+llava-next-mistral-7b, whose precomputed image embeddings go before the
+text), RWKV-6 (rwkv6-3b), RG-LRU hybrid (recurrentgemma-2b) and
+encoder-decoder (whisper-small: a bidirectional encoder over precomputed
+frame embeddings, decoder layers with cross-attention):
 
   init_params(cfg, generator, device, cast=)     -> params dict
   params_from_jax(np_tree, cfg, device)          -> params dict
@@ -16,8 +19,9 @@ RG-LRU hybrid (recurrentgemma-2b) branches:
 The params dict has the JAX pytree's structure and leaf shapes: layer
 leaves are stacked along leading axes (``layers``: ``(L, ...)``; the hybrid's
 ``super`` block: ``(n_super, ...)`` with its ``rec`` stack
-``(n_super, rec_per_attn, ...)``; ``tail``: ``(n_tail, ...)``) and Python
-loops walk them.  Weights are stored in ``param_dtype`` and cast to the
+``(n_super, rec_per_attn, ...)``; ``tail``: ``(n_tail, ...)``; the
+encoder's ``enc_layers``: ``(encoder_layers, ...)``) and Python loops walk
+them.  Weights are stored in ``param_dtype`` and cast to the
 compute dtype at every use, as in JAX; :func:`cast_params` makes that cast
 once, after which every ``.to(dtype)`` is a no-op (``init_params(...,
 cast=True)`` draws the params already cast, a layer at a time).  The leaves
@@ -57,23 +61,21 @@ FP32_READ = frozenset({"ww", "u", "ln_scale", "ba", "bx", "lam", "scale",
                        "bias"})
 
 
-#: the families the port serves and trains
+#: the families the port serves and trains: every family of the JAX package
 TRAIN_FAMILIES = ("olmo-1b", "deepseek-coder-33b", "granite-20b",
                   "command-r-plus-104b", "granite-moe-1b-a400m",
-                  "phi3.5-moe-42b-a6.6b", "rwkv6-3b", "recurrentgemma-2b")
+                  "phi3.5-moe-42b-a6.6b", "rwkv6-3b", "recurrentgemma-2b",
+                  "whisper-small", "llava-next-mistral-7b")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for a family the port does not run yet (the
-    encoder-decoder and the image-token families)."""
-    decoder = (cfg.family in ("dense", "moe")
-               and cfg.block_type in ("llama", "parallel"))
-    if (cfg.is_encdec or cfg.n_image_tokens or cfg.mlp_type != "swiglu"
-            or not (cfg.rwkv or cfg.rglru or decoder)):
-        raise ValueError(f"{cfg.name}: the port serves and trains the "
-                         f"decoder-only dense and MoE, RWKV-6 and RG-LRU "
-                         f"hybrid families ({', '.join(TRAIN_FAMILIES)}) "
-                         f"so far")
+    """Raise ``ValueError`` for a config outside the JAX package's
+    families: an unknown block or MLP type, an RWKV-6 width off its
+    64-wide heads, an RG-LRU hybrid without a window."""
+    if (cfg.block_type not in ("llama", "parallel")
+            or cfg.mlp_type not in ("swiglu", "gelu")):
+        raise ValueError(f"{cfg.name}: not a config of the families the "
+                         f"port runs ({', '.join(TRAIN_FAMILIES)})")
     if cfg.rwkv:
         rw.n_heads(cfg)          # raises unless d_model % 64 == 0
     if cfg.rglru and cfg.window <= 0:
@@ -89,8 +91,10 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
 
 def commit_axes(cfg: ModelConfig) -> dict[str, int]:
     """Batch axis of each cache leaf, as :func:`decode_step` writes it in
-    place (the dense and RWKV leaves on axis 1; the hybrid's per-block
-    ``h``/``conv`` stacks ``(n_super, rec_per_attn, B, ...)`` on axis 2)."""
+    place (the dense, encoder-decoder and RWKV leaves on axis 1; the
+    hybrid's per-block ``h``/``conv`` stacks ``(n_super, rec_per_attn, B,
+    ...)`` on axis 2).  Decode never writes the encoder-decoder's
+    ``cross_k``/``cross_v``; prefill and snapshots move them on axis 1."""
     if cfg.rwkv:
         return {"S": 1, "x_tm": 1, "x_cm": 1}
     if cfg.rglru:
@@ -98,7 +102,10 @@ def commit_axes(cfg: ModelConfig) -> dict[str, int]:
         if hybrid_layout(cfg)[1]:
             axes.update(tail_h=1, tail_conv=1)
         return axes
-    return {"k": CACHE_BATCH_AXIS, "v": CACHE_BATCH_AXIS}
+    axes = {"k": CACHE_BATCH_AXIS, "v": CACHE_BATCH_AXIS}
+    if cfg.is_encdec:
+        axes.update(cross_k=CACHE_BATCH_AXIS, cross_v=CACHE_BATCH_AXIS)
+    return axes
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -180,6 +187,16 @@ def _init_rwkv_layer(generator, cfg: ModelConfig):
             "cm": rw.init_channel_mix(generator, cfg)}
 
 
+def _init_cross_layer(generator, cfg: ModelConfig):
+    """A decoder layer of the encoder-decoder: causal self-attention,
+    cross-attention (``ln_x``, ``xattn``) and the MLP."""
+    d = cfg.d_model
+    return {"ln1": init_norm(cfg, d), "attn": init_attention(generator, cfg),
+            "ln_x": init_norm(cfg, d),
+            "xattn": init_attention(generator, cfg),
+            "ln2": init_norm(cfg, d), "mlp": init_mlp(generator, cfg)}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 *, cast: bool = False):
     """Seeded init with the JAX package's structure, shapes and scales.
@@ -219,6 +236,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         if n_tail:
             params["tail"] = stack(n_tail,
                                    lambda: _init_rec_layer(generator, cfg))
+    elif cfg.is_encdec:
+        # learned positions, 0.02 x the dense init, as in JAX
+        params.update(_store({
+            "enc_pos": 0.02 * dense_init((cfg.n_frames, d), generator),
+            "dec_pos": 0.02 * dense_init((cfg.max_decode_len, d), generator),
+            "enc_norm": init_norm(cfg, d)}, dtype_of, device))
+        params["enc_layers"] = stack(
+            cfg.encoder_layers, lambda: _init_dense_layer(generator, cfg))
+        params["layers"] = stack(cfg.n_layers,
+                                 lambda: _init_cross_layer(generator, cfg))
     else:
         params["layers"] = stack(cfg.n_layers,
                                  lambda: _init_dense_layer(generator, cfg))
@@ -359,6 +386,18 @@ def _rwkv_block(p, x, cfg: ModelConfig):
     return x + c
 
 
+def _cross_block(p, x, cfg: ModelConfig, positions, enc_out):
+    """An encoder-decoder decoder layer: causal self-attention, then
+    cross-attention to ``enc_out``, then the MLP, each after its norm."""
+    h = apply_norm(cfg, p["ln1"], x)
+    x = x + attention_forward(p["attn"], h, cfg, positions=positions,
+                              mode="causal")
+    h = apply_norm(cfg, p["ln_x"], x)
+    x = x + attention_forward(p["xattn"], h, cfg, positions=positions,
+                              mode="cross", context=enc_out)
+    return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
 def _unstack(layers, n: int):
     """Per-layer views of the stacked leaves: ``unbind`` once, so that the
     backward stacks each leaf's layer gradients once (indexing layer by
@@ -376,16 +415,28 @@ def _run(block, p, x, cfg: ModelConfig, *args):
     return block(p, x, cfg, *args)
 
 
-def backbone(params, cfg: ModelConfig, x, positions):
+def _encoder(params, cfg: ModelConfig, frames):
+    """The encoder-decoder's encoder on the frame embeddings (B, T, D):
+    plus ``enc_pos``, the bidirectional layers (each a remat unit), then
+    ``enc_norm``; in the compute dtype."""
+    dtype = compute_dtype(cfg)
+    x = frames.to(dtype) + params["enc_pos"].to(dtype)[None]
+    for p in _unstack(params["enc_layers"], cfg.encoder_layers):
+        x = _run(_dense_block, p, x, cfg, None, "bidir")[0]
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
+def backbone(params, cfg: ModelConfig, x, positions, *, enc_out=None):
     """The layer stack on the embedded input x (B, S, D), then the final
     norm, as JAX's ``backbone`` orders it: dense or MoE decoder layers; or
     ``ln_in`` and the RWKV layers (zero shift states); or the hybrid's
     super blocks of ``rec_per_attn`` recurrent blocks and a local-attention
-    block, then its ``tail`` recurrent layers.  With ``cfg.remat`` each
-    remat unit (a layer; a whole super block; a tail layer) is recomputed in
-    the backward, so its kernels' forwards run twice a step.  Returns (h,
-    aux): the MoE layers' load-balancing losses summed in layer order (0
-    for the other families)."""
+    block, then its ``tail`` recurrent layers; or the encoder-decoder's
+    decoder layers, attending to ``enc_out`` (:func:`_encoder`'s).  With
+    ``cfg.remat`` each remat unit (a layer; a whole super block; a tail
+    layer) is recomputed in the backward, so its kernels' forwards run
+    twice a step.  Returns (h, aux): the MoE layers' load-balancing losses
+    summed in layer order (0 for the other families)."""
     check_train_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.rwkv:
@@ -401,6 +452,9 @@ def backbone(params, cfg: ModelConfig, x, positions):
         if n_tail:
             for p in _unstack(params["tail"], n_tail):
                 x = _run(_rec_block, p, x, cfg)
+    elif cfg.is_encdec:
+        for p in _unstack(params["layers"], cfg.n_layers):
+            x = _run(_cross_block, p, x, cfg, positions, enc_out)
     else:
         for p in _unstack(params["layers"], cfg.n_layers):
             x, a = _run(_dense_block, p, x, cfg, positions)
@@ -411,7 +465,11 @@ def backbone(params, cfg: ModelConfig, x, positions):
 def forward_train(params, cfg: ModelConfig, batch, *, q_chunk: int = 1024,
                   xent_chunk: int = 512):
     """batch: {"tokens": (B, S) int, "targets": (B, S) int, "loss_mask":
-    (B, S) float} tensors on the params' device.  Returns (xent + 0.01 *
+    (B, S) float, and the encoder-decoder's "frames" (B, n_frames, D) or
+    the image family's "image_embeds" (B, n_image_tokens, D)} tensors on the
+    params' device.  The decoder adds ``dec_pos[:S]`` to the embedded
+    tokens; image embeddings go before the text, positions run over both,
+    and the image rows are dropped before the loss.  Returns (xent + 0.01 *
     aux, {"xent", "aux"}) as 0-d fp32 tensors, aux the MoE layers' summed
     load-balancing loss (0 for the other families).
     ``q_chunk`` is accepted for JAX's signature: the flash kernels take the
@@ -420,9 +478,17 @@ def forward_train(params, cfg: ModelConfig, batch, *, q_chunk: int = 1024,
     dtype = compute_dtype(cfg)
     tokens = batch["tokens"]
     x = _embed(params, tokens, dtype)
-    b, s = tokens.shape
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = _encoder(params, cfg, batch["frames"])
+        # slice, then cast: the values of JAX's cast table, sliced
+        x = x + params["dec_pos"][:x.shape[1]].to(dtype)[None]
+    if cfg.n_image_tokens:
+        x = torch.cat([batch["image_embeds"].to(dtype), x], dim=1)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    h, aux = backbone(params, cfg, x, positions)
+    h, aux = backbone(params, cfg, x, positions, enc_out=enc_out)
+    h = h[:, cfg.n_image_tokens:]
     loss = chunked_xent(h, output_weights(params, cfg, dtype),
                         batch["targets"], batch["loss_mask"],
                         chunk=xent_chunk, remat=cfg.remat)
@@ -442,7 +508,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     * hybrid: ``h`` fp32 ``(n_super, rec_per_attn, B, W)``, ``conv``
       ``(n_super, rec_per_attn, B, conv_width - 1, W)``, ``k``/``v``
       ``(n_super, B, min(window, cache_len), KV, D)`` (a rolling ring), and
-      ``tail_h``/``tail_conv`` ``(n_tail, B, ...)`` when layers are left over.
+      ``tail_h``/``tail_conv`` ``(n_tail, B, ...)`` when layers are left over;
+    * encoder-decoder: the dense leaves and the encoder's K/V for the
+      cross-attention, ``cross_k``/``cross_v`` each ``(L, B, n_frames, KV,
+      D)``.
 
     ``device="meta"`` allocates nothing."""
     check_family(cfg)
@@ -471,7 +540,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             cache["tail_conv"] = zeros((n_tail, batch, *conv))
         return cache
     shape = (cfg.n_layers, batch, cache_len, *kv)
-    return {"k": zeros(shape), "v": zeros(shape)}
+    cache = {"k": zeros(shape), "v": zeros(shape)}
+    if cfg.is_encdec:
+        cross = (cfg.n_layers, batch, cfg.n_frames, *kv)
+        cache.update(cross_k=zeros(cross), cross_v=zeros(cross))
+    return cache
 
 
 def _commit(cache, cfg: ModelConfig, name: str, index: tuple, new, rows):
@@ -546,6 +619,26 @@ def _decoder_tail(p, x, hh, a, cfg: ModelConfig):
     return x + _ffn(p, apply_norm(cfg, p["ln2"], x), cfg)[0]
 
 
+def _decode_encdec(params, cfg: ModelConfig, cache, x, pos, rows):
+    """Each row's ``dec_pos`` at its own position, then the decoder layers:
+    self-attention over the cache, cross-attention over the prefilled
+    ``cross_k``/``cross_v`` (never written here), the MLP."""
+    at = pos.reshape(-1).long() if isinstance(pos, torch.Tensor) else pos
+    x = x + params["dec_pos"][at].to(x.dtype).reshape(-1, 1, cfg.d_model)
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        hh = apply_norm(cfg, p["ln1"], x)
+        x = x + attention_decode(p["attn"], hh,
+                                 {"k": cache["k"][i], "v": cache["v"][i]},
+                                 cfg, pos=pos, rows=rows)
+        hh = apply_norm(cfg, p["ln_x"], x)
+        x = x + attention_decode(
+            p["xattn"], hh, None, cfg, pos=pos,
+            cross_kv=(cache["cross_k"][i], cache["cross_v"][i]))
+        x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, live=None):
     """tokens: (B, 1) int; pos: absolute position, a Python int or a per-row
     (B,) int tensor.  Returns (logits (B, V) fp32, cache).
@@ -561,6 +654,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, live=None):
         x = _decode_rwkv(params, cfg, cache, x, rows)
     elif cfg.rglru:
         x = _decode_hybrid(params, cfg, cache, x, pos, rows)
+    elif cfg.is_encdec:
+        x = _decode_encdec(params, cfg, cache, x, pos, rows)
     else:
         for i in range(cfg.n_layers):
             p = _layer(params["layers"], i)
@@ -632,22 +727,29 @@ def _prefill_hybrid(params, cfg: ModelConfig, cache, x, positions):
 
 def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
             last_idx=None):
-    """batch: {"tokens": (B, S)}.  Returns (last-token logits (B, V) fp32,
-    cache primed for position S, in the compute dtype).
+    """batch: {"tokens": (B, S)}, with the encoder-decoder's "frames" or
+    the image family's "image_embeds" as in :func:`forward_train`.  Returns
+    (last-token logits (B, V) fp32, cache primed for position S, in the
+    compute dtype); the image embeddings take the first ``n_image_tokens``
+    positions, so the cache is primed for ``n_image_tokens + S`` there, and
+    the encoder-decoder's cache also holds the cross-attention K/V of the
+    encoder's output (one encoder run a prefill).
 
-    ``last_idx`` (optional (B,) int) selects a per-row logits position
-    instead of ``S - 1``: the engine right-pads dense prompts to a bucket
-    length.  Causality keeps right padding out of positions ``<= last_idx``,
-    and the decode loop overwrites each padded KV entry before the mask
-    admits it.  The recurrent families take every position as a state
-    update, so the engine prefills them at the exact prompt length.
+    ``last_idx`` (optional (B,) int, counted from the first image position)
+    selects a per-row logits position instead of the last: the engine
+    right-pads dense prompts to a bucket length.  Causality keeps right
+    padding out of positions ``<= last_idx``, and the decode loop
+    overwrites each padded KV entry before the mask admits it.  The
+    recurrent families take every position as a state update, so the engine
+    prefills them at the exact prompt length.
     """
     dtype = compute_dtype(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    x = _embed(params, batch["tokens"], dtype)
+    if cfg.n_image_tokens:
+        x = torch.cat([batch["image_embeds"].to(dtype), x], dim=1)
+    b, s = x.shape[:2]
     if s > cache_len:
-        raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
-    x = _embed(params, tokens, dtype)
+        raise ValueError(f"prefill length {s} exceeds cache_len {cache_len}")
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = init_cache(cfg, b, cache_len, dtype=dtype, device=x.device)
     if cfg.rwkv:
@@ -655,13 +757,28 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
     elif cfg.rglru:
         x = _prefill_hybrid(params, cfg, cache, x, positions)
     else:
+        enc_out = None
+        if cfg.is_encdec:
+            enc_out = _encoder(params, cfg, batch["frames"])
+            x = x + params["dec_pos"][:s].to(dtype)[None]
         for i in range(cfg.n_layers):
             p = _layer(params["layers"], i)
             hh = apply_norm(cfg, p["ln1"], x)
             a, (k, v) = attention_forward(p["attn"], hh, cfg,
                                           positions=positions, mode="causal",
                                           return_kv=True)
-            x = _decoder_tail(p, x, hh, a, cfg)
+            if cfg.is_encdec:
+                x = x + a
+                hh = apply_norm(cfg, p["ln_x"], x)
+                ax, (xk, xv) = attention_forward(
+                    p["xattn"], hh, cfg, positions=positions, mode="cross",
+                    context=enc_out, return_kv=True)
+                x = x + ax
+                x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+                cache["cross_k"][i] = xk.to(dtype)
+                cache["cross_v"][i] = xv.to(dtype)
+            else:
+                x = _decoder_tail(p, x, hh, a, cfg)
             cache["k"][i, :, :s] = k.to(dtype)
             cache["v"][i, :, :s] = v.to(dtype)
     h = apply_norm(cfg, params["final_norm"], x)

@@ -2,10 +2,15 @@
 
 Counterpart of ``repro.serve.engine`` on the port's PyTorch model.  The
 engine holds one batched cache on its device and updates it in place; the
-weights are cast to the compute dtype once at construction.  Dense and MoE
-prompts prefill into their power-of-two bucket; the recurrent families (RWKV-6,
-RG-LRU hybrid) prefill at the exact prompt length, since their state would
-take every padded position as an update.
+weights are cast to the compute dtype once at construction.  Dense, MoE,
+encoder-decoder and image-prefix prompts prefill into their power-of-two
+bucket; the recurrent families (RWKV-6, RG-LRU hybrid) prefill at the exact
+prompt length, since their state would take every padded position as an
+update.  A request of the encoder-decoder carries its frame embeddings and
+one of the image family its image embeddings: prefill consumes them (the
+image rows take the first positions), and the slot's cache row then holds
+what they gave (the cross-attention K/V; the image rows' K/V), so
+snapshots and resumes carry it.
 
 The serving counterpart of the CheckpointHEFT runtime (paper Algorithm 3):
 
@@ -63,14 +68,28 @@ from .replicas import ReplicaPolicy, WorkerPool, uniform_policy
 from .snapshot import (DecodeSnapshot, SnapshotStore, cache_batch_axes,
                        slot_get, slot_set)
 
-__all__ = ["EngineConfig", "ServeEngine", "engine_supported"]
+__all__ = ["EngineConfig", "ServeEngine", "engine_supported",
+           "prefill_inputs"]
+
+
+def prefill_inputs(cfg: ModelConfig, req: Request, tokens: np.ndarray,
+                   device) -> dict:
+    """A one-request prefill batch on ``device``: ``tokens`` (1, S) int32,
+    with the request's frames (encoder-decoder) or image embeddings (image
+    family) as (1, T, D) fp32."""
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.as_tensor(
+            np.asarray(req.frames, np.float32))[None].to(device)
+    if cfg.n_image_tokens:
+        batch["image_embeds"] = torch.as_tensor(
+            np.asarray(req.image_embeds, np.float32))[None].to(device)
+    return batch
 
 
 def engine_supported(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the port's engine can drive ``cfg``: the families the
-    port's model runs (decoder-only dense and MoE, RWKV-6 with d_model a
-    multiple of the 64 head size, RG-LRU hybrid), with the reason if
-    not."""
+    port's model runs (``lm.check_family``), with the reason if not."""
     try:
         lm.check_family(cfg)
     except ValueError as e:
@@ -130,6 +149,10 @@ class ServeEngine:
                 f"{cfg.name}: cache_len {self.ecfg.cache_len} < local-"
                 f"attention window {cfg.window}; the rolling KV ring and the "
                 f"decode slot index (pos % window) would disagree")
+        if cfg.is_encdec and self.ecfg.cache_len > cfg.max_decode_len:
+            raise ValueError(
+                f"{cfg.name}: cache_len {self.ecfg.cache_len} exceeds the "
+                f"learned decoder position table ({cfg.max_decode_len})")
         self.device = torch.device(device)
         self.pool = pool
         self.chaos = chaos   # repro_torch.chaos.ChaosEngine | None
@@ -177,11 +200,20 @@ class ServeEngine:
         arrival by the queue-depth bound, with the retry-after hint recorded
         in ``self.rejected[rid]`` and the ``rejected_on_arrival`` metric)."""
         bucket = prompt_bucket(req.prompt_len)
-        if bucket + req.max_new_tokens > self.ecfg.cache_len:
+        offset = self.cfg.n_image_tokens
+        if offset + bucket + req.max_new_tokens > self.ecfg.cache_len:
             raise ValueError(
-                f"request {req.rid}: bucket {bucket} + max_new "
-                f"{req.max_new_tokens} exceeds cache_len "
+                f"request {req.rid}: image tokens {offset} + bucket {bucket} "
+                f"+ max_new {req.max_new_tokens} exceeds cache_len "
                 f"{self.ecfg.cache_len}")
+        if self.cfg.is_encdec and req.frames is None:
+            raise ValueError(
+                f"request {req.rid}: {self.cfg.name} needs per-request "
+                f"encoder frames")
+        if offset and req.image_embeds is None:
+            raise ValueError(
+                f"request {req.rid}: {self.cfg.name} needs per-request "
+                f"image embeds")
         self.metrics.register(req)
         rep = self.policy.rep_for(req)
         retry_after = self.queue.admit(
@@ -346,7 +378,7 @@ class ServeEngine:
     def _prefill_batch(self, req: Request, seq: int) -> dict:
         padded = np.zeros((1, seq), np.int32)
         padded[0, :req.prompt_len] = np.asarray(req.prompt, np.int32)
-        return {"tokens": torch.from_numpy(padded).to(self.device)}
+        return prefill_inputs(self.cfg, req, padded, self.device)
 
     def _start(self, slot: _Slot, item: WorkItem, t: int) -> None:
         req = item.req
@@ -376,6 +408,7 @@ class ServeEngine:
                               banked=len(snap.tokens))
         else:
             p = req.prompt_len
+            offset = self.cfg.n_image_tokens
             # recurrent state treats every position as a state update, so
             # pad positions are not maskable after the fact: prefill at the
             # exact prompt length instead of the padded bucket
@@ -386,17 +419,17 @@ class ServeEngine:
                                   step=t):
                 logits, row1 = self._prefill_step(
                     self.params, self._prefill_batch(req, seq),
-                    torch.tensor([p - 1], device=self.device))
+                    torch.tensor([offset + p - 1], device=self.device))
             slot_set(self.cache, self.axes, slot.sid,
                      {k: v.select(self.axes[k], 0) for k, v in row1.items()})
             # host argmax on the fp32 logits (first maximum, as np.argmax)
             tok = int(torch.argmax(logits[0].cpu()))
             self.timing["prefill_s"] += time.perf_counter() - t0
             self.timing["prefill_calls"] += 1
-            slot.pos = p
+            slot.pos = offset + p
             slot.tokens = [tok]
             slot.last_token = tok
-            self.metrics.prefill_tokens += seq
+            self.metrics.prefill_tokens += seq + offset
         if len(slot.tokens) >= slot.max_new:
             self._finish(slot, t)
 

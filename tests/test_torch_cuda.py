@@ -568,6 +568,22 @@ FA_BWD_CASES = [(1, 16, 8, 300, 64, True, 0), (1, 56, 8, 257, 128, True, 0),
                 (2, 4, 2, 129, 128, False, 0), (1, 4, 1, 65, 64, False, 0)]
 
 
+# (B, H, KV, Sq, Sk, D, causal) with Sq and Sk apart: whisper-small's
+# cross-attention (12 heads of 64; decoder rows against 1500 frames, off
+# the 64-key grid, so the last key tile is ragged) at a serve bucket's
+# length and its 448-token training length, its bidirectional encoder, and
+# smaller ragged cases on either side of Sq, GQA and D = 128 among them
+FA_BWD_CROSS_CASES = [(1, 12, 12, 77, 1500, 64, False),
+                      (2, 12, 12, 448, 1500, 64, False),
+                      (1, 12, 12, 1500, 1500, 64, False),
+                      (1, 4, 2, 130, 77, 128, False),
+                      (2, 4, 4, 65, 200, 64, False),
+                      (1, 8, 2, 1, 129, 128, False)]
+# llava-next-mistral-7b: 576 image rows before 200 text positions, causal
+# over both, 32 query heads of 128 on 8 KV heads
+FA_LLAVA_SHAPE = (1, 32, 8, 576 + 200, 128)
+
+
 def _check_flash_bwd(q, k, v, do, causal=True, window=0):
     kw = dict(causal=causal, window=window)
     o, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **kw)
@@ -610,6 +626,29 @@ def test_flash_backward_cases(cuda_device, b, h, kv, s, d, causal, window,
                               dtype):
     q, k, v = _qkv_on(cuda_device, b, h, kv, s, s, d, dtype, s + window)
     _check_flash_bwd(q, k, v, _do_like(q, s + 1), causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", FA_BWD_CROSS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_cross_and_bidir_cases(cuda_device, b, h, kv, sq, sk,
+                                              d, causal, dtype):
+    q, k, v = _qkv_on(cuda_device, b, h, kv, sq, sk, d, dtype, sq + sk)
+    _check_flash_bwd(q, k, v, _do_like(q, sk), causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_the_llava_prefix_shape(cuda_device, dtype):
+    """Forward and backward at llava-next's prefill shape, from the model's
+    (B, S, H, D) projections as transposed views."""
+    b, h, kv, s, d = FA_LLAVA_SHAPE
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(
+        np.float32)).to(cuda_device, dtype).transpose(1, 2)
+        for n in (h, kv, kv))
+    _check_flash(q, k, v, causal=True)
+    _check_flash_bwd(q, k, v, _do_like(q, 6))
 
 
 @pytest.mark.cuda
@@ -749,6 +788,58 @@ def test_tiny_train_step_on_card_matches_cpu(cuda_device):
                                  flatten(runs["cpu"][1])):
         torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=2e-4,
                                    msg=str(name))
+
+
+@pytest.mark.cuda
+def test_tiny_whisper_on_card_matches_cpu(cuda_device):
+    """The tiny whisper (head dim 64) in fp32, from the same init: three
+    train steps on the pipeline's batches with their frames (bidirectional,
+    causal and cross B2, forward and backward), then a prefill with its
+    cross K/V and two decode steps, the card against the CPU at the fp32
+    limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.distributed import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten
+    cfg = dataclasses.replace(get_config("whisper-small", tiny=True),
+                              compute_dtype="float32")
+    pipe = SyntheticTokenPipeline(DataConfig(2, 40, seed=3), cfg)
+    step = make_train_step(cfg, xent_chunk=16, warmup=1)
+    batch = pipe.batch_at(9)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = _card_train_params(cfg, dev)
+        state = adamw_init(params)
+        fwd = fa_ops.flash_attention.launches
+        losses = []
+        for i in range(3):
+            params, state, m = step(params, state, pipe.batch_at(i))
+            losses.append(float(m["loss"]))
+        pre = {"tokens": torch.from_numpy(batch["tokens"]).to(dev),
+               "frames": torch.from_numpy(batch["frames"]).to(dev)}
+        logits, cache = lm.prefill(params, cfg, pre, 48)
+        steps = [logits]
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        for i in range(2):
+            logits, cache = lm.decode_step(params, cfg, cache, tok, 40 + i)
+            steps.append(logits)
+        runs[dev] = (losses, params, torch.stack(steps).cpu(), cache,
+                     fa_ops.flash_attention.launches - fwd)
+    assert runs["cpu"][4] == 0 and runs["cuda"][4] > 0
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
+                               atol=2e-4, rtol=2e-4)
+    for (name, a), (_, b) in zip(flatten(runs["cuda"][1]),
+                                 flatten(runs["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=2e-4,
+                                   msg=str(name))
+    torch.testing.assert_close(runs["cuda"][2], runs["cpu"][2], atol=2e-4,
+                               rtol=2e-4)
+    for name in ("cross_k", "cross_v", "k", "v"):
+        torch.testing.assert_close(runs["cuda"][3][name].cpu(),
+                                   runs["cpu"][3][name], atol=2e-4,
+                                   rtol=2e-4, msg=name)
 
 
 @pytest.mark.cuda

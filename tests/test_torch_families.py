@@ -109,10 +109,15 @@ def test_config_equals_jax_field_by_field(arch, tiny):
 
 
 def test_only_the_encoder_and_image_families_are_left():
-    assert NOT_PORTED == ("llava_next_mistral_7b", "whisper_small")
+    """None is left: every family of the JAX package is registered (the
+    encoder-decoder and image families too), and an unknown arch still
+    raises, naming the ten."""
+    assert NOT_PORTED == ()
     for arch in ("whisper-small", "llava-next-mistral-7b"):
-        with pytest.raises(ValueError, match="not ported to PyTorch yet"):
-            get_config(arch)
+        assert get_config(arch).name == arch
+    with pytest.raises(ValueError, match="not a known architecture") as err:
+        get_config("no-such-model")
+    assert all(name in str(err.value) for name in lm.TRAIN_FAMILIES)
 
 
 # ---------------------------------------------------------------------------

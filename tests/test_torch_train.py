@@ -278,31 +278,33 @@ def test_chunked_xent_matches_jax(s, chunk):
 TRAINED = ("olmo-1b", "deepseek-coder-33b", "granite-20b",
            "command-r-plus-104b", "granite-moe-1b-a400m",
            "phi3.5-moe-42b-a6.6b", "rwkv6-3b", "recurrentgemma-2b")
-#: the families the port does not run yet, and a config of each shape
-REFUSED = {"whisper-small": dict(encoder_layers=2),
-           "llava-next-mistral-7b": dict(n_image_tokens=8)}
+#: the encoder-decoder and image families, and a config of each shape
+ENCODER_AND_IMAGE = {"whisper-small": dict(encoder_layers=2),
+                     "llava-next-mistral-7b": dict(n_image_tokens=8)}
 
 
-@pytest.mark.parametrize("arch", TRAINED + tuple(REFUSED))
+@pytest.mark.parametrize("arch", TRAINED + tuple(ENCODER_AND_IMAGE))
 def test_only_the_dense_family_trains(arch):
-    """The eight families the port serves also train; another family
-    (whisper-small, llava-next-mistral-7b, or a config of their shape:
-    an encoder, image tokens) raises, naming the eight."""
-    assert lm.TRAIN_FAMILIES == TRAINED
+    """Every family trains: the eight served first, and whisper-small and
+    llava-next-mistral-7b, whose train step (a step on the tiny config from
+    the port's init, with the pipeline's frames or image embeddings) gives
+    a finite loss; so does a config of their shape (olmo with an encoder,
+    or with image tokens)."""
+    assert lm.TRAIN_FAMILIES == TRAINED + tuple(ENCODER_AND_IMAGE)
+    cfg = get_config(arch, tiny=True)
+    lm.check_train_family(cfg)
+    make_train_step(cfg)
     if arch in TRAINED:
-        cfg = get_config(arch, tiny=True)
-        lm.check_train_family(cfg)
-        make_train_step(cfg)
         return
-    with pytest.raises(ValueError) as err:
-        get_config(arch, tiny=True)
-    assert all(name in str(err.value) for name in TRAINED)
     other = dataclasses.replace(get_config("olmo-1b", tiny=True),
-                                **REFUSED[arch])
-    for call in (lm.check_train_family, make_train_step):
-        with pytest.raises(ValueError) as err:
-            call(other)
-        assert all(name in str(err.value) for name in TRAINED)
+                                **ENCODER_AND_IMAGE[arch])
+    for c in (cfg, other):
+        params = lm.init_params(c, torch.Generator().manual_seed(0))
+        step = make_train_step(c, xent_chunk=16, warmup=1)
+        batch = SyntheticTokenPipeline(DataConfig(2, 16, seed=0),
+                                       c).batch_at(0)
+        _, _, m = step(params, adamw.adamw_init(params), batch)
+        assert torch.isfinite(m["loss"])
 
 
 def test_forward_train_runs_in_bf16_on_the_cpu(tiny):
@@ -542,9 +544,18 @@ def test_launcher_cli_on_the_cpu_and_its_refusals():
     assert any(l.startswith("arch=olmo-tiny") and "restores=" in l
                for l in lines)
     assert any(l.startswith("loss: first10%=") for l in lines)
+    # the encoder-decoder family runs too; an unknown arch is refused,
+    # naming every family
+    ok = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS[:-4],
+         "--steps", "4", "--arch", "whisper-small"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert ok.returncode == 0, ok.stderr[-2000:]
+    assert any(l.startswith("arch=whisper-tiny") and "restores=" in l
+               for l in ok.stdout.splitlines())
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
-         "--arch", "whisper-small", "--device", "cpu"], cwd=ROOT, env=env,
+         "--arch", "no-such-model", "--device", "cpu"], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300)
     assert bad.returncode != 0 and all(name in bad.stderr
-                                       for name in TRAINED)
+                                       for name in lm.TRAIN_FAMILIES)
