@@ -59,7 +59,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    with 1500 frame embeddings a request, llava-next-mistral-7b with 576
    image embeddings before each prompt), at full width
    (random seeded weights drawn a layer at a time straight into bf16;
-   :data:`SERVE_LAYERS` cuts the depth of the four largest) with its peak
+   :data:`SERVE_LAYERS` cuts the depth of all but olmo-1b and
+   whisper-small) with its peak
    device memory:
 
    a. serve: the port's launcher with CRCH replication under the
@@ -67,7 +68,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
       failures must have been recovered from snapshots, and every kernel of
       the family's path must have been launched (all launch counts are
       zeroed just before this phase and read just after); prints what a
-      decode snapshot of one slot row costs (bytes, host copy, hash);
+      decode snapshot of one slot row costs (bytes, host copy, hash).
+      olmo-1b's run is traced (``--trace-dir``, ``--trace-dump-on-fault``
+      through ``launch.serve.make_obs``) and the port's validator must find
+      ``serve.worker_failure``, ``serve.resume`` and ``recover.host_crash``
+      in its dumps;
    b. profile: one prefill and a few batched decode steps of that engine
       under ``torch.profiler``;
    c. fault transparency: the same requests with no failures give the same
@@ -91,13 +96,36 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    every step completes, restores == failures > 0, all losses finite, both
    flash kernels launched, and the final params bit-identical (a sha1 of
    every leaf) to a fault-free run of the same steps from the same init on
-   the same batches; prints step time, tokens/s, model FLOPs a step,
-   checkpoint save/restore seconds and bytes, and a ``torch.profiler``
-   view of one step;
+   the same batches; prints step time, tokens/s, model FLOPs a step (the
+   script's own count against ``analysis.flops.cell_flops``, which must
+   agree within 5% executed and 10% model), ``capture_cost``'s FLOPs and
+   bytes of one step outside the timed steps (aten ops and the kernels'
+   own reports; within 0.35 of ``cell_flops``), checkpoint save/restore
+   seconds and bytes, and a ``torch.profiler`` view of one step;
 7. train chaos: the launcher's code path at the published widths with 2
    layers, replaying a fault trace that fires every train-side fault class
    (host_crash, slowdown, capacity_loss, ckpt_corrupt, nan_poison,
-   net_partition, disk_full) under the launcher's ``--chaos-assert``;
+   net_partition, disk_full), plus two crashes stacked on one step
+   (escalating backoff), under the launcher's ``--chaos-assert``, traced:
+   the validator must find every witness of those classes
+   (:data:`CHAOS_SPANS`), and ``profile.json`` must count every train-step
+   call but the first; its store and dumps are kept in host memory
+   (:func:`shm_dir`);
+   b. the cross-pod cluster: ``--pods 3`` at the published widths with 2
+   layers, 4 x 512 tokens, 10 steps, pod 0 partitioned at round 2 for 3
+   rounds and an ENOSPC strike at round 7, traced, under
+   ``--chaos-assert`` (all pods bit-identical to a fault-free reference
+   cluster, no split-brain); partition, heal, catch-up, parking and ENOSPC
+   counts, compression 4.0x, both flash kernels launched, the validator's
+   witnesses; one more round's split through the calls a round makes (the
+   pods' gradients, ``PodGradientExchange.round`` without and with the
+   update's fingerprint, the AdamW updates, the pods' fingerprints) by CUDA
+   events and the host clock, and each commit's seconds and bytes (both
+   clusters' stores and the dumps in host memory, :func:`shm_dir`);
+   c. one exchange round at full width: olmo-1b whole, the gradients of
+   three 4 x 2048 batches as three identical pods and as three that
+   differ; each average within its int8 bound of the fp32 mean, int8
+   bytes a quarter of fp32's; each part's ms and ``tree_digest``'s GB/s;
 8. train rwkv6-3b, recurrentgemma-2b and llava-next-mistral-7b (4 x (576 +
    1472) positions) at their published widths and a cut depth
    (``FAMILY_TRAIN``: the largest whose peak device memory stays under ~70
@@ -128,17 +156,24 @@ windows, and a x1.1 softmax-scale mutant failing the limit; each with a
 bit-identical repeat.  Each timed backward also prints the device time of
 each of its kernels (B3's: the fold and the chunk gradients).
 
+Every training phase prints the bytes it wrote, measured
+(:class:`WriteLedger`), and the running total on disk, which may not pass
+:data:`DISK_GATE`, under the machine's allowance (:data:`DISK_ALLOWANCE`).
+A phase's directories under ``/dev/shm`` are removed when it ends and on
+any exit of the script (SIGTERM included).
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
-import hashlib
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -272,9 +307,14 @@ FAMILIES = {
 #: whisper-small and llava-next whole (~190 s on one H100), stays well
 #: within its time limit: their phases are mostly host-bound decoding,
 #: whose time follows the depth (at 16, 13, 24 and 18 layers they took 29,
-#: 26, 68 and 33 s on one H100)
+#: 26, 68 and 33 s on one H100).  For the cross-pod cluster's phase (~170
+#: s) rwkv6-3b, recurrentgemma-2b (2 super blocks and its 2 tail layers),
+#: granite-moe-1b and llava-next serve at about a quarter of their depth
+#: (whole, their serve phases took 60, 50, 67 and 66 s)
 SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 12, "command-r-plus-104b": 8,
-                "deepseek-coder-33b": 8, "granite-20b": 7}
+                "deepseek-coder-33b": 8, "granite-20b": 7, "rwkv6-3b": 8,
+                "recurrentgemma-2b": 8, "granite-moe-1b-a400m": 6,
+                "llava-next-mistral-7b": 8}
 
 
 def serve_args(arch):
@@ -293,17 +333,26 @@ def serve_config(arch):
     return cfg
 
 
-def serve_run(arch, env, params=None):
+def serve_run(arch, env, params=None, trace_dir=None):
     """The serve launcher on ``arch`` under ``env``: its ``main`` for an
     uncut family with its own seeded weights, else the same code path
-    (``continuous_main``) on the cut config or with ``params``."""
+    (``continuous_main``) on the cut config or with ``params``.
+    ``trace_dir``: the launcher's ``--trace-dir`` (through
+    ``launch.serve.make_obs``) with ``--trace-dump-on-fault``."""
     from repro_torch.launch import serve as launch
     argv = serve_args(arch) + ["--env", env]
+    if trace_dir:
+        argv += ["--trace-dir", trace_dir, "--trace-dump-on-fault"]
     if arch not in SERVE_LAYERS and params is None:
         return launch.main(argv)
     return launch.continuous_main(
         serve_config(arch), launch.build_parser().parse_args(argv),
         params=params)
+
+# the serve run traced through ``launch.serve.make_obs``, and the witnesses
+# its dumps must hold (it must recover failures from snapshots)
+TRACED_SERVE = "olmo-1b"
+SERVE_SPANS = ("serve.worker_failure", "serve.resume", "recover.host_crash")
 
 # the planner phase: the paper's workflow types at its largest size
 PLANNER_KINDS = ("montage", "cybershake", "ligo", "sipht")
@@ -319,6 +368,102 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def validate_trace(trace_dir, spans, label):
+    """The port's validator (``python -m repro_torch.obs.validate``'s
+    ``main``) over a run's dumps, with ``--require-span`` on each
+    witness."""
+    from repro_torch.obs import validate
+    print(f"{label} trace: ", end="", flush=True)
+    argv = [trace_dir] + [a for sp in spans for a in ("--require-span", sp)]
+    check(validate.main(argv) == 0,
+          f"{label}: the validator refused the dumps under {trace_dir}")
+
+
+#: disk writes the chip machine allows (45 GiB); the script stops at
+#: DISK_GATE, leaving ~4 GB for what a phase writes before its check
+DISK_ALLOWANCE = 45 * 2 ** 30
+DISK_GATE = 44e9
+#: host memory left free beside what a phase keeps under /dev/shm
+SHM_SPARE = 16e9
+_SHM_DIRS: list[str] = []
+
+
+def written_bytes():
+    """The bytes this process has written so far, its threads' writes
+    included: ``wchar`` of ``/proc/self/io`` (every write call, to any
+    file system or pipe)."""
+    with open("/proc/self/io") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key.strip() == "wchar":
+                return int(value)
+    raise SmokeFailure("/proc/self/io has no wchar line")
+
+
+class WriteLedger:
+    """The bytes each training phase writes, measured around it
+    (:func:`written_bytes`, its prints included), and the running totals.
+    A phase counted ``where="shm"`` keeps every file it writes in its own
+    directories under ``/dev/shm`` (:func:`shm_dir`); every other phase's
+    writes count to the disk, whose total may not pass
+    :data:`DISK_GATE`."""
+
+    def __init__(self):
+        self.totals = {"disk": 0, "shm": 0}
+
+    @contextlib.contextmanager
+    def phase(self, name, where="disk"):
+        start = written_bytes()
+        yield
+        n = written_bytes() - start
+        self.totals[where] += n
+        print(f"writes {name}: {n / 1e9:.2f} GB to {where}; disk total "
+              f"{self.totals['disk'] / 1e9:.2f} GB (gate "
+              f"{DISK_GATE / 1e9:.2f}, allowance {DISK_ALLOWANCE / 1e9:.2f}),"
+              f" /dev/shm total {self.totals['shm'] / 1e9:.2f} GB")
+        check(self.totals["disk"] <= DISK_GATE,
+              f"the disk writes passed {DISK_GATE / 1e9:.2f} GB at {name}")
+
+
+def _meminfo(key):
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise SmokeFailure(f"/proc/meminfo has no {key} line")
+
+
+def shm_dir(label, need):
+    """A new private directory under ``/dev/shm`` (host memory, not the
+    disk) for a phase that keeps up to ``need`` bytes there at once.
+    Refuses (no fallback to the disk, whose allowance the phase would
+    pass) unless the host has ``need`` + :data:`SHM_SPARE` bytes of memory
+    available.  :func:`release_shm` removes it."""
+    avail = _meminfo("MemAvailable")
+    print(f"{label}: up to {need / 1e9:.2f} GB in /dev/shm; host memory "
+          f"available {avail / 1e9:.2f} GB, /dev/shm holds "
+          f"{_meminfo('Shmem') / 1e9:.2f} GB")
+    check(os.path.isdir("/dev/shm") and avail >= need + SHM_SPARE,
+          f"{label} needs {(need + SHM_SPARE) / 1e9:.2f} GB of host memory "
+          f"for /dev/shm; {avail / 1e9:.2f} GB available")
+    path = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_", dir="/dev/shm")
+    _SHM_DIRS.append(path)
+    return path
+
+
+def release_shm(path=None):
+    """Remove ``path`` (default: every directory :func:`shm_dir` made)."""
+    for p in [path] if path is not None else list(_SHM_DIRS):
+        shutil.rmtree(p, ignore_errors=True)
+        if p in _SHM_DIRS:
+            _SHM_DIRS.remove(p)
+
+
+def tree_bytes(tree):
+    from repro_torch.tree import flatten
+    return sum(t.numel() * t.element_size() for _, t in flatten(tree))
 
 
 def wrappers():
@@ -358,6 +503,19 @@ def time_ms(fn, iters=25, warmup=3, queued=False):
     return statistics.median(times)
 
 
+def time_plain(fn):
+    """A plain version's time: :func:`time_ms`, but the median of 3 calls
+    when one call takes over 50 ms (the sequential WKV6 forward and
+    backward at thousands of tokens); the first call warms up."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 0.05:
+        return time_ms(fn, iters=3, warmup=0)
+    return time_ms(fn)
+
+
 def time_kernel(rec, fn, prefix=""):
     """A call's time with the host's submission (``ms``) and the device's
     alone (``device_ms``), under ``prefix`` (``library_`` for the library
@@ -384,6 +542,20 @@ def kernel_device_ms(fn, reps=10):
             name = name.removeprefix("void ").split("(")[0][:60]
             out[name] = e.device_time_total / e.count / 1e3
     return out
+
+
+def launch_cost(fn):
+    """(bytes, FLOPs) of the one kernel launch ``fn`` makes, as its wrapper
+    reports them (``kernels/_cost.py``; what ``capture_cost`` counts):
+    each input read once, each output written once, and the operations
+    these inputs need."""
+    from repro_torch.kernels import _cost
+    with _cost.capture() as sink:
+        fn()
+    check(len(sink) == 1 and next(iter(sink.values()))["launches"] == 1,
+          f"one kernel launch expected, the wrappers reported {sink}")
+    rec = next(iter(sink.values()))
+    return rec["bytes"], rec["flops"]
 
 
 def add_bound(rec, bytes_, flops, dtype):
@@ -529,10 +701,11 @@ def pairwise_case(n, f, *, timed):
     rec = {"shape": [n, f], "max_abs_err": err, "ok": bool(ok) and same}
     if timed:
         time_kernel(rec, lambda: ops.pairwise_distance(x))
-        rec["plain_ms"] = time_ms(lambda: ref.pairwise_distance(x))
+        rec["plain_ms"] = time_plain(lambda: ref.pairwise_distance(x))
         time_kernel(rec, lambda: torch.cdist(
             x, x, compute_mode="use_mm_for_euclid_dist"), "library_")
-        add_bound(rec, 4 * (n * f + n * n), n * n * (3 * f + 4), "float32")
+        add_bound(rec, *launch_cost(lambda: ops.pairwise_distance(x)),
+                  "float32")
     print(f"  pairwise_distance {n}x{f}: max_abs_err {err:.3g} "
           f"(off-diagonal atol 3e-3 rtol 1e-3; diagonal <= sqrt(8 eps "
           f"|x|^2)){'' if same else ', REPEAT DIFFERS'} "
@@ -597,7 +770,7 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
     if timed:
         time_kernel(rec, lambda: ops.flash_attention(
             q, k, v, causal=causal, window=window))
-        rec["plain_ms"] = time_ms(lambda: ref.attention(
+        rec["plain_ms"] = time_plain(lambda: ref.attention(
             q, k, v, causal=causal, window=window))
         gqa = {"enable_gqa": True} if h != kv else {}
         if window:
@@ -606,14 +779,11 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
             mask = (diff >= 0) & (diff < window)
             time_kernel(rec, lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, **gqa), "library_")
-            pairs = sum(min(i + 1, window) for i in range(s))
         else:
             time_kernel(rec, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, **gqa), "library_")
-            pairs = attended_pairs(s, causal, window, sk)
-        item = q.element_size()
-        add_bound(rec, item * (2 * b * h * s * d + 2 * b * kv * sk * d),
-                  4 * b * h * pairs * d, dtype_name)
+        add_bound(rec, *launch_cost(lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window)), dtype_name)
     tol = FA_TOL[dtype_name]
     mode = _mode(s, sk, causal, window)
     print(f"  flash_attention {(b, h, kv, s, d)} {dtype_name} {mode}: "
@@ -718,17 +888,14 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
     if timed:
         time_kernel(rec, lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
                                                          **kw))
-        rec["plain_ms"] = time_ms(lambda: ref.attention_backward(
+        rec["plain_ms"] = time_plain(lambda: ref.attention_backward(
             q, k, v, o, lse, do, **kw))
         # SDPA's backward, as a yardstick only
         leaves, out = _sdpa_graph(q, k, v, causal, window)
         time_kernel(rec, lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), "library_")
-        pairs = attended_pairs(s, causal, window, sk)
-        item = q.element_size()
-        # q, o, dO and dq (B, H, S, D); k, v, dk, dv (B, KV, Sk, D); lse
-        add_bound(rec, item * (4 * b * h * s * d + 4 * b * kv * sk * d)
-                  + 4 * b * h * s, 10 * b * h * pairs * d, dtype_name)
+        add_bound(rec, *launch_cost(lambda: ops.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw)), dtype_name)
         rec["passes_device_ms"] = kernel_device_ms(
             lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
     tol = FA_BWD_TOL[dtype_name]
@@ -758,12 +925,9 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
 
 def attended_pairs(s, causal, window, sk=None):
     """(query, key) pairs a head attends at s queries (and sk keys, s by
-    default; causal only at sk = s)."""
-    if not causal:
-        return s * (s if sk is None else sk)
-    if not window or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
+    default; causal only at sk = s): the kernels' own count."""
+    from repro_torch.kernels._cost import attended_pairs as pairs
+    return pairs(s, causal, window, sk)
 
 
 def flash_bwd_mutant_case(b, h, kv, s, d, dtype_name, window=0):
@@ -852,13 +1016,11 @@ def wkv6_case(b, h, t, n, dtype_name, with_s0, *, timed, fill="uniform"):
            "ok": ok and same}
     if timed:
         time_kernel(rec, lambda: ops.wkv6(r, k, v, lw, u, S0))
-        rec["plain_ms"] = time_ms(lambda: ref.wkv6(r, k, v, lw, u, S0))
+        rec["plain_ms"] = time_plain(lambda: ref.wkv6(r, k, v, lw, u, S0))
         rec["library_ms"] = None   # no single PyTorch call computes WKV6
         rec["library_device_ms"] = None
-        item = r.element_size()
-        state = (2 if with_s0 else 1) * 4 * b * h * n * n
-        add_bound(rec, (4 * item + 4) * b * h * t * n + 4 * h * n + state,
-                  b * h * t * (4 * n * n + 3 * n), dtype_name)
+        add_bound(rec, *launch_cost(lambda: ops.wkv6(r, k, v, lw, u, S0)),
+                  dtype_name)
     tol = WKV_TOL[dtype_name]
     print(f"  wkv6 {(b, h, t, n)} {dtype_name} "
           f"{'S0' if with_s0 else 'zero state'} log_w {fill}: max_abs_err "
@@ -896,11 +1058,11 @@ def lru_case(b, s, w, with_h0, *, timed):
     rec = {"shape": [b, s, w], "h0": with_h0, "max_abs_err": err, "ok": ok}
     if timed:
         time_kernel(rec, lambda: ops.lru_scan(a, x, h0))
-        rec["plain_ms"] = time_ms(lambda: ref.lru_scan(a, x, h0))
+        rec["plain_ms"] = time_plain(lambda: ref.lru_scan(a, x, h0))
         rec["library_ms"] = None   # no single PyTorch call computes it
         rec["library_device_ms"] = None
-        add_bound(rec, 4 * (3 * b * s * w + (2 if with_h0 else 1) * b * w),
-                  2 * b * s * w, "float32")
+        add_bound(rec, *launch_cost(lambda: ops.lru_scan(a, x, h0)),
+                  "float32")
     print(f"  lru_scan {(b, s, w)} {'h0' if with_h0 else 'zero state'}: "
           f"max_abs_err {err:.3g} (atol 2e-4 rtol 2e-4) "
           f"{'ok' if ok else 'FAIL'}"
@@ -957,21 +1119,11 @@ def wkv6_bwd_case(b, h, t, n, dtype_name, with_s0, *, timed,
            "ok": ok and same}
     if timed:
         time_kernel(rec, kernel)
-        rec["plain_ms"] = time_ms(lambda: ref.wkv6_backward(
-            r, k, v, lw, u, do, S0, dS), iters=3, warmup=1)
+        rec["plain_ms"] = time_plain(lambda: ref.wkv6_backward(
+            r, k, v, lw, u, do, S0, dS))
         rec["library_ms"] = None   # no single PyTorch call computes it
         rec["library_device_ms"] = None
-        item = r.element_size()
-        c = -(-t // ops.CHUNK)
-        state = (3 if with_s0 else 0) * 4 * b * h * n * n
-        # r, k, v, dO read and dr, dk, dv written in r's dtype; log_w read
-        # and dlog_w written in fp32; u, du.  Operations of the chunked
-        # form: per token and head N^2 (q^T dO) + 3 N^2 (S_c dO, G v,
-        # kd G) + 4 L N (B, A and the two masked products) FMA, and the
-        # fold's N^2 per chunk
-        add_bound(rec, (7 * item + 8) * b * h * t * n + 8 * h * n + state,
-                  2 * b * h * (t * (4 * n * n + 4 * ops.CHUNK * n)
-                               + c * n * n), "float32")
+        add_bound(rec, *launch_cost(kernel), "float32")
         rec["passes_device_ms"] = kernel_device_ms(kernel)
     print(f"  wkv6_bwd {(b, h, t, n)} {dtype_name} "
           f"{'S0, dS' if with_s0 else 'zero state'} log_w {fill}: "
@@ -1021,13 +1173,11 @@ def lru_bwd_case(b, s, w, with_h0, *, timed):
            "max_err_over_scale": nerr, "ok": ok and same}
     if timed:
         time_kernel(rec, kernel)
-        rec["plain_ms"] = time_ms(lambda: ref.lru_scan_backward(
+        rec["plain_ms"] = time_plain(lambda: ref.lru_scan_backward(
             a, h, dh, dl, h0))
         rec["library_ms"] = None   # no single PyTorch call computes it
         rec["library_device_ms"] = None
-        # a, h, dh read, da and db written; h0, dh_last, dh0
-        add_bound(rec, 4 * (5 * b * s * w + (3 if with_h0 else 0) * b * w),
-                  3 * b * s * w, "float32")
+        add_bound(rec, *launch_cost(kernel), "float32")
     print(f"  lru_scan_bwd {(b, s, w)} {'h0, dh_last' if with_h0 else 'zero'}"
           f": max_abs_err {err:.3g}, over the gradient's scale {nerr:.3g} "
           f"(atol 2e-4 rtol 2e-4){'' if same else ', REPEAT DIFFERS'} "
@@ -1276,10 +1426,10 @@ def planner_b1_case(kind, pts_np):
     rec = {"shape": [n, f], "max_abs_err": err, "close_pairs": n_close,
            "ok": not bad.any() and same}
     time_kernel(rec, lambda: ops.pairwise_distance(x))
-    rec["plain_ms"] = time_ms(lambda: ref.pairwise_distance(x))
+    rec["plain_ms"] = time_plain(lambda: ref.pairwise_distance(x))
     time_kernel(rec, lambda: torch.cdist(
         x, x, compute_mode="use_mm_for_euclid_dist"), "library_")
-    add_bound(rec, 4 * (n * f + n * n), n * n * (3 * f + 4), "float32")
+    add_bound(rec, *launch_cost(lambda: ops.pairwise_distance(x)), "float32")
     print(f"  pairwise_distance {kind} {n}x{f}: max_abs_err {err:.3g}, "
           f"{n_close} pairs inside the cancellation bound (each side within "
           f"sqrt(max(K+1, 4) eps (|x_p|^2 + |x_q|^2)) of the fp64 distance; "
@@ -1388,11 +1538,17 @@ def phase_serve(arch):
     torch.cuda.reset_peak_memory_stats()
     for fn in counted.values():
         fn.launches = 0
+    # olmo-1b's run goes through the launcher's flight recorder
+    trace_dir = (tempfile.mkdtemp(prefix="chip_smoke_serve_trace_")
+                 if arch == TRACED_SERVE else None)
     t0 = time.perf_counter()
-    res = serve_run(arch, "unstable")
+    res = serve_run(arch, "unstable", trace_dir=trace_dir)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
     peak = torch.cuda.max_memory_allocated()
+    if trace_dir:
+        validate_trace(trace_dir, SERVE_SPANS, f"serve {arch}")
+        shutil.rmtree(trace_dir, ignore_errors=True)
     s, eng = res["summary"], res["engine"]
     tm = eng.timing
     plens = [r.prompt_len for r in res["requests"]]
@@ -1769,36 +1925,42 @@ CHAOS_EVENTS = [(1, "slowdown", (), 3, 0), (2, "nan_poison", (), 0, 0),
                 (4, "capacity_loss", (0,), 2, 0),
                 (11, "ckpt_corrupt", (), 0, 7), (11, "host_crash", (), 2, 0),
                 (12, "disk_full", (), 0, 0)]
+# and two host crashes stacked on step 12 by the failure injector, right
+# after disk_full's forced save there: the second visit escalates the
+# repair wait (coord.backoff); the pre-retry checkpoint barrier finds that
+# save already in place, so the repeat writes nothing more
+CHAOS_REPEAT = {12: 2}
+# the witnesses of the classes phase 7 fires that the coordinator, the
+# chaos engine and the store emit (ROADMAP's "Observability witnesses")
+CHAOS_SPANS = tuple(f"fault.{k}" for k in (
+    "host_crash", "slowdown", "capacity_loss", "ckpt_corrupt", "nan_poison",
+    "net_partition", "disk_full")) + (
+    "recover.host_crash", "ckpt.restore", "coord.backoff",
+    "recover.ckpt_corrupt", "ckpt.quarantine", "ckpt.fallback",
+    "recover.nan_poison", "recover.net_partition", "recover.disk_full",
+    "ckpt.enospc_retry", "ckpt.prune")
+# the cross-pod cluster (phase 7b): the launcher's --pods path at the
+# published widths and CHAOS_LAYERS layers, 3 pods, 4 x 512 tokens, 10
+# steps; pod 0 cut off at round 2 for 3 rounds, an ENOSPC strike at round
+# 7; the run's own --chaos-assert holds every pod to a fault-free reference
+CLUSTER_ARGS = ["--arch", "olmo-1b", "--pods", "3", "--steps", "10",
+                "--global-batch", "4", "--seq-len", "512", "--seed", "0",
+                "--device", "cuda", "--chaos-assert",
+                "--trace-dump-on-fault"]
+CLUSTER_EVENTS = [(2, "net_partition", (0,), 3, 0), (7, "disk_full", (), 0, 0)]
+CLUSTER_SPANS = ("crosspod.partition", "crosspod.heal", "crosspod.catchup",
+                 "recover.net_partition", "recover.disk_full",
+                 "ckpt.enospc_retry")
+# one exchange round at full width: olmo-1b whole, the gradient of a
+# 4 x 2048 step from each of three batches
+EXCHANGE_SHAPE = (4, 2048)
 PEAK_BF16 = PEAK_FLOPS_S["bfloat16"]
 
 
-class SpanLog:
-    """A recorder for the port's tracer that keeps every span."""
-
-    def __init__(self):
-        self.spans = []
-
-    def record(self, rec):
-        if rec["type"] == "span":
-            self.spans.append(rec)
-
-    def on_fault(self, kind, step=None):
-        pass
-
-    def on_recovery(self, kind):
-        pass
-
-    def seconds(self, name):
-        return [sp["t1"] - sp["t0"] for sp in self.spans
-                if sp["name"] == name]
-
-
-def tree_digest(tree):
-    """(leaf name, sha1 of its bytes) of every leaf."""
-    from repro_torch.tree import flatten, leaf_name
-    return [(leaf_name(path), hashlib.sha1(
-        t.detach().cpu().numpy().tobytes()).hexdigest())
-        for path, t in flatten(tree)]
+def span_seconds(recorder, name):
+    """The seconds of each ``name`` span a flight recorder holds."""
+    return [r["t1"] - r["t0"] for r in recorder.snapshot()
+            if r["type"] == "span" and r["name"] == name]
 
 
 def matmul_params(cfg):
@@ -1900,20 +2062,22 @@ def crash_then_replay(cfg, argv, crash_step, tmp, label, kernels):
     checkpoint spans and bytes, and the fault-free run's final trees, step
     function, pipeline, step times and losses."""
     import numpy as np
+    from repro_torch.ft import tree_digest
     from repro_torch.launch import train as launch
-    from repro_torch.obs import Tracer
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry, ObsContext,
+                                 Tracer)
     from repro_torch.tree import flatten
     parser = launch.build_parser()
     args = parser.parse_args(argv + [
         "--inject-mtbf-steps", "1e9", "--ckpt-dir",
         os.path.join(tmp, f"{label}-run")])
-    log = SpanLog()
-    built = launch.build(cfg, args, tracer=Tracer(log))
+    log = FlightRecorder()
+    built = launch.build(cfg, args, ctx=ObsContext(
+        tracer=Tracer(log), recorder=log, registry=MetricsRegistry()))
     coord = built["coord"]
     coord.store.keep = 2
     built["injector"].fail_steps = {crash_step: 1}
-    ckpt_bytes = sum(t.numel() * t.element_size() for _, t in flatten(
-        {"params": coord.params, "opt": coord.opt_state}))
+    ckpt_bytes = tree_bytes({"params": coord.params, "opt": coord.opt_state})
     counted = _zero_launches()
     t0 = time.perf_counter()
     res = _launch_train(cfg, args, built)
@@ -1935,9 +2099,10 @@ def crash_then_replay(cfg, argv, crash_step, tmp, label, kernels):
         check(launches[name] > 0, f"the {label} train path never launched "
                                   f"{name}")
     digest = tree_digest(coord.params)
+    n_leaves = len(flatten(coord.params))
     out = {"launches": launches, "report": rep, "ckpt_bytes": ckpt_bytes,
-           "saves": log.seconds("ckpt.save"),
-           "restores": log.seconds("ckpt.restore")}
+           "saves": span_seconds(log, "ckpt.save"),
+           "restores": span_seconds(log, "ckpt.restore")}
     losses_run = list(rep.losses)
     del res, built, coord
     gc.collect()
@@ -1959,7 +2124,8 @@ def crash_then_replay(cfg, argv, crash_step, tmp, label, kernels):
     same = tree_digest(params) == digest
     print(f"train {label}: final params "
           f"{'bit-identical' if same else 'DIFFER'} to the fault-free run "
-          f"({len(digest)} leaves, sha1 of each); last {args.steps} losses "
+          f"({n_leaves} leaves, one sha1 over their bytes: tree_digest); "
+          f"last {args.steps} losses "
           f"of the crash run "
           f"{'equal' if losses_run[-args.steps:] == losses else 'DIFFER'}; "
           f"losses {[round(x, 4) for x in losses]}")
@@ -1973,12 +2139,31 @@ def crash_then_replay(cfg, argv, crash_step, tmp, label, kernels):
     return out
 
 
+def flops_against_cell(arch, cfg, b, seq, model, executed):
+    """The script's own FLOP counts of a train step beside
+    ``analysis.flops.cell_flops`` at the same shape (its ``model_flops``
+    is 6 x active params x text tokens; its ``flops`` counts remat's
+    recompute and an MoE layer's capacity slots).  Returns the cell."""
+    from repro_torch.analysis.flops import cell_flops
+    from repro_torch.launch.shapes import Shape
+    cell = cell_flops(cfg, Shape("train", "train",
+                                 seq + cfg.n_image_tokens, b))
+    print(f"train {arch} FLOPs a step: the script's model {model / 1e12:.3f}"
+          f" / executed {executed / 1e12:.3f} TFLOP, cell_flops' model "
+          f"{cell.model_flops / 1e12:.3f} / flops {cell.flops / 1e12:.3f} "
+          f"TFLOP (ratios {cell.model_flops / model:.3f}, "
+          f"{cell.flops / executed:.3f}); the share of the bf16 peak uses "
+          f"the script's model FLOPs")
+    return cell
+
+
 def phase_train(tmp):
     """olmo-1b at full width through the launcher's code path with a forced
-    crash, then the same steps without faults; returns the path's launch
-    counts."""
+    crash, then the same steps without faults; ``capture_cost`` of one step
+    beside the analytic counts; returns the path's launch counts."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.obs import profile_jit
     cfg = get_config("olmo-1b")
     run = crash_then_replay(cfg, TRAIN_ARGS, TRAIN_CRASH_STEP, tmp,
                             "olmo-1b", ("flash_attention",
@@ -2000,6 +2185,29 @@ def phase_train(tmp):
           f"sha1 of every leaf; the restore reads, verifies, copies back)")
     params, opt, step_fn = run["params"], run["opt"], run["step_fn"]
     batch = run["pipe"].batch_at(args.steps)
+    cell = flops_against_cell("olmo-1b", cfg, b, seq, model, executed)
+    # the dense family: both count the same products
+    check(abs(cell.flops / executed - 1) < 0.05
+          and abs(cell.model_flops / model - 1) < 0.10,
+          "olmo-1b: the script's FLOP counts part from cell_flops'")
+    t0 = time.perf_counter()
+    cost = profile_jit(step_fn, name="train_step").capture_cost(
+        params, opt, batch)
+    kernels = {k: f"{v['flops'] / 1e12:.3f} TFLOP, {v['bytes'] / 1e9:.2f} "
+                  f"GB, {v['launches']} launches"
+               for k, v in cost["kernels"].items()}
+    print(f"train olmo-1b capture_cost of one step (outside the timed "
+          f"steps, {time.perf_counter() - t0:.1f} s): "
+          f"{cost['flops'] / 1e12:.3f} TFLOP ({cost['aten_flops'] / 1e12:.3f}"
+          f" by aten ops, the rest by the kernels' reports: {kernels}), "
+          f"{cost['bytes accessed'] / 1e9:.2f} GB accessed "
+          f"({cost['aten_bytes'] / 1e9:.2f} by aten ops); against "
+          f"cell_flops' flops {cost['flops'] / cell.flops:.3f}, the "
+          f"script's executed {cost['flops'] / executed:.3f}")
+    check({"flash_attention", "flash_attention_bwd"} <= set(cost["kernels"]),
+          "capture_cost saw no flash-attention launch")
+    check(abs(cost["flops"] / cell.flops - 1) < 0.35,
+          "capture_cost's FLOPs are not within 0.35 of cell_flops'")
     _profile("olmo-1b train step (4 x 2048)",
              lambda: float(step_fn(params, opt, batch)[2]["loss"]), 1)
     launches = run["launches"]
@@ -2118,6 +2326,7 @@ def phase_train_family(arch, tmp):
           f"with remat), {model / step_s / 1e12:.1f} TFLOP/s, "
           f"{model / step_s / PEAK_BF16:.3f} of the bf16 peak; losses "
           f"{[round(x, 4) for x in losses]}")
+    flops_against_cell(arch, cfg, b, seq, model, executed)
     check(all(np.isfinite(losses)), f"{arch}: a non-finite loss")
     check(peak < 80e9, f"{arch}: peak device memory {peak / 1e9:.1f} GB")
     for name in spec["kernels"]:
@@ -2229,31 +2438,58 @@ def phase_train_crash(arch, tmp):
     return launches
 
 
-def phase_train_chaos(tmp):
+def phase_train_chaos():
     """Every train-side fault class at the published widths, 2 layers,
-    through the launcher's code path and its --chaos-assert; returns the
-    path's launch counts."""
-    from repro_torch.chaos import TRAIN_KINDS, FaultEvent, FaultTrace
+    through the launcher's code path and its --chaos-assert, traced
+    (``--trace-dir``, ``--trace-dump-on-fault``): the validator finds
+    every witness of :data:`CHAOS_SPANS`, and ``profile.json`` counts
+    every train-step call but the first.  Its fault trace, store, dumps
+    and profile lie in a directory of :func:`shm_dir`, removed at the end.
+    Returns the path's launch counts."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import train as launch
     cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=CHAOS_LAYERS)
+    # keep=3 commits of params, mu and nu, and the one being written
+    root = shm_dir("chaos", 4 * 12 * cfg.param_count())
+    try:
+        return _train_chaos(cfg, root)
+    finally:
+        release_shm(root)
+
+
+def _train_chaos(cfg, tmp):
+    from repro_torch.chaos import TRAIN_KINDS, FaultEvent, FaultTrace
+    from repro_torch.launch import train as launch
     path = os.path.join(tmp, "chaos_trace.json")
     FaultTrace(events=[FaultEvent(step=st, kind=k, targets=t, duration=d,
                                   seed=sd)
                        for st, k, t, d, sd in CHAOS_EVENTS]).save(path)
+    trace_dir = os.path.join(tmp, "chaos_trace")
     args = launch.build_parser().parse_args(CHAOS_ARGS + [
-        "--chaos-trace", path, "--ckpt-dir", os.path.join(tmp, "chaos")])
-    counted = wrappers()
-    for fn in counted.values():
-        fn.launches = 0
+        "--chaos-trace", path, "--ckpt-dir", os.path.join(tmp, "chaos"),
+        "--inject-mtbf-steps", "1e9", "--trace-dir", trace_dir,
+        "--trace-dump-on-fault"])
+    built = launch.build(cfg, args)
+    built["injector"].fail_steps = CHAOS_REPEAT
+    coord = built["coord"]
+    profiled, calls = coord.train_step, [0]
+
+    def counted_step(*a):
+        calls[0] += 1
+        return profiled(*a)
+
+    coord.train_step = counted_step
+    ckpt_bytes = tree_bytes({"params": coord.params, "opt": coord.opt_state})
+    counted = _zero_launches()
     t0 = time.perf_counter()
-    res = _launch_train(cfg, args, launch.build(cfg, args))
+    res = _launch_train(cfg, args, built)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
     rep, chaos = res["report"], res["chaos"]
     print(f"train chaos olmo-1b x {CHAOS_LAYERS} layers: applied "
-          f"{dict(chaos.applied_by_kind)}; failures {rep.failures}, restores "
-          f"{rep.restores}, ckpt fallbacks {rep.ckpt_fallbacks}, nan "
+          f"{dict(chaos.applied_by_kind)}, and {CHAOS_REPEAT} host crashes "
+          f"by the injector; failures {rep.failures}, restores "
+          f"{rep.restores}, backoff {rep.backoff_steps:.0f} steps, ckpt "
+          f"fallbacks {rep.ckpt_fallbacks}, nan "
           f"rollbacks {rep.nan_rollbacks}, enospc retries "
           f"{rep.enospc_retries}, partitions {rep.partitions}, slowdowns "
           f"{rep.slowdowns}, index violations {rep.index_violations}; phase "
@@ -2263,11 +2499,263 @@ def phase_train_chaos(tmp):
           f"train-side class")
     check(rep.ckpt_fallbacks >= 1 and rep.enospc_retries >= 1
           and rep.nan_rollbacks == 1 and rep.partitions == 1
-          and rep.slowdowns == 1 and rep.failures == 2,
+          and rep.slowdowns == 1 and rep.failures == 4
+          and rep.backoff_steps > 0,
           "a fault class's recovery path did not run")
     for name in ("flash_attention", "flash_attention_bwd"):
         check(launches[name] > 0, f"the chaos train path never launched "
                                   f"{name}")
+    saves = span_seconds(res["obs"].recorder, "ckpt.save")
+    print(f"train chaos checkpoints: {ckpt_bytes / 1e9:.3f} GB each "
+          f"(params, mu, nu, step); saves {[round(x, 2) for x in saves]} s")
+    validate_trace(trace_dir, CHAOS_SPANS, "train chaos")
+    prof_path = os.path.join(trace_dir, "profile.json")
+    check(os.path.exists(prof_path), "the traced chaos run wrote no "
+                                     "profile.json")
+    with open(prof_path) as f:
+        prof = json.load(f)[0]
+    print(f"train chaos profile.json: {prof['calls']} steady calls of "
+          f"{calls[0]} train-step calls, first call "
+          f"{prof['compile_s']:.2f} s, mean {1e3 * prof['mean_s']:.1f} ms, "
+          f"{prof['flops'] / 1e12:.3f} TFLOP and "
+          f"{prof['bytes_accessed'] / 1e9:.2f} GB a step (capture_cost)")
+    check(prof["calls"] == calls[0] - 1,
+          f"profile.json counts {prof['calls']} calls, not "
+          f"{calls[0]} - 1")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the cross-pod cluster; the exchange round at full width
+# ---------------------------------------------------------------------------
+
+def _timed(fn):
+    """``fn()``'s result, device ms (CUDA events around the call) and host
+    ms (the clock around the call and a synchronise)."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), 1e3 * (time.perf_counter() - t0)
+
+
+def _split_text(parts):
+    return "; ".join(f"{k} {ev:.2f} ms events / {host:.2f} ms host"
+                     for k, (ev, host) in parts.items())
+
+
+def round_split(cfg, args, cluster):
+    """One more round on the healed cluster's pods through the calls a
+    round makes, each timed (:func:`_timed`): the pods' gradients
+    (``make_grad_fn``, as the cluster makes them), the exchange
+    (``PodGradientExchange.round``, from the cluster's residuals) without
+    and with the agreed update's fingerprint, the pods' AdamW updates, and
+    the pods' fingerprints as the cluster takes them (``tree_digests``, a
+    thread a pod) and one pod's alone (``tree_digest``).  The pods'
+    fingerprints must agree.  Returns the parts."""
+    import torch
+    from repro_torch.distributed.steps import make_grad_fn
+    from repro_torch.ft import PodGradientExchange, tree_digest, tree_digests
+    from repro_torch.optim import adamw_update
+    n = len(cluster.params)
+    grad_fn = make_grad_fn(cfg, q_chunk=min(1024, args.seq_len),
+                           xent_chunk=512)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             cluster.pipeline.batch_at(cluster.applied).items()}
+    ex = PodGradientExchange(n)
+    for p in range(n):
+        ex.set_residual(p, cluster.exchange.residuals[p])
+    parts = {}
+
+    def part(name, fn):
+        out, ev, host = _timed(fn)
+        parts[name] = (ev, host)
+        return out
+
+    grads = part(f"gradients ({n} pods)", lambda: [
+        grad_fn(p, batch)[1] for p in cluster.params])
+    part("exchange round without the fingerprint",
+         lambda: ex.round(grads, with_fingerprint=False))
+    res = part("exchange round with the update's fingerprint",
+               lambda: ex.round(grads))
+    del grads
+    new = part(f"update ({n} pods)", lambda: [
+        adamw_update(cluster.opt_cfg, p, res.avg, o)[0]
+        for p, o in zip(cluster.params, cluster.opt)])
+    fps = part(f"fingerprints ({n} pods, a thread each)",
+               lambda: tree_digests(new))
+    one = part("fingerprint (1 pod)", lambda: tree_digest(new[0]))
+    check(res.quorum == tuple(range(n)) and len(set(fps)) == 1
+          and fps[0] == one, "the healed pods' updated params differ")
+    return parts
+
+
+def phase_cluster():
+    """The cross-pod cluster through the launcher's ``--pods`` path
+    (``launch.train.cluster_main``) at the published widths and
+    :data:`CHAOS_LAYERS` layers, traced, under a fixed trace
+    (:data:`CLUSTER_EVENTS`) and the launcher's ``--chaos-assert`` (every
+    step, 0 split-brain divergences, 0 index violations, finite losses,
+    all pods bit-identical to a fault-free reference cluster); then the
+    counts, the compression ratio, the kernels and the validator's
+    witnesses; one more round's split (:func:`round_split`); each
+    commit's seconds and bytes.  Both clusters' stores, the trace and the
+    dumps lie in a directory of :func:`shm_dir`, removed at the end.
+    Returns the path's launch counts."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=CHAOS_LAYERS)
+    # params, mu, nu and the residual: keep=3 commits and the one being
+    # written, in the run's store and the reference's beside it
+    root = shm_dir("cluster", 2 * 4 * 16 * cfg.param_count())
+    try:
+        return _cluster(cfg, root)
+    finally:
+        release_shm(root)
+
+
+def _cluster(cfg, tmp):
+    import torch
+    from repro_torch.chaos import FaultEvent, FaultTrace
+    from repro_torch.launch import train as launch
+    path = os.path.join(tmp, "cluster_trace.json")
+    FaultTrace(events=[FaultEvent(step=st, kind=k, targets=t, duration=d,
+                                  seed=sd)
+                       for st, k, t, d, sd in CLUSTER_EVENTS]).save(path)
+    trace_dir = os.path.join(tmp, "cluster_trace")
+    args = launch.build_parser().parse_args(CLUSTER_ARGS + [
+        "--chaos-trace", path, "--trace-dir", trace_dir,
+        "--ckpt-dir", os.path.join(tmp, "run")])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counted = _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        res = launch.cluster_main(cfg, args)
+    except SystemExit as e:
+        raise SmokeFailure(f"cluster launcher: {e}") from None
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    rep, cluster = res["report"], res["cluster"]
+    ref_rep = res["reference_report"]
+    ratio = cluster.exchange.compression_ratio
+    print(f"cluster olmo-1b x {CHAOS_LAYERS} layers, {args.pods} pods, "
+          f"{args.global_batch} x {args.seq_len}: {rep.steps_completed} "
+          f"steps in {rep.rounds} rounds, partitions {rep.partitions}, "
+          f"heals {rep.heals}, catchups {rep.catchups}, parked pod-rounds "
+          f"{rep.parked_pod_rounds}, disk-full {rep.disk_full_events}, "
+          f"enospc retries {rep.enospc_retries}, checkpoints "
+          f"{rep.checkpoints} (reference {ref_rep.checkpoints}), "
+          f"compression {ratio}x, peak device memory {peak / 1e9:.2f} GB; "
+          f"phase {wall:.1f} s (the run {res['wall_s']:.1f} s, then the "
+          f"reference); launches {launches}")
+    check(rep.partitions == 1 and rep.heals >= 1 and rep.catchups >= 1
+          and rep.parked_pod_rounds >= 3 and rep.enospc_retries >= 1,
+          "the cluster's partition, heal or ENOSPC path did not run")
+    check(ratio == 4.0, f"compression ratio {ratio}, not 4.0")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(launches[name] > 0, f"the cluster path never launched {name}")
+    commits = span_seconds(res["obs"].recorder, "crosspod.commit")
+    pod_bytes = tree_bytes({"params": cluster.params[0],
+                            "opt": cluster.opt[0],
+                            "residual": cluster.exchange.residuals[0]})
+    print(f"cluster commits: {pod_bytes / 1e9:.3f} GB each (params, mu, nu, "
+          f"step, residual); seconds {[round(x, 2) for x in commits]} (host "
+          f"copy, np.save, sha1 of every leaf); /dev/shm holds "
+          f"{_meminfo('Shmem') / 1e9:.2f} GB")
+    validate_trace(trace_dir, CLUSTER_SPANS, "cluster")
+    parts = round_split(cfg, args, cluster)
+    print(f"cluster round split (the next round, {args.pods} pods): "
+          f"{_split_text(parts)}")
+    del res, cluster
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_exchange_full():
+    """One exchange round at full width: olmo-1b whole, the gradients of
+    three 4 x 2048 batches given to ``PodGradientExchange(3).round`` as
+    three identical pods (the fast path) and as the three that differ (the
+    averaging path).  Gates: every element of each average within its
+    leaf's int8 bound of the mean of the pods' fp32 gradients (half a
+    quantum a pod plus the residual it carried, averaged, and fp32's
+    rounding), and the byte counts 4 : 1.  Prints each part's ms and the
+    host GB/s of ``tree_digest``.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.distributed.steps import make_grad_fn
+    from repro_torch.ft import PodGradientExchange, tree_digest
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import compress_int8
+    from repro_torch.tree import flatten
+    cfg = get_config("olmo-1b")
+    b, seq = EXCHANGE_SHAPE
+    args = launch.build_parser().parse_args([
+        "--global-batch", str(b), "--seq-len", str(seq), "--seed", "0",
+        "--device", "cuda"])
+    t_phase = time.perf_counter()
+    params = launch.seeded_params(cfg, args)
+    pipe = SyntheticTokenPipeline(DataConfig(b, seq, seed=0), cfg)
+    grad_fn = make_grad_fn(cfg, q_chunk=min(1024, seq), xent_chunk=512)
+    counted = _zero_launches()
+    grads, parts = [], {}
+    for i in range(3):
+        batch = {k: torch.as_tensor(v).cuda()
+                 for k, v in pipe.batch_at(i).items()}
+        g, ev, host = _timed(lambda: grad_fn(params, batch)[1])
+        grads.append(g)
+        parts[f"gradient {i}"] = (ev, host)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    del params
+    n_bytes = tree_bytes(grads[0])
+    for label, pods in (("fast path", [grads[0]] * 3),
+                        ("averaging path", grads)):
+        # a first round grows the allocator's pools; the second is timed
+        PodGradientExchange(3).round(pods, with_fingerprint=False)
+        ex = PodGradientExchange(3)
+        res, ev, host = _timed(lambda: ex.round(pods, with_fingerprint=False))
+        parts[f"{label} round"] = (ev, host)
+        check(res.quorum == (0, 1, 2), f"{label}: quorum {res.quorum}")
+        check(ex.bytes_sent_int8 * 4 == ex.bytes_sent_fp32,
+              f"{label}: {ex.bytes_sent_int8} int8 bytes against "
+              f"{ex.bytes_sent_fp32} fp32")
+        worst = 0.0
+        for (name, avg), *gs in zip(flatten(res.avg),
+                                    *(flatten(g) for g in pods)):
+            gs = [g for _, g in gs]
+            scales = [float(compress_int8(g)[1]) for g in gs]
+            mean = sum(g.float() for g in gs) / 3
+            # the residuals a fresh exchange carries in are 0
+            bound = (sum(scales) / 6
+                     + 2.0 ** -20 * max(127 * s for s in scales))
+            err = float((avg - mean).abs().max())
+            worst = max(worst, err / bound)
+            check(err <= bound, f"{label} {name}: |avg - mean| {err:.3g} "
+                                f"> the int8 bound {bound:.3g}")
+        print(f"exchange {label} at full width ({n_bytes / 1e9:.2f} GB of "
+              f"fp32 gradient a pod): worst |avg - mean| / bound "
+              f"{worst:.3f}; int8 bytes {ex.bytes_sent_int8}, fp32 bytes "
+              f"{ex.bytes_sent_fp32}")
+    # the agreed update's fingerprint, as round(with_fingerprint=True)
+    # takes it
+    _, ev, host = _timed(lambda: tree_digest(res.avg))
+    parts["tree_digest of the average"] = (ev, host)
+    print(f"exchange tree_digest at full width: {n_bytes / 1e9:.2f} GB in "
+          f"{host / 1e3:.2f} s host, {n_bytes / host / 1e6:.2f} GB/s")
+    del res, ex
+    print(f"exchange parts at full width: {_split_text(parts)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2356,6 +2844,16 @@ def kernel_records(recs, by_path):
     return out
 
 
+def empty_dir(path):
+    """Remove what ``path`` holds (a phase's checkpoints, once read)."""
+    for name in os.listdir(path):
+        shutil.rmtree(os.path.join(path, name), ignore_errors=True)
+
+
+def _terminated(signum, frame):
+    raise SystemExit(128 + signum)
+
+
 def main() -> int:
     # the train phases replay steps bit for bit: cuBLAS reads this at its
     # first use in the process, so it is set before any phase runs
@@ -2370,6 +2868,9 @@ def main() -> int:
               f"the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # a SIGTERM unwinds through the finally blocks, which remove the
+    # directories the run made under /dev/shm and the temporary directory
+    signal.signal(signal.SIGTERM, _terminated)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2407,26 +2908,40 @@ def main() -> int:
     # 6-9. training: olmo-1b at full width with a crash, then every fault
     # class; the recurrent families
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ledger = WriteLedger()
     torch.use_deterministic_algorithms(True)
     try:
-        by_path["train"] = phase_train(tmp)
+        with ledger.phase("train olmo-1b"):
+            by_path["train"] = phase_train(tmp)
+        empty_dir(tmp)
         print(f"train done at {time.perf_counter() - t_start:.1f} s")
-        by_path["train_chaos"] = phase_train_chaos(tmp)
+        with ledger.phase("train chaos", "shm"):
+            by_path["train_chaos"] = phase_train_chaos()
         print(f"train chaos done at {time.perf_counter() - t_start:.1f} s")
-        # 8-9. rwkv6-3b and recurrentgemma-2b training: published widths
-        # at a cut depth, then a crash run each at reduced depth
+        # 7b. the cross-pod cluster, then one exchange round at full width
+        with ledger.phase("cluster", "shm"):
+            by_path["train_cluster"] = phase_cluster()
+        print(f"cluster done at {time.perf_counter() - t_start:.1f} s")
+        by_path["exchange_full"] = phase_exchange_full()
+        print(f"exchange done at {time.perf_counter() - t_start:.1f} s")
+        # 8-9. the other families' training: published widths at a cut
+        # depth, then a crash run each at reduced depth
         for arch in FAMILY_TRAIN:
-            by_path[f"train_{arch}"] = phase_train_family(arch, tmp)
+            with ledger.phase(f"train {arch}"):
+                by_path[f"train_{arch}"] = phase_train_family(arch, tmp)
             print(f"train {arch} done at "
                   f"{time.perf_counter() - t_start:.1f} s")
             if arch not in CRASH_CUTS:
                 continue
-            by_path[f"train_crash_{arch}"] = phase_train_crash(arch, tmp)
+            with ledger.phase(f"train crash {arch}"):
+                by_path[f"train_crash_{arch}"] = phase_train_crash(arch, tmp)
+            empty_dir(tmp)
             print(f"train crash {arch} done at "
                   f"{time.perf_counter() - t_start:.1f} s")
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
+        release_shm()
     kernels = kernel_records(recs, by_path)
     for k in kernels:
         lib = (f"{k['library_ms']:.4f}" if k["library_ms"] is not None

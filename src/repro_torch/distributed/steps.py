@@ -15,7 +15,28 @@ from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_update, cosine_schedule
 from ..tree import flatten, tree_map, unflatten
 
-__all__ = ["make_prefill_step", "make_serve_step", "make_train_step"]
+__all__ = ["make_grad_fn", "make_prefill_step", "make_serve_step",
+           "make_train_step"]
+
+
+def make_grad_fn(cfg: ModelConfig, *, q_chunk: int = 1024,
+                 xent_chunk: int = 512):
+    """Returns ``grads_of(params, batch) -> (loss, grads)``: JAX's
+    ``value_and_grad`` of ``lm.forward_train`` by autograd.  ``batch``
+    holds tensors on the params' device; the grads are a new tree of the
+    params' structure and dtypes."""
+    lm.check_train_family(cfg)
+
+    def grads_of(params, batch):
+        leaves = [t.detach().requires_grad_() for _, t in flatten(params)]
+        loss, _ = lm.forward_train(unflatten(params, leaves), cfg, batch,
+                                   q_chunk=q_chunk, xent_chunk=xent_chunk)
+        # a leaf the loss does not reach (the cross-attention's q/k/v
+        # biases) gets zeros, as JAX's gradient gives it
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        return loss.detach(), unflatten(params, list(grads))
+
+    return grads_of
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
@@ -37,15 +58,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
     keeps them to reject a step)."""
     lm.check_train_family(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
-
-    def grads_of(params, mb):
-        leaves = [t.detach().requires_grad_() for _, t in flatten(params)]
-        loss, _ = lm.forward_train(unflatten(params, leaves), cfg, mb,
-                                   q_chunk=q_chunk, xent_chunk=xent_chunk)
-        # a leaf the loss does not reach (the cross-attention's q/k/v
-        # biases) gets zeros, as JAX's gradient gives it
-        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-        return loss.detach(), unflatten(params, list(grads))
+    grads_of = make_grad_fn(cfg, q_chunk=q_chunk, xent_chunk=xent_chunk)
 
     def train_step(params, opt_state, batch):
         device = flatten(params)[0][1].device

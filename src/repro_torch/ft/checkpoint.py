@@ -53,10 +53,17 @@ the other.  Every leaf is copied to host numpy **before** an async write
 starts: torch tensors are mutable, and a writer thread reading live device
 memory could mix two steps and still pass its own sha1, computed from the
 same torn bytes.  ``restore`` puts each leaf on the device of the matching
-leaf of ``like_tree``.
+leaf of ``like_tree``.  A synchronous save writes and hashes its leaves, and
+a restore or an audit reads and hashes them, a leaf a thread (``np.save``,
+``np.load`` and sha1 release the interpreter lock): the caller waits on
+them.  An async save keeps to its one writer thread, so that the steps it
+overlaps keep the host's other cores.  What each leaf gives is taken in
+leaf order, so the files, the index and the first failure reported are
+the one-thread ones.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import errno
 import glob
 import hashlib
@@ -95,6 +102,32 @@ def _sha1(arr: np.ndarray) -> str:
     rather than from a copy of the bytes."""
     flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
     return hashlib.sha1(flat).hexdigest()
+
+
+#: threads a save, a restore or an audit spreads its leaves over
+_IO_THREADS = min(8, os.cpu_count() or 1)
+
+
+def _map(fn, items, threads: int = _IO_THREADS) -> list:
+    """``[fn(x) for x in items]`` over up to ``threads`` threads; the first
+    exception in item order is raised once every call has ended."""
+    items = list(items)
+    if threads < 2 or len(items) < 2:
+        return [fn(x) for x in items]
+    with concurrent.futures.ThreadPoolExecutor(
+            min(threads, len(items))) as pool:
+        return list(pool.map(fn, items))
+
+
+def _caught(fn, exc=Exception):
+    """``fn`` returning ``(result, None)``, or ``(None, e)`` for an ``exc``
+    it raised, so that each item's outcome can be taken in order."""
+    def call(x):
+        try:
+            return fn(x), None
+        except exc as e:
+            return None, e
+    return call
 
 
 def _like(arr: np.ndarray, like):
@@ -222,24 +255,32 @@ class CheckpointStore:
             leaves.extend((name, _to_host(leaf))
                           for name, leaf in _leaf_paths(tree))
 
-        def _write_once() -> dict:
-            index = {"step": step, "extra": extra or {}, "leaves": {}}
-            for i, (name, arr) in enumerate(leaves):
-                host = i % self.n_hosts
-                fname = hashlib.sha1(name.encode()).hexdigest()[:16] + ".npy"
-                fpath = os.path.join(self._host_dir(host, step), fname)
-                if self._enospc_armed and i >= len(leaves) // 2:
-                    self._enospc_armed -= 1
-                    raise OSError(errno.ENOSPC,
-                                  "No space left on device (injected)",
-                                  fpath)
-                with open(fpath, "wb") as f:
-                    np.save(f, arr)
-                digest = _sha1(arr)
-                index["leaves"][name] = {
-                    "host": host, "file": fpath, "sha1": digest,
-                    "shape": list(arr.shape), "dtype": str(arr.dtype),
-                }
+        def _path(i: int, name: str) -> str:
+            fname = hashlib.sha1(name.encode()).hexdigest()[:16] + ".npy"
+            return os.path.join(self._host_dir(i % self.n_hosts, step), fname)
+
+        def _write_leaf(item) -> dict:
+            i, (name, arr) = item
+            fpath = _path(i, name)
+            with open(fpath, "wb") as f:
+                np.save(f, arr)
+            return {"host": i % self.n_hosts, "file": fpath,
+                    "sha1": _sha1(arr), "shape": list(arr.shape),
+                    "dtype": str(arr.dtype)}
+
+        def _write_once(threads: int) -> dict:
+            # an armed injection strikes at the middle leaf, once the
+            # leaves before it are written
+            cut = len(leaves) // 2 if self._enospc_armed else len(leaves)
+            metas = _map(_write_leaf, enumerate(leaves[:cut]), threads)
+            if cut < len(leaves):
+                self._enospc_armed -= 1
+                raise OSError(errno.ENOSPC,
+                              "No space left on device (injected)",
+                              _path(cut, leaves[cut][0]))
+            index = {"step": step, "extra": extra or {},
+                     "leaves": {name: meta for (name, _), meta
+                                in zip(leaves, metas)}}
             tmp = self._index_path(step) + ".tmp"
             with open(tmp, "w") as f:
                 json.dump(index, f)
@@ -247,10 +288,10 @@ class CheckpointStore:
             self._prune()
             return index
 
-        def _write() -> dict:
+        def _write(threads: int) -> dict:
             while True:
                 try:
-                    return _write_once()
+                    return _write_once(threads)
                 except OSError as e:
                     if e.errno != errno.ENOSPC:
                         raise
@@ -266,14 +307,14 @@ class CheckpointStore:
             with self.tracer.span("ckpt.save", track="ckpt-io", step=step,
                                   mode="sync"):
                 _copy_to_host()
-                return _write()
+                return _write(_IO_THREADS)
 
         t_start = self.tracer.clock()
         _copy_to_host()
 
         def _runner() -> None:
             try:
-                _write()
+                _write(1)
                 # complete() is thread-safe (bypasses the span stack), so
                 # the writer thread can report its own wall time
                 self.tracer.complete("ckpt.save", t_start,
@@ -316,21 +357,26 @@ class CheckpointStore:
 
     def _read_verified(self, step: int, leaves, verify: bool):
         index = self.read_index(step)
-        out = []
-        for name, _ in leaves:
+
+        def _read(name: str):
             meta = index["leaves"].get(name)
             if meta is None:
                 raise IOError(f"leaf {name} missing from index step {step}")
             with open(meta["file"], "rb") as f:
                 arr = np.load(f)
-            if verify:
-                digest = _sha1(arr)
-                if digest != meta["sha1"]:
-                    self._quarantine(meta["file"],
-                                     f"checksum mismatch for leaf {name}",
-                                     step)
-                    raise IOError(f"checksum mismatch for {name} "
-                                  f"({meta['file']})")
+            return arr, meta, _sha1(arr) if verify else None
+
+        out = []
+        for (name, _), (got, err) in zip(
+                leaves, _map(_caught(_read), (name for name, _ in leaves))):
+            if err is not None:
+                raise err
+            arr, meta, digest = got
+            if verify and digest != meta["sha1"]:
+                self._quarantine(meta["file"],
+                                 f"checksum mismatch for leaf {name}", step)
+                raise IOError(f"checksum mismatch for {name} "
+                              f"({meta['file']})")
             out.append(arr)
         return out, index
 
@@ -396,15 +442,17 @@ class CheckpointStore:
             except (OSError, ValueError) as e:
                 problems.append(f"step {step}: unreadable index ({e})")
                 continue
-            for name, meta in sorted(index["leaves"].items()):
-                try:
-                    with open(meta["file"], "rb") as f:
-                        arr = np.load(f)
-                except OSError as e:
+            def _digest(meta) -> str:
+                with open(meta["file"], "rb") as f:
+                    return _sha1(np.load(f))
+
+            shards = sorted(index["leaves"].items())
+            for (name, meta), (digest, err) in zip(shards, _map(
+                    _caught(_digest, OSError), (m for _, m in shards))):
+                if err is not None:
                     problems.append(f"step {step}: shard {name} missing "
-                                    f"({e})")
-                    continue
-                if _sha1(arr) != meta["sha1"]:
+                                    f"({err})")
+                elif digest != meta["sha1"]:
                     problems.append(
                         f"step {step}: shard {name} checksum mismatch")
         return problems

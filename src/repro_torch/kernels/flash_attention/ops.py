@@ -3,7 +3,8 @@
 
 A CPU tensor goes to the plain versions in ``ref.py``; a CUDA tensor
 launches a kernel or raises.  ``flash_attention.launches`` and
-``flash_attention_bwd.launches`` count the launches.  :func:`attention` is
+``flash_attention_bwd.launches`` count the launches (each reports its work
+to ``_cost``).  :func:`attention` is
 the differentiable entry the model calls: under autograd its forward keeps
 q, k, v, the output and the row log-sum-exp, and its backward is the
 backward kernels (D = 64, 128 or 256); without a gradient it is
@@ -36,7 +37,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, _cost
 from . import ref
 
 __all__ = ["attention", "flash_attention", "flash_attention_bwd",
@@ -154,6 +155,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    if _cost.active():
+        pairs = _cost.attended_pairs(sq, causal, window, sk)
+        _cost.report("flash_attention", 4 * b * h * pairs * d,
+                     q.element_size() * (2 * b * h * sq * d
+                                         + 2 * b * kv * sk * d)
+                     + (4 * b * h * sq if return_lse else 0))
     return (out, lse) if return_lse else out
 
 
@@ -227,6 +234,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd.launches += 1
+    # q, o, dO and dq (B, H, Sq, D); k, v, dk, dv (B, KV, Sk, D); lse
+    if _cost.active():
+        pairs = _cost.attended_pairs(sq, causal, window, sk)
+        _cost.report("flash_attention_bwd", 10 * b * h * pairs * d,
+                     q.element_size() * (4 * b * h * sq * d
+                                         + 4 * b * kv * sk * d)
+                     + 4 * b * h * sq)
     return dq, dk, dv
 
 

@@ -1,7 +1,8 @@
 """Wrapper of the pairwise-distance kernel (``csrc/pairwise_distance.cu``).
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  ``pairwise_distance.launches`` counts the launches.
+the kernel or raises.  ``pairwise_distance.launches`` counts the launches,
+and each launch reports its work to ``_cost``.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, _cost
 from . import ref
 
 __all__ = ["pairwise_distance"]
@@ -46,6 +47,9 @@ def pairwise_distance(points: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"pairwise_distance kernel launch failed: CUDA "
                            f"error {err}")
     pairwise_distance.launches += 1
+    if _cost.active():
+        _cost.report("pairwise_distance", n * n * (3 * f + 4),
+                     4 * (n * f + n * n))
     return out
 
 

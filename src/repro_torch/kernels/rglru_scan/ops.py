@@ -2,7 +2,7 @@
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises.  ``lru_scan.launches`` and ``lru_scan_bwd.launches``
-count the launches.
+count the launches; each launch reports its work to ``_cost``.
 
 The kernel scans time in chunks of ``CHUNK`` steps in two passes (chunk
 summaries, then each chunk from its carry-in); ``ref.lru_scan_chunked``
@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, _cost
 from . import ref
 
 __all__ = ["lru_scan", "lru_scan_bwd", "CHUNK"]
@@ -86,6 +86,10 @@ def _lru_scan(a, b, h0=None):
     if err:
         raise RuntimeError(f"lru_scan kernel launch failed: CUDA error {err}")
     lru_scan.launches += 1
+    if _cost.active():
+        _cost.report("lru_scan", 2 * bsz * s * w,
+                     4 * (3 * bsz * s * w
+                          + (1 if h0 is None else 2) * bsz * w))
     return h, h_last
 
 
@@ -132,6 +136,11 @@ def lru_scan_bwd(a, h, dh, dh_last=None, h0=None):
         raise RuntimeError(f"lru_scan_bwd kernel launch failed: CUDA error "
                            f"{err}")
     lru_scan_bwd.launches += 1
+    # a, h, dh read, da and db written; h0, dh_last, dh0
+    if _cost.active():
+        _cost.report("lru_scan_bwd", 3 * bsz * s * w,
+                     4 * (5 * bsz * s * w
+                          + (0 if h0 is None else 3) * bsz * w))
     return da, db, dh0
 
 

@@ -2,10 +2,11 @@
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises.  ``wkv6.launches`` and ``wkv6_bwd.launches`` count
-the launches.  :func:`wkv6` is differentiable: under autograd it goes
-through :class:`_WKV6`, whose forward keeps the kernel's scratch (the state
-entering each chunk) and whose backward is :func:`wkv6_bwd` (head size 64
-on the card); without a gradient it is the forward alone.
+the launches (each reports its work to ``_cost``).  :func:`wkv6` is
+differentiable: under autograd it goes through :class:`_WKV6`, whose
+forward keeps the kernel's scratch (the state entering each chunk) and
+whose backward is :func:`wkv6_bwd` (head size 64 on the card); without a
+gradient it is the forward alone.
 
 The kernel reads r, k, v and log_w through their (batch, head, token)
 strides, so the model passes its ``(B, T, H, N)`` projections as transposed
@@ -26,7 +27,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, _cost
 from . import ref
 
 __all__ = ["wkv6", "wkv6_forward", "wkv6_bwd", "HEAD_SIZES",
@@ -133,6 +134,11 @@ def wkv6_forward(r, k, v, log_w, u, S0=None):
     if err:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
+    state = (1 if S0 is None else 2) * 4 * b * h * n * n
+    if _cost.active():
+        _cost.report("wkv6", b * h * t * (4 * n * n + 3 * n),
+                     (4 * r.element_size() + 4) * b * h * t * n + 4 * h * n
+                     + state)
     return o, s_out, scratch
 
 
@@ -217,6 +223,17 @@ def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None):
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
                            f"{err}")
     wkv6_bwd.launches += 1
+    # r, k, v, dO read and dr, dk, dv written in r's dtype; log_w read and
+    # dlog_w written in fp32; u, du.  Operations of the chunked form: per
+    # token and head N^2 (q^T dO) + 3 N^2 (S_c dO, G v, kd G) + 4 L N FMA,
+    # and the fold's N^2 per chunk
+    state = (0 if S0 is None else 3) * 4 * b * h * n * n
+    if _cost.active():
+        _cost.report("wkv6_bwd",
+                     2 * b * h * (t * (4 * n * n + 4 * CHUNK * n)
+                                  + -(-t // CHUNK) * n * n),
+                     (7 * r.element_size() + 8) * b * h * t * n + 8 * h * n
+                     + state)
     # du: the chunks' shares summed over chunks and the batch, in torch's
     # fixed order for this shape
     return dr, dk, dv, dlw, du_part.sum((0, 2)), dS0

@@ -16,6 +16,12 @@ instead of the engine (a baseline, not a fallback).  Runs on the GPU unless
 whisper-small's requests carry frame embeddings and llava-next-mistral-7b's
 image embeddings, drawn from the seed (``--arch whisper-small --tiny
 --device cpu --verify-static``).
+
+``--trace-dir D`` turns the flight recorder on (:mod:`repro_torch.obs`):
+the engine, the chaos engine and the metrics registry report into it, and
+the run ends with a dump and the metrics under ``D``
+(``--trace-dump-on-fault`` also dumps at every fault and recovery);
+``python -m repro_torch.obs.validate D`` checks the dumps.
 """
 from __future__ import annotations
 
@@ -25,17 +31,24 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..chaos import SERVE_KINDS, ChaosEngine, FaultTrace, sample_trace
 from ..configs import get_config
 from ..distributed.steps import make_prefill_step, make_serve_step
 from ..models import lm
-from ..serve import (EngineConfig, Request, ServeEngine, WorkerPool,
-                     crch_policy, engine_supported, greedy_reference,
-                     prompt_bucket, uniform_policy)
+from ..serve import (EngineConfig, Request, ServeEngine, ServeMetrics,
+                     WorkerPool, crch_policy, engine_supported,
+                     greedy_reference, prompt_bucket, uniform_policy)
 
 
-def make_chaos(args, *, kinds, n_targets: int, horizon: int):
-    """Build a ChaosEngine from the --chaos* flags (None when disabled)."""
+def make_chaos(args, *, kinds, n_targets: int, horizon: int, tracer=None):
+    """Build a ChaosEngine from the --chaos* flags (None when disabled).
+
+    ``--chaos-trace`` replays a recorded trace verbatim (bit-identical run);
+    otherwise ``--chaos PROFILE`` samples a fresh trace from the profile's
+    Section 4.1 distributions, optionally recorded with ``--chaos-record``.
+    An obs tracer annotates every applied fault (``fault.<kind>``) and arms
+    the flight recorder's dump-on-fault trigger."""
     if args.chaos_trace:
         trace = FaultTrace.load(args.chaos_trace)
     elif args.chaos != "none":
@@ -48,7 +61,40 @@ def make_chaos(args, *, kinds, n_targets: int, horizon: int):
         trace.save(args.chaos_record)
     print(f"chaos: {len(trace)} events over {sorted(trace.kinds())} "
           f"(meta={trace.meta})")
-    return ChaosEngine(trace)
+    return ChaosEngine(trace, tracer=tracer)
+
+
+def add_trace_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--trace-dir", default="",
+                    help="enable the repro_torch.obs flight recorder; JSONL "
+                         "+ Chrome trace dumps and metrics land here")
+    ap.add_argument("--trace-dump-on-fault", action="store_true",
+                    help="dump the recorder window on every fault injected "
+                         "and every recovery path taken")
+    ap.add_argument("--trace-capacity", type=int, default=8192,
+                    help="flight-recorder ring capacity (events)")
+    ap.add_argument("--trace-window-s", type=float, default=0.0,
+                    help="dump only the last N seconds of the ring "
+                         "(0 = the whole ring)")
+
+
+def make_obs(args) -> obs.ObsContext:
+    """Build the run's ObsContext from the --trace* flags.  Without
+    ``--trace-dir`` this is the NULL tracer + a detached registry."""
+    return obs.setup(args.trace_dir or None,
+                     dump_on_fault=args.trace_dump_on_fault,
+                     capacity=args.trace_capacity,
+                     window_s=args.trace_window_s or None)
+
+
+def print_trace(args, ctx: obs.ObsContext) -> None:
+    """``ctx.finish()`` and the launchers' ``trace:`` line (nothing without
+    ``--trace-dir``)."""
+    if ctx.finish() is not None:
+        rec = ctx.recorder
+        print(f"trace: {len(rec.dumps)} dump(s) + metrics under "
+              f"{args.trace_dir} (faults seen {dict(rec.faults_seen)}, "
+              f"recoveries {dict(rec.recoveries_seen)})")
 
 
 def add_chaos_args(ap: argparse.ArgumentParser) -> None:
@@ -116,15 +162,18 @@ def continuous_main(cfg, args, *, params=None) -> dict:
                       seed=args.seed)
     horizon = args.chaos_horizon or min(
         args.max_steps, 8 * max(r.max_new_tokens for r in reqs))
+    ctx = make_obs(args)
     chaos = make_chaos(args, kinds=SERVE_KINDS, n_targets=args.workers,
-                       horizon=horizon)
+                       horizon=horizon, tracer=ctx.tracer)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = lm.init_params(cfg, gen, cast=True)
     engine = ServeEngine(
         cfg, EngineConfig(cache_len=cache_len,
                           max_queue_depth=args.max_queue_depth or None),
-        pool=pool, policy=policy, params=params, chaos=chaos, device=device)
+        pool=pool, policy=policy, params=params,
+        metrics=ServeMetrics(registry=ctx.registry), chaos=chaos,
+        tracer=ctx.tracer, device=device)
     for r in reqs:
         engine.submit(r)
     t0 = time.time()
@@ -163,6 +212,7 @@ def continuous_main(cfg, args, *, params=None) -> dict:
     if not done:
         raise SystemExit("no requests completed")
     print("sample:", engine.completed[done[0]][:12])
+    print_trace(args, ctx)
     if args.chaos_assert:
         if chaos is None or not chaos.applied:
             raise SystemExit("--chaos-assert needs a chaos run that fired "
@@ -189,7 +239,7 @@ def continuous_main(cfg, args, *, params=None) -> dict:
             raise SystemExit(f"token parity failed for rids {mismatched}")
     return {"engine": engine, "requests": reqs, "params": params,
             "policy": policy, "cache_len": cache_len, "summary": s,
-            "wall_s": wall, "tok_s": tok_s}
+            "wall_s": wall, "tok_s": tok_s, "obs": ctx}
 
 
 def static_batch(cfg, batch: int, seq: int, seed: int, device) -> dict:
@@ -280,6 +330,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked (tests)")
     add_chaos_args(ap)
+    add_trace_args(ap)
     return ap
 
 

@@ -1,8 +1,7 @@
 """Training launcher of the port: fault-tolerant training with checkpoints.
 
-Counterpart of ``repro.launch.train`` on one device, without ``--pods``
-(the cross-pod cluster), ``--mesh`` (sharding) and ``--trace*`` (the flight
-recorder), which wait for later slices.  The train step runs under
+Counterpart of ``repro.launch.train`` on one device, without ``--mesh``
+(sharding), which waits for a later slice.  The train step runs under
 :class:`~repro_torch.ft.TrainingCoordinator` with the pointer checkpoint
 store, the dynamic checkpoint interval, an optional Weibull failure
 injector and the ``--chaos*`` fault traces, and prints the JAX launcher's
@@ -24,9 +23,30 @@ embeddings, from the pipeline's seed).
         --tiny --device cpu --steps 12 --global-batch 4 --seq-len 32 \\
         --inject-mtbf-steps 5
 
+``--pods N`` (N > 1) switches to the multi-pod cluster mode: N replicated
+data-parallel pods training through the partition-tolerant compressed
+exchange (:mod:`repro_torch.ft.crosspod`), with ``net_partition`` /
+``disk_full`` chaos targeting the pod set.  Under ``--chaos-assert`` the run
+must finish with zero split-brain fingerprint divergences, a clean
+committed-index audit, and final params bit-identical to a fault-free
+reference cluster:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --pods 3 \\
+        --steps 12 --global-batch 2 --seq-len 32 --chaos unstable \\
+        --chaos-seed 29 --chaos-assert --device cpu
+
+``--trace-dir D`` turns the flight recorder on (:mod:`repro_torch.obs`):
+the coordinator or the cluster, the checkpoint store and the chaos engine
+report into it, the train step is profiled (``D/profile.json``, with
+``capture_cost``'s FLOPs and bytes of one step), and the run ends with a
+dump and the metrics under ``D`` (``--trace-dump-on-fault`` also dumps at
+every fault and recovery); ``python -m repro_torch.obs.validate D
+--require-span crosspod.partition`` checks the dumps.
+
 On the GPU the run is deterministic (``torch.use_deterministic_algorithms``
 and a fixed cuBLAS workspace, set before the first cuBLAS call), so a step
-replayed after a restore gives the bits of its first run.
+replayed after a restore gives the bits of its first run, and the pods of a
+cluster ship bit-identical payloads.
 """
 from __future__ import annotations
 
@@ -38,15 +58,17 @@ import time
 import numpy as np
 import torch
 
-from ..chaos import TRAIN_KINDS
+from ..chaos import DISK_FULL, NET_PARTITION, TRAIN_KINDS
 from ..configs import get_config
 from ..data import DataConfig, SyntheticTokenPipeline
 from ..distributed.steps import make_train_step
 from ..ft import (CheckpointStore, DynamicInterval, FaultInjector,
-                  TrainingCoordinator)
+                  PodTrainingCluster, TrainingCoordinator, tree_digest)
 from ..models import lm
+from ..obs import profile_jit, save_profiles
 from ..optim import AdamWConfig, adamw_init
-from .serve import add_chaos_args, make_chaos
+from .serve import (add_chaos_args, add_trace_args, make_chaos, make_obs,
+                    print_trace)
 
 #: cuBLAS's reproducible workspace setting (read at its first use)
 CUBLAS_WORKSPACE = ":4096:8"
@@ -61,35 +83,54 @@ def make_deterministic() -> None:
     torch.use_deterministic_algorithms(True)
 
 
-def build(cfg, args, *, params=None, tracer=None) -> dict:
+def seeded_params(cfg, args):
+    """The launcher's params: drawn from ``--seed`` on ``--device``."""
+    gen = torch.Generator(device=torch.device(args.device)).manual_seed(
+        args.seed)
+    return lm.init_params(cfg, gen)
+
+
+def build(cfg, args, *, params=None, ctx=None) -> dict:
     """The coordinator and what it runs, as the JAX launcher builds them:
     seeded params (or ``params``, e.g. converted from JAX), AdamW state
     without a master copy, the train step at ``q_chunk = min(1024,
-    seq_len)``, ``xent_chunk = 512`` and ``total_steps = --steps``, the
-    pipeline, the injector, the chaos engine and the checkpoint store."""
-    device = torch.device(args.device)
+    seq_len)``, ``xent_chunk = 512`` and ``total_steps = --steps`` (wrapped
+    by ``profile_jit`` under ``--trace-dir``), the pipeline, the injector,
+    the chaos engine and the checkpoint store, all reporting to ``ctx``
+    (default: :func:`~repro_torch.launch.serve.make_obs` of the flags)."""
     lm.check_train_family(cfg)
+    ctx = ctx if ctx is not None else make_obs(args)
     if params is None:
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = lm.init_params(cfg, gen)
+        params = seeded_params(cfg, args)
     step_fn = make_train_step(cfg, AdamWConfig(lr=args.lr),
                               accum_steps=args.accum,
                               q_chunk=min(1024, args.seq_len),
                               xent_chunk=512, total_steps=args.steps)
+    profiled = None
+    if args.trace_dir:
+        # the wrapper synchronises on each step's outputs (exact wall times
+        # at the cost of launch overlap): opt-in with --trace-dir
+        profiled = profile_jit(step_fn, name="train_step",
+                               registry=ctx.registry, tracer=ctx.tracer)
+        step_fn = profiled
     pipeline = SyntheticTokenPipeline(
         DataConfig(args.global_batch, args.seq_len, seed=args.seed), cfg)
     injector = (FaultInjector(mtbf_steps=args.inject_mtbf_steps,
                               seed=args.seed, horizon_steps=args.steps)
                 if args.inject_mtbf_steps else None)
     chaos = make_chaos(args, kinds=TRAIN_KINDS, n_targets=1,
-                       horizon=args.chaos_horizon or args.steps)
+                       horizon=args.chaos_horizon or args.steps,
+                       tracer=ctx.tracer)
     coord = TrainingCoordinator(
         train_step=step_fn, params=params, opt_state=adamw_init(params),
-        pipeline=pipeline, store=CheckpointStore(args.ckpt_dir, tracer=tracer),
+        pipeline=pipeline,
+        store=CheckpointStore(args.ckpt_dir, tracer=ctx.tracer),
         interval=DynamicInterval(gamma_s=args.ckpt_gamma_s),
-        injector=injector, chaos=chaos, tracer=tracer)
+        injector=injector, chaos=chaos, tracer=ctx.tracer,
+        registry=ctx.registry)
     return {"coord": coord, "chaos": chaos, "injector": injector,
-            "step_fn": step_fn, "pipeline": pipeline}
+            "step_fn": step_fn, "pipeline": pipeline, "obs": ctx,
+            "profiled": profiled}
 
 
 def run(cfg, args, built: dict) -> dict:
@@ -121,6 +162,19 @@ def run(cfg, args, built: dict) -> dict:
     print(f"loss: first10%={first:.4f} last10%={last:.4f} "
           f"({'improved' if last < first else 'NOT improved'}) "
           f"wall={dt:.1f}s ({dt / max(report.steps_completed, 1):.2f}s/step)")
+    profiled = built["profiled"]
+    if profiled is not None:
+        profiled.capture_cost(coord.params, coord.opt_state,
+                              coord.pipeline.batch_at(0))
+        prof = profiled.report()
+        mean_ms = (prof["mean_s"] or 0.0) * 1e3
+        print(f"profile: first call {prof['compile_s'] or 0.0:.2f}s, "
+              f"{prof['calls']} steps mean {mean_ms:.1f} ms, "
+              f"{prof['flops']:.3g} FLOP/step, "
+              f"{prof['bytes_accessed']:.3g} bytes/step")
+        save_profiles(os.path.join(args.trace_dir, "profile.json"),
+                      [profiled])
+    print_trace(args, built["obs"])
     if args.chaos_assert:
         if chaos is None or not chaos.applied:
             raise SystemExit("--chaos-assert needs a chaos run that fired "
@@ -141,6 +195,106 @@ def run(cfg, args, built: dict) -> dict:
     return {"report": report, "wall_s": dt, **built}
 
 
+def cluster_main(cfg, args, *, params=None) -> dict:
+    """Multi-pod mode (``--pods N``): the quorum trains through partitions,
+    minority pods park and catch up from the quorum checkpoint at heal.
+    Prints the JAX launcher's lines; under ``--chaos-assert`` a fault-free
+    reference cluster runs in a temporary directory beside ``--ckpt-dir``
+    and every pod must end bit-identical to it.  ``params`` (e.g. converted
+    from JAX) replaces the seeded draw in both clusters.  Returns the
+    report, the cluster, the chaos engine, the obs context and the wall
+    time."""
+    lm.check_train_family(cfg)
+    # --chaos-assert needs the exact per-step split-brain check; otherwise
+    # fingerprints are sampled (tree_digest copies every leaf to the host)
+    fingerprint_every = 1 if args.chaos_assert else args.fingerprint_every
+
+    def build_cluster(chaos_engine, ckpt_dir, ctx=None):
+        tracer = ctx.tracer if ctx is not None else None
+        return PodTrainingCluster(
+            cfg=cfg,
+            params=params if params is not None else seeded_params(cfg,
+                                                                   args),
+            pipeline=SyntheticTokenPipeline(
+                DataConfig(args.global_batch, args.seq_len, seed=args.seed),
+                cfg),
+            store=CheckpointStore(ckpt_dir, tracer=tracer),
+            n_pods=args.pods, opt_cfg=AdamWConfig(lr=args.lr),
+            q_chunk=min(1024, args.seq_len), xent_chunk=512,
+            chaos=chaos_engine, fingerprint_every=fingerprint_every,
+            tracer=tracer,
+            registry=ctx.registry if ctx is not None else None)
+
+    ctx = make_obs(args)
+    chaos = make_chaos(args, kinds=(NET_PARTITION, DISK_FULL),
+                       n_targets=args.pods,
+                       horizon=args.chaos_horizon or args.steps,
+                       tracer=ctx.tracer)
+    cluster = build_cluster(chaos, args.ckpt_dir, ctx)
+    t0 = time.time()
+    report = cluster.run(args.steps)
+    dt = time.time() - t0
+    print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
+          f"pods={args.pods} steps={report.steps_completed} "
+          f"rounds={report.rounds} ckpts={report.checkpoints} "
+          f"compression={cluster.exchange.compression_ratio:.1f}x "
+          f"device={args.device}")
+    print(f"partitions {report.partitions} parked-pod-rounds "
+          f"{report.parked_pod_rounds} heals {report.heals} catchups "
+          f"{report.catchups} disk-full {report.disk_full_events} "
+          f"enospc-retries {report.enospc_retries} | split-brain "
+          f"{report.split_brain_divergences} index-violations "
+          f"{report.index_violations} | fingerprints "
+          f"{report.fingerprints_taken} taken / "
+          f"{report.fingerprints_skipped} skipped (every "
+          f"{fingerprint_every})")
+    if chaos is not None:
+        print(f"chaos applied: {dict(chaos.applied_by_kind)}")
+    if ctx.finish() is not None:
+        print(f"trace: {len(ctx.recorder.dumps)} dump(s) + metrics under "
+              f"{args.trace_dir}")
+    print(f"final loss {report.final_loss:.4f} wall={dt:.1f}s "
+          f"({dt / max(report.steps_completed, 1):.2f}s/step)")
+    out = {"report": report, "cluster": cluster, "chaos": chaos, "obs": ctx,
+           "wall_s": dt}
+    if args.chaos_assert:
+        if chaos is None or not chaos.applied:
+            raise SystemExit("--chaos-assert needs a chaos run that fired "
+                             "events")
+        if report.steps_completed != args.steps:
+            raise SystemExit(f"cluster did not survive: "
+                             f"{report.steps_completed}/{args.steps} steps")
+        if report.split_brain_divergences:
+            raise SystemExit(f"{report.split_brain_divergences} split-brain "
+                             "fingerprint divergence(s): two components "
+                             "advanced independently")
+        if report.index_violations:
+            raise SystemExit("committed checkpoint index failed its audit "
+                             "after chaos")
+        if not all(np.isfinite(report.losses)):
+            raise SystemExit("non-finite loss in cluster")
+        parent = os.path.dirname(os.path.abspath(args.ckpt_dir))
+        with tempfile.TemporaryDirectory(prefix="repro_torch_ref_",
+                                         dir=parent) as ref_dir:
+            reference = build_cluster(None, ref_dir)
+            ref = reference.run(args.steps)
+        ref_digest = tree_digest(reference.params[0])
+        mismatched = [p for p in range(args.pods)
+                      if tree_digest(cluster.params[p]) != ref_digest]
+        if ref.steps_completed != args.steps:
+            raise SystemExit("the fault-free reference cluster did not "
+                             "finish")
+        if mismatched:
+            raise SystemExit(
+                f"pods {mismatched} are not bit-identical to the fault-free "
+                f"reference after heal (digest {ref_digest[:12]})")
+        print(f"chaos-assert OK: {report.steps_completed} steps, "
+              f"{report.heals} heals, all {args.pods} pods bit-identical "
+              "to the fault-free reference, 0 split-brain divergences")
+        out.update(reference=reference, reference_report=ref)
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="olmo-1b",
@@ -157,10 +311,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-gamma-s", type=float, default=5.0)
     ap.add_argument("--inject-mtbf-steps", type=float, default=0.0,
                     help="simulate failures every ~N steps (0 = off)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="N > 1: multi-pod cluster mode through the "
+                         "partition-tolerant exchange")
+    ap.add_argument("--fingerprint-every", type=int, default=8,
+                    help="cluster mode: take the split-brain sha1 "
+                         "fingerprint every N applied steps (forced to 1 "
+                         "under --chaos-assert)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked (tests)")
     add_chaos_args(ap)
+    add_trace_args(ap)
     return ap
 
 
@@ -176,11 +338,16 @@ def main(argv=None) -> dict:
         lm.check_train_family(cfg)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    if args.ckpt_dir:
+    def go():
+        if args.pods > 1:
+            return cluster_main(cfg, args)
         return run(cfg, args, build(cfg, args))
+
+    if args.ckpt_dir:
+        return go()
     with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as d:
         args.ckpt_dir = d
-        return run(cfg, args, build(cfg, args))
+        return go()
 
 
 if __name__ == "__main__":

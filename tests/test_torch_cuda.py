@@ -1175,3 +1175,123 @@ def test_wkv6_autograd_launches_both_kernels(cuda_device):
                     "uniform", 5)
         wk_ops.wkv6_bwd(*x[:5], _do_like(x[0], 6),
                         scratch=wk_ops.wkv6_forward(*x[:5])[2])
+
+
+# ---------------------------------------------------------------------------
+# the cross-pod cluster and the cost capture on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compression_on_card_is_bit_identical_to_cpu(cuda_device, dtype):
+    """int8 compression with error feedback: the card's quantized values,
+    scales and residuals have the CPU's bits (each op is elementwise or an
+    exact max)."""
+    from repro_torch.optim import compress_tree_with_feedback, decompress_tree
+    rng = np.random.default_rng(0)
+    tree = {"a": torch.from_numpy(rng.normal(size=(257, 129)).astype(
+        np.float32) * 1e-3).to(dtype),
+        "b": {"c": torch.zeros(7, dtype=dtype),
+              "d": torch.from_numpy(np.array(
+                  [127.0, 0.5, 1.5, 2.5, -0.5, -2.5], np.float32)).to(dtype)}}
+    res = {"a": torch.from_numpy(rng.normal(size=(257, 129)).astype(
+        np.float32) * 1e-5), "b": {"c": torch.zeros(7),
+                                    "d": torch.zeros(6)}}
+    from repro_torch.tree import flatten, tree_map
+    on = lambda t: tree_map(lambda x: x.to(cuda_device), t)  # noqa: E731
+    cpu = compress_tree_with_feedback(tree, res)
+    card = compress_tree_with_feedback(on(tree), on(res))
+    for c_tree, g_tree in zip(cpu, card):
+        for (name, c), (_, g) in zip(flatten(c_tree), flatten(g_tree)):
+            assert g.is_cuda and torch.equal(g.cpu(), c), name
+    assert torch.equal(decompress_tree(*card[:2])["a"].cpu(),
+                       decompress_tree(*cpu[:2])["a"])
+
+
+@pytest.mark.cuda
+def test_tree_digest_of_a_card_tree_equals_the_cpu_one(cuda_device):
+    from repro_torch.ft import tree_digest
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg = _card_train_cfg()
+    params = _card_train_params(cfg, "cpu")
+    for cast in (None, torch.bfloat16):
+        tree = params if cast is None else lm.cast_params(
+            params, dataclasses.replace(cfg, compute_dtype="bfloat16"))
+        card = tree_map(lambda x: x.to(cuda_device), tree)
+        assert tree_digest(card) == tree_digest(tree)
+
+
+@pytest.mark.cuda
+def test_tiny_cluster_under_chaos_is_bit_identical_to_fault_free(
+        cuda_device, tmp_path):
+    """The tiny cluster (head dim 64, bf16 compute, deterministic kernels)
+    under a partition of pod 2 and a disk-full strike: every pod ends
+    bit-identical to a fault-free cluster, through the fast path and both
+    flash kernels."""
+    from repro_torch.chaos import (DISK_FULL, NET_PARTITION, ChaosEngine,
+                                   FaultEvent, FaultTrace)
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.ft import CheckpointStore, PodTrainingCluster, tree_digest
+    cfg = dataclasses.replace(_card_train_cfg(), compute_dtype="bfloat16")
+    trace = FaultTrace(events=[
+        FaultEvent(step=2, kind=NET_PARTITION, targets=(2,), duration=3),
+        FaultEvent(step=6, kind=DISK_FULL)])
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for name, chaos in (("chaos", ChaosEngine(trace)), ("clean", None)):
+            fwd = fa_ops.flash_attention.launches
+            bwd = fa_ops.flash_attention_bwd.launches
+            cluster = PodTrainingCluster(
+                cfg=cfg, params=_card_train_params(cfg, cuda_device),
+                pipeline=SyntheticTokenPipeline(DataConfig(2, 96), cfg),
+                store=CheckpointStore(str(tmp_path / name)), n_pods=3,
+                q_chunk=96, xent_chunk=32, ckpt_every=4, chaos=chaos)
+            rep = cluster.run(8)
+            runs[name] = (cluster, rep,
+                          fa_ops.flash_attention.launches - fwd,
+                          fa_ops.flash_attention_bwd.launches - bwd)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cluster, rep, fwd, bwd = runs["chaos"]
+    assert rep.steps_completed == 8 and rep.partitions == 1
+    assert rep.catchups == 1 and rep.enospc_retries >= 1
+    assert rep.split_brain_divergences == 0 and rep.index_violations == 0
+    assert fwd > 0 and bwd > 0
+    want = tree_digest(runs["clean"][0].params[0])
+    assert all(tree_digest(cluster.params[p]) == want for p in range(3))
+    assert runs["clean"][1].losses == rep.losses
+
+
+@pytest.mark.cuda
+def test_capture_cost_on_card_counts_the_kernels(cuda_device):
+    """``capture_cost`` of the tiny forward on the card: the flash kernel's
+    own report is in the count, and the total is within
+    ``tests/test_analysis.py``'s bound (rel 0.35) of ``cell_flops``."""
+    from repro_torch.analysis import flops as F
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import Shape
+    from repro_torch.models import lm
+    from repro_torch.obs import profile_jit
+    cfg = dataclasses.replace(
+        get_config("olmo_1b", tiny=True), n_layers=3, d_model=256,
+        n_heads=4, n_kv_heads=2, d_ff=1024, vocab_size=2048, head_dim=64,
+        compute_dtype="float32", remat=False)
+    b, s = 2, 256
+    params = _card_train_params(cfg, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=cuda_device)
+
+    def last_logits(p, t):
+        x = p["embed"][t.long()]
+        pos = torch.arange(s, device=t.device)[None].expand(b, -1)
+        h, _ = lm.backbone(p, cfg, x, pos)
+        return h[:, -1] @ lm.output_weights(p, cfg, torch.float32)
+
+    prof = profile_jit(last_logits, name="fwd")
+    with torch.no_grad():
+        cost = prof.capture_cost(params, tokens)
+    assert cost["kernels"]["flash_attention"]["launches"] == cfg.n_layers
+    assert cost["kernels"]["flash_attention"]["flops"] > 0
+    analytic = F.cell_flops(cfg, Shape("prefill_test", "prefill", s, b)).flops
+    assert analytic == pytest.approx(cost["flops"], rel=0.35)

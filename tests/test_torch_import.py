@@ -40,6 +40,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.ft.coordinator", "repro_torch.ft.straggler",
             "repro_torch.launch.train", "repro_torch.tree",
             "repro_torch.distributed.steps"} <= set(mods)
+    assert {"repro_torch.optim.grad_compression", "repro_torch.ft.crosspod",
+            "repro_torch.obs.recorder", "repro_torch.obs.validate",
+            "repro_torch.obs.profile", "repro_torch.analysis",
+            "repro_torch.analysis.flops", "repro_torch.launch.shapes",
+            "repro_torch.kernels._cost"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
