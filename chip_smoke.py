@@ -144,6 +144,17 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    4 x 512 tokens, through the launcher's code path with a forced crash:
    final params bit-identical to a fault-free run (sha1 of every leaf),
    restores == failures > 0.
+10. mesh: the sharding layer (``distributed.sharding``/``params``) on a
+   one-rank CUDA ``DeviceMesh`` (``--mesh debug``): olmo-1b at full width
+   and depth, 3 steps of 4 x 2048 tokens in two microbatches, without a
+   mesh and with DTensor params, AdamW state and gradient sum from the
+   same seed: the losses and final params must be bit-identical and the
+   mesh run must launch both flash kernels; olmo-1b served (8 requests,
+   2 x 2 slots, CRCH, ``unstable``) without and with the mesh: the same
+   tokens, the mesh's cache still at ``cache_specs``' placements, tok/s
+   and decode ms/step of both; then two dry-run cells
+   (``launch.dryrun``: olmo-1b x train_4k and granite-moe-1b x
+   prefill_32k on the 256-rank fake mesh) printed as JSON rows.
 
 Phase 3 also holds the backward kernels of phases 8-9 against their plain
 versions: B3's at rwkv6's training shape (4, 40, 2048, 64) and its chunk
@@ -2844,6 +2855,153 @@ def kernel_records(recs, by_path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the sharding layer on a one-rank mesh, and two dry-run cells
+# ---------------------------------------------------------------------------
+
+#: olmo-1b at full width and depth, 3 steps of 4 x 2048 tokens in two
+#: microbatches (so that ``grad_shardings`` places the gradient sum)
+MESH_TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", "3", "--global-batch",
+                   "4", "--seq-len", "2048", "--accum", "2", "--seed", "0",
+                   "--device", "cuda"]
+#: the dry run's cells printed here: the dense trained family, and the MoE
+#: family's prefill with its experts on ``model``
+MESH_DRY_CELLS = (("olmo_1b", "train_4k"), ("granite_moe_1b", "prefill_32k"))
+
+
+def _mesh_train(cfg, args, mesh):
+    """Three steps of the train launcher's step on ``args`` (``mesh``:
+    DTensor params, AdamW state and gradient sum on it): the losses, the
+    final params' ``tree_digest``, the step times and the launch counts."""
+    from repro_torch.ft import tree_digest
+    from repro_torch.launch import train as launch
+    from repro_torch.tree import flatten
+    built = launch.build(cfg, args, mesh=mesh)
+    params, opt = built["coord"].params, built["coord"].opt_state
+    step_fn, pipe = built["step_fn"], built["pipeline"]
+    del built
+    counted = _zero_launches()
+    losses, times = [], []
+    for i in range(args.steps):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, pipe.batch_at(i))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    out = {"losses": losses, "digest": tree_digest(params),
+           "times": times,
+           "launches": {n: fn.launches for n, fn in counted.items()},
+           "dtensors": sum(hasattr(t, "placements")
+                           for _, t in flatten(params))}
+    del params, opt
+    return out
+
+
+def phase_mesh(tmp, card):
+    """The sharding layer on the card: olmo-1b trained without a mesh and
+    on a one-rank CUDA mesh (``--mesh debug``: DTensor params, AdamW state
+    and gradient sum, the steps inside ``use_rules``) from one seed must
+    give bit-identical losses and final params, the mesh run launching both
+    flash kernels; olmo-1b served with and without the mesh must give the
+    same tokens, the mesh's cache keeping ``cache_specs``' placements; then
+    two dry-run cells on the 256-rank fake mesh, printed as rows.  Returns
+    the mesh runs' launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import params as pshard
+    from repro_torch.distributed.sharding import spec_to_placements
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import destroy_group, make_debug_mesh
+    cfg = get_config("olmo-1b")
+    parser = launch.build_parser()
+    runs = {}
+    for label in ("plain", "mesh"):
+        args = parser.parse_args(MESH_TRAIN_ARGS + [
+            "--ckpt-dir", os.path.join(tmp, f"mesh-{label}")])
+        mesh = make_debug_mesh(device="cuda") if label == "mesh" else None
+        try:
+            runs[label] = _mesh_train(cfg, args, mesh)
+        finally:
+            if mesh is not None:
+                destroy_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, meshed = runs["plain"], runs["mesh"]
+    step_ms = {k: 1e3 * statistics.median(r["times"][1:])
+               for k, r in runs.items()}
+    print(f"mesh train olmo-1b (16 layers, 4 x 2048 tokens, accum 2): "
+          f"losses {meshed['losses']} on the 1x1 mesh, "
+          f"{'equal' if meshed['losses'] == plain['losses'] else 'DIFFER'}"
+          f" to the mesh-less run's; final params "
+          f"{'bit-identical' if meshed['digest'] == plain['digest'] else 'DIFFER'}"
+          f" ({meshed['dtensors']} DTensor leaves); step {step_ms['mesh']:.1f}"
+          f" ms on the mesh, {step_ms['plain']:.1f} ms without (host clock, "
+          f"median of {len(meshed['times']) - 1}; {card}); launches "
+          f"{meshed['launches']}")
+    check(meshed["dtensors"] > 0, "the mesh run's params are not DTensors")
+    check(meshed["losses"] == plain["losses"],
+          "olmo-1b's losses on the 1x1 mesh differ from the mesh-less run's")
+    check(meshed["digest"] == plain["digest"],
+          "olmo-1b's final params on the 1x1 mesh differ from the mesh-less "
+          "run's")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(meshed["launches"][name] > 0,
+              f"the mesh train path never launched {name}")
+    launches = dict(meshed["launches"])
+
+    # serve: the same params and requests without and with the mesh
+    argv = serve_args("olmo-1b") + ["--env", "unstable"]
+    sargs = lserve.build_parser().parse_args(argv)
+    base = lserve.continuous_main(cfg, sargs)
+    params = base["params"]
+    counted = _zero_launches()
+    mesh = make_debug_mesh(device="cuda")
+    try:
+        res = lserve.continuous_main(cfg, sargs, params=params, mesh=mesh)
+        eng = res["engine"]
+        specs = pshard.cache_specs(eng.cache, cfg, mesh)
+        placed = all(list(v.placements) == spec_to_placements(specs[k], mesh)
+                     for k, v in eng.cache.items())
+        same = eng.completed == base["engine"].completed
+        tm, tb = eng.timing, base["engine"].timing
+        print(f"mesh serve olmo-1b (8 requests, 2 x 2 slots, crch, "
+              f"unstable): tokens {'equal' if same else 'DIFFER'} to the "
+              f"mesh-less run's ({len(eng.completed)} requests); cache "
+              f"placements {'those of' if placed else 'NOT those of'} "
+              f"cache_specs; {res['tok_s']:.1f} tok/s on the mesh, "
+              f"{base['tok_s']:.1f} without; decode "
+              f"{1e3 * tm['decode_s'] / max(tm['decode_calls'], 1):.2f} "
+              f"ms/step on the mesh, "
+              f"{1e3 * tb['decode_s'] / max(tb['decode_calls'], 1):.2f} "
+              f"without (host clock; {card})")
+        for name, fn in counted.items():
+            launches[name] += fn.launches
+        check(counted["flash_attention"].launches > 0,
+              "the mesh serve path never launched flash_attention")
+        check(same, "olmo-1b's served tokens on the 1x1 mesh differ from "
+                    "the mesh-less run's")
+        check(placed, "the served cache left cache_specs' placements")
+        del res, eng
+    finally:
+        destroy_group()
+    del base, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two dry-run cells (fake tensors on the host: nothing on the card)
+    try:
+        for arch, shape in MESH_DRY_CELLS:
+            row = dryrun.run_cell(arch, shape, "single")
+            check(row["status"] == "ok", f"dry run {arch} {shape}: {row}")
+            row["cost"].pop("aten_flops", None)
+            print(f"dryrun row: {json.dumps(row)} ({dryrun.fit_check(row)}"
+                  f" of the card)")
+    finally:
+        destroy_group()
+    return launches
+
+
 def empty_dir(path):
     """Remove what ``path`` holds (a phase's checkpoints, once read)."""
     for name in os.listdir(path):
@@ -2938,6 +3096,11 @@ def main() -> int:
             empty_dir(tmp)
             print(f"train crash {arch} done at "
                   f"{time.perf_counter() - t_start:.1f} s")
+        # 10. the sharding layer on a one-rank mesh, two dry-run cells
+        with ledger.phase("mesh"):
+            by_path["mesh"] = phase_mesh(tmp, card)
+        empty_dir(tmp)
+        print(f"mesh done at {time.perf_counter() - t_start:.1f} s")
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)

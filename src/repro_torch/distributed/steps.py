@@ -3,8 +3,11 @@
 
 PyTorch runs eagerly, so a factory returns a plain closure over the model
 functions; there is nothing to compile, and the optional inputs that JAX
-fixes at trace time are optional arguments here.  The train step has no
-``grad_shardings``: sharding waits for the port's sharding layer.
+fixes at trace time are optional arguments here.  On DTensor params (laid
+out by ``distributed.params``, inside ``sharding.use_rules``) the steps lay
+the batch out by ``batch_specs`` and run the same model code sharded;
+``grad_shardings`` places the accumulated gradient as JAX's constraint
+does.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ from ..models import lm
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_update, cosine_schedule
 from ..tree import flatten, tree_map, unflatten
+from .sharding import (dtensor_zeros, is_dtensor, placements_for,
+                       redistribute, replicated)
 
 __all__ = ["make_grad_fn", "make_prefill_step", "make_serve_step",
            "make_train_step"]
@@ -33,6 +38,8 @@ def make_grad_fn(cfg: ModelConfig, *, q_chunk: int = 1024,
                                    q_chunk=q_chunk, xent_chunk=xent_chunk)
         # a leaf the loss does not reach (the cross-attention's q/k/v
         # biases) gets zeros, as JAX's gradient gives it
+        if is_dtensor(loss):
+            loss = replicated(loss)
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return loss.detach(), unflatten(params, list(grads))
 
@@ -42,7 +49,7 @@ def make_grad_fn(cfg: ModelConfig, *, q_chunk: int = 1024,
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
                     accum_steps: int = 1, q_chunk: int = 1024,
                     xent_chunk: int = 512, warmup: int = 100,
-                    total_steps: int = 10_000):
+                    total_steps: int = 10_000, grad_shardings=None):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradient by autograd through
     ``lm.forward_train``, then :func:`~repro_torch.optim.adamw_update` at the
@@ -55,25 +62,37 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
     into an fp32 sum and takes the mean of gradients and losses, so
     activation memory is that of one microbatch.  The returned trees are
     new; the inputs are left as they were (the coordinator's NaN guard
-    keeps them to reject a step)."""
+    keeps them to reject a step).
+
+    On DTensor params the batch is laid out by ``batch_specs`` on their
+    mesh (every rank holds the same global batch and keeps its rows).
+    ``grad_shardings`` (a tree of placements mirroring the params, e.g.
+    ``params.param_shardings`` of the full specs) places the fp32 gradient
+    sum at its creation and each microbatch's gradient before it is added,
+    as JAX's constraint in the accumulation scan does: under ZeRO-1 the
+    per-microbatch reduction then lands as a reduce-scatter onto the
+    optimizer's shards.  As in JAX it acts only when ``accum_steps > 1``."""
     lm.check_train_family(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
     grads_of = make_grad_fn(cfg, q_chunk=q_chunk, xent_chunk=xent_chunk)
 
     def train_step(params, opt_state, batch):
-        device = flatten(params)[0][1].device
+        first = flatten(params)[0][1]
+        device = first.device
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         if accum_steps == 1:
-            loss, grads = grads_of(params, batch)
+            loss, grads = grads_of(params, _laid_out(batch, first))
         else:
             mbs = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
                                 *v.shape[1:]) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = (tree_map(_zeros_f32, params) if grad_shardings is None
+                     else tree_map(_zeros_f32, params, grad_shardings))
             loss = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(accum_steps):
-                l, g = grads_of(params, {k: v[i] for k, v in mbs.items()})
-                tree_map(lambda acc, x: acc.add_(x), grads, g)
+                l, g = grads_of(params, _laid_out(
+                    {k: v[i] for k, v in mbs.items()}, first))
+                tree_map(lambda acc, x: acc.add_(_placed_like(x, acc)),
+                         grads, g)
                 loss = loss + l
             grads = tree_map(lambda g: g / accum_steps, grads)
             loss = loss / accum_steps
@@ -84,6 +103,37 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
+
+
+def _laid_out(batch, like):
+    """``batch`` as DTensors by ``batch_specs`` on the mesh of DTensor
+    ``like`` (plain tensors otherwise)."""
+    if not is_dtensor(like):
+        return batch
+    from .params import batch_specs, distribute_tree
+    mesh = like.device_mesh
+    return distribute_tree(batch, batch_specs(batch, mesh), mesh)
+
+
+def _zeros_f32(p, placements=None):
+    """fp32 zeros of ``p``'s shape (a DTensor at ``placements``, default
+    ``p``'s, for a DTensor ``p``)."""
+    if not is_dtensor(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return dtensor_zeros(p.shape, torch.float32, p.device_mesh,
+                         placements or p.placements)
+
+
+def _placed_like(x, acc):
+    return redistribute(x, acc.placements) if is_dtensor(acc) else x
+
+
+def _greedy(logits):
+    """argmax over the vocabulary (a DTensor's vocabulary gathered first,
+    its batch rows kept: the first maximum, as on one device)."""
+    if is_dtensor(logits):
+        logits = redistribute(logits, placements_for(logits, {0}))
+    return torch.argmax(logits, dim=-1)
 
 
 def make_serve_step(cfg: ModelConfig, *, cache_axes=None):
@@ -106,7 +156,7 @@ def make_serve_step(cfg: ModelConfig, *, cache_axes=None):
     def serve_step(params, cache, tokens, pos, live=None):
         logits, cache = lm.decode_step(params, cfg, cache, tokens, pos,
                                        live=live)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        nxt = _greedy(logits).to(torch.int32)[:, None]
         return nxt, logits, cache
 
     return serve_step
@@ -115,9 +165,11 @@ def make_serve_step(cfg: ModelConfig, *, cache_axes=None):
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
     """``prefill_step(params, batch, last_idx=None)``; ``last_idx`` (B,)
     picks each row's true last prompt position (bucket-padded prompts, see
-    ``lm.prefill``)."""
+    ``lm.prefill``).  On DTensor params the batch is laid out by
+    ``batch_specs``."""
 
     def prefill_step(params, batch, last_idx=None):
+        batch = _laid_out(batch, flatten(params)[0][1])
         return lm.prefill(params, cfg, batch, cache_len, last_idx=last_idx)
 
     return prefill_step

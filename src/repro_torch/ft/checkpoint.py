@@ -76,6 +76,7 @@ import threading
 import numpy as np
 import torch
 
+from ..distributed.sharding import is_dtensor
 from ..obs.trace import NULL_TRACER
 from ..tree import flatten, leaf_name, unflatten
 
@@ -90,7 +91,11 @@ def _leaf_paths(tree):
 
 def _to_host(leaf) -> np.ndarray:
     """A host numpy copy of one leaf: a device tensor's copy to the host is
-    already one; a host tensor or array is copied."""
+    already one; a host tensor or array is copied.  A DTensor is read
+    whole (``full_tensor``), so a sharded run writes what an unsharded
+    one does."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         arr = leaf.detach().cpu().numpy()
         return arr if leaf.device.type != "cpu" else arr.copy()
@@ -131,7 +136,13 @@ def _caught(fn, exc=Exception):
 
 
 def _like(arr: np.ndarray, like):
-    """``arr`` as ``like``'s kind: a tensor on ``like``'s device, or numpy."""
+    """``arr`` as ``like``'s kind: a tensor on ``like``'s device (a DTensor
+    at ``like``'s placements, each rank keeping its shard), or numpy."""
+    if is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(torch.from_numpy(arr).to(like.device),
+                                 like.device_mesh, like.placements,
+                                 src_data_rank=None)
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(arr).to(like.device)
     return arr

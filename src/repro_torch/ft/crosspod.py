@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..chaos.faults import DISK_FULL, NET_PARTITION
+from ..distributed.sharding import is_dtensor
 from ..distributed.steps import make_grad_fn
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import NULL_TRACER
@@ -72,7 +73,10 @@ __all__ = ["PodGradientExchange", "ExchangeResult", "PodTrainingCluster",
 
 def _host_array(leaf) -> np.ndarray:
     """A leaf in host memory, holding the bytes numpy holds for it (bf16
-    as its 2-byte pattern)."""
+    as its 2-byte pattern); a DTensor read whole (``full_tensor``), so a
+    sharded tree hashes as the unsharded one does."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 
-__all__ = ["active", "attended_pairs", "capture", "report"]
+__all__ = ["active", "attended_pairs", "capture", "report", "shape_only"]
 
 _captures: list[dict] = []
 
@@ -34,6 +34,15 @@ def capture():
 def active() -> bool:
     """Whether a capture is open (a wrapper reports only then)."""
     return bool(_captures)
+
+
+def shape_only(x) -> bool:
+    """Whether ``x`` is a fake tensor (a shape without data, as the dry run
+    traces with): a wrapper then returns outputs of the kernel's shapes and
+    dtypes, reports the launch's work and launches nothing.  A ``meta``
+    tensor is a device without a kernel, and raises."""
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(x)
 
 
 def report(name: str, flops: float, nbytes: float) -> None:

@@ -116,6 +116,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (B, H, Sq) fp32 (the output's bits are the same either way)."""
     _check(q, k, v)
     _check_window(causal, window)
+    if _cost.shape_only(q):
+        return _fwd_shapes(q, k, causal, window, return_lse)
     if q.device.type == "cpu":
         out = ref.attention(q, k, v, causal=causal, window=window)
         if return_lse:
@@ -155,13 +157,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    _report_fwd(q, k, causal, window, return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _report_fwd(q, k, causal, window, return_lse):
     if _cost.active():
+        b, h, sq, d = q.shape
+        kv, sk = k.shape[1], k.shape[2]
         pairs = _cost.attended_pairs(sq, causal, window, sk)
         _cost.report("flash_attention", 4 * b * h * pairs * d,
                      q.element_size() * (2 * b * h * sq * d
                                          + 2 * b * kv * sk * d)
                      + (4 * b * h * sq if return_lse else 0))
-    return (out, lse) if return_lse else out
+
+
+def _fwd_shapes(q, k, causal, window, return_lse):
+    """The forward's outputs without a launch (a fake or meta ``q``), its
+    work reported."""
+    b, h, sq, d = q.shape
+    out = q.new_empty((b, sq, h, d)).transpose(1, 2)
+    _report_fwd(q, k, causal, window, return_lse)
+    if return_lse:
+        return out, q.new_empty((b, h, sq), dtype=torch.float32)
+    return out
 
 
 flash_attention.launches = 0
@@ -187,6 +206,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be ({b}, {h}, {sq}) fp32; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
+    if _cost.shape_only(q):
+        _report_bwd(q, k, causal, window)
+        return (q.new_empty((b, sq, h, d)).transpose(1, 2),
+                k.new_empty((b, sk, kv, d)).transpose(1, 2),
+                k.new_empty((b, sk, kv, d)).transpose(1, 2))
     if q.device.type == "cpu":
         return ref.attention_backward(q, k, v, o, lse, do, causal=causal,
                                       window=window)
@@ -234,14 +258,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd.launches += 1
+    _report_bwd(q, k, causal, window)
+    return dq, dk, dv
+
+
+def _report_bwd(q, k, causal, window):
     # q, o, dO and dq (B, H, Sq, D); k, v, dk, dv (B, KV, Sk, D); lse
     if _cost.active():
+        b, h, sq, d = q.shape
+        kv, sk = k.shape[1], k.shape[2]
         pairs = _cost.attended_pairs(sq, causal, window, sk)
         _cost.report("flash_attention_bwd", 10 * b * h * pairs * d,
                      q.element_size() * (4 * b * h * sq * d
                                          + 4 * b * kv * sk * d)
                      + 4 * b * h * sq)
-    return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0

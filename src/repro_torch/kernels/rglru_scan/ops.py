@@ -66,6 +66,10 @@ def _lru_scan(a, b, h0=None):
         raise ValueError(f"h0 must be {(bsz, w)}, got {tuple(h0.shape)}")
     if b.device != a.device or (h0 is not None and h0.device != a.device):
         raise ValueError("lru_scan inputs must lie on one device")
+    if _cost.shape_only(a):
+        _report_fwd(bsz, s, w, h0)
+        return (a.new_empty((bsz, s, w), dtype=torch.float32),
+                a.new_empty((bsz, w), dtype=torch.float32))
     if a.device.type == "cpu":
         return ref.lru_scan(a, b, h0)
     if a.device.type != "cuda":
@@ -86,11 +90,15 @@ def _lru_scan(a, b, h0=None):
     if err:
         raise RuntimeError(f"lru_scan kernel launch failed: CUDA error {err}")
     lru_scan.launches += 1
+    _report_fwd(bsz, s, w, h0)
+    return h, h_last
+
+
+def _report_fwd(bsz, s, w, h0):
     if _cost.active():
         _cost.report("lru_scan", 2 * bsz * s * w,
                      4 * (3 * bsz * s * w
                           + (1 if h0 is None else 2) * bsz * w))
-    return h, h_last
 
 
 lru_scan.launches = 0
@@ -112,6 +120,11 @@ def lru_scan_bwd(a, h, dh, dh_last=None, h0=None):
     if any(x is not None and x.device != a.device
            for x in (h, dh, dh_last, h0)):
         raise ValueError("lru_scan_bwd inputs must lie on one device")
+    if _cost.shape_only(a):
+        _report_bwd(bsz, s, w, h0)
+        f32 = dict(dtype=torch.float32)
+        return (a.new_empty(a.shape, **f32), a.new_empty(a.shape, **f32),
+                None if h0 is None else a.new_empty((bsz, w), **f32))
     if a.device.type == "cpu":
         return ref.lru_scan_backward(a, h, dh, dh_last, h0)
     if a.device.type != "cuda":
@@ -136,12 +149,16 @@ def lru_scan_bwd(a, h, dh, dh_last=None, h0=None):
         raise RuntimeError(f"lru_scan_bwd kernel launch failed: CUDA error "
                            f"{err}")
     lru_scan_bwd.launches += 1
+    _report_bwd(bsz, s, w, h0)
+    return da, db, dh0
+
+
+def _report_bwd(bsz, s, w, h0):
     # a, h, dh read, da and db written; h0, dh_last, dh0
     if _cost.active():
         _cost.report("lru_scan_bwd", 3 * bsz * s * w,
                      4 * (5 * bsz * s * w
                           + (0 if h0 is None else 3) * bsz * w))
-    return da, db, dh0
 
 
 lru_scan_bwd.launches = 0

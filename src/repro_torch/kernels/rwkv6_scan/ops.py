@@ -101,6 +101,11 @@ def wkv6_forward(r, k, v, log_w, u, S0=None):
     """:func:`wkv6`'s forward alone: (o, S_final, scratch), the scratch
     the kernel left (the backward's input; None on the CPU)."""
     _check(r, k, v, log_w, u, S0)
+    if _cost.shape_only(r):
+        b, h, t, n = r.shape
+        _report_fwd(b, h, t, n, r.element_size(), S0)
+        return (r.new_empty((b, t, h, n)).transpose(1, 2),
+                r.new_empty((b, h, n, n), dtype=torch.float32), None)
     if r.device.type == "cpu":
         return (*ref.wkv6(r, k, v, log_w, u, S0), None)
     if r.device.type != "cuda":
@@ -134,12 +139,16 @@ def wkv6_forward(r, k, v, log_w, u, S0=None):
     if err:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
+    _report_fwd(b, h, t, n, r.element_size(), S0)
+    return o, s_out, scratch
+
+
+def _report_fwd(b, h, t, n, esize, S0):
     state = (1 if S0 is None else 2) * 4 * b * h * n * n
     if _cost.active():
         _cost.report("wkv6", b * h * t * (4 * n * n + 3 * n),
-                     (4 * r.element_size() + 4) * b * h * t * n + 4 * h * n
+                     (4 * esize + 4) * b * h * t * n + 4 * h * n
                      + state)
-    return o, s_out, scratch
 
 
 wkv6.launches = 0
@@ -172,6 +181,13 @@ def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None):
                          f"{tuple(dS.shape)}")
     if any(x is not None and x.device != r.device for x in (do, dS)):
         raise ValueError("wkv6_bwd inputs must lie on one device")
+    if _cost.shape_only(r):
+        _report_bwd(b, h, t, n, r.element_size(), S0)
+        f32 = dict(dtype=torch.float32)
+        return (*(_layout_like_forward(b, t, h, n, dt, r.device)
+                  for dt in (r.dtype,) * 3 + (torch.float32,)),
+                r.new_empty((h, n), **f32),
+                None if S0 is None else r.new_empty((b, h, n, n), **f32))
     if r.device.type == "cpu":
         return ref.wkv6_backward(r, k, v, log_w, u, do, S0, dS)
     if r.device.type != "cuda":
@@ -223,6 +239,13 @@ def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None):
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
                            f"{err}")
     wkv6_bwd.launches += 1
+    _report_bwd(b, h, t, n, r.element_size(), S0)
+    # du: the chunks' shares summed over chunks and the batch, in torch's
+    # fixed order for this shape
+    return dr, dk, dv, dlw, du_part.sum((0, 2)), dS0
+
+
+def _report_bwd(b, h, t, n, esize, S0):
     # r, k, v, dO read and dr, dk, dv written in r's dtype; log_w read and
     # dlog_w written in fp32; u, du.  Operations of the chunked form: per
     # token and head N^2 (q^T dO) + 3 N^2 (S_c dO, G v, kd G) + 4 L N FMA,
@@ -232,11 +255,8 @@ def wkv6_bwd(r, k, v, log_w, u, do, S0=None, dS=None, *, scratch=None):
         _cost.report("wkv6_bwd",
                      2 * b * h * (t * (4 * n * n + 4 * CHUNK * n)
                                   + -(-t // CHUNK) * n * n),
-                     (7 * r.element_size() + 8) * b * h * t * n + 8 * h * n
+                     (7 * esize + 8) * b * h * t * n + 8 * h * n
                      + state)
-    # du: the chunks' shares summed over chunks and the batch, in torch's
-    # fixed order for this shape
-    return dr, dk, dv, dlw, du_part.sum((0, 2)), dS0
 
 
 wkv6_bwd.launches = 0

@@ -22,10 +22,18 @@ the engine, the chaos engine and the metrics registry report into it, and
 the run ends with a dump and the metrics under ``D``
 (``--trace-dump-on-fault`` also dumps at every fault and recovery);
 ``python -m repro_torch.obs.validate D`` checks the dumps.
+
+``--mesh debug`` serves from DTensors: the params under the ZeRO-1 specs
+(the JAX launcher's ``_sharded_params``) and the engine's cache under
+``cache_specs`` on a one-rank ``DeviceMesh`` of ``--device``, each engine
+tick inside ``sharding.use_rules``; ``--verify-static`` then holds the
+engine's tokens against the reference on the gathered params, without a
+mesh.  Without the flag nothing is sharded and no process group starts.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -34,11 +42,14 @@ import torch
 from .. import obs
 from ..chaos import SERVE_KINDS, ChaosEngine, FaultTrace, sample_trace
 from ..configs import get_config
+from ..distributed import params as pshard
+from ..distributed.sharding import host_view, use_rules
 from ..distributed.steps import make_prefill_step, make_serve_step
 from ..models import lm
 from ..serve import (EngineConfig, Request, ServeEngine, ServeMetrics,
                      WorkerPool, crch_policy, engine_supported,
                      greedy_reference, prompt_bucket, uniform_policy)
+from .mesh import destroy_group, mesh_from_flag
 
 
 def make_chaos(args, *, kinds, n_targets: int, horizon: int, tracer=None):
@@ -137,12 +148,19 @@ def make_requests(cfg, n: int, prompt_len: int, new_tokens: int,
     return reqs
 
 
-def continuous_main(cfg, args, *, params=None) -> dict:
+def sharded_params(params, mesh):
+    """The params as DTensors under the ZeRO-1 specs (TP on ``model``,
+    replicated over ``data``), as the JAX launcher serves them."""
+    return pshard.distribute_params(params, mesh, zero1=True)
+
+
+def continuous_main(cfg, args, *, params=None, mesh=None) -> dict:
     """Run the engine over the seeded requests; returns what a caller needs
     to check the run (engine, requests, params, cache_len, summary...).
     ``params`` (in the compute dtype, e.g. an earlier run's) replaces the
     seeded draw, so that two runs of a model that fills the device share
-    one copy of its weights."""
+    one copy of its weights.  With ``mesh`` the engine serves from
+    :func:`sharded_params` and a DTensor cache."""
     device = torch.device(args.device)
     reqs = make_requests(cfg, args.requests, args.prompt_len,
                          args.new_tokens, args.seed)
@@ -171,9 +189,10 @@ def continuous_main(cfg, args, *, params=None) -> dict:
     engine = ServeEngine(
         cfg, EngineConfig(cache_len=cache_len,
                           max_queue_depth=args.max_queue_depth or None),
-        pool=pool, policy=policy, params=params,
+        pool=pool, policy=policy,
+        params=params if mesh is None else sharded_params(params, mesh),
         metrics=ServeMetrics(registry=ctx.registry), chaos=chaos,
-        tracer=ctx.tracer, device=device)
+        tracer=ctx.tracer, device=device, mesh=mesh)
     for r in reqs:
         engine.submit(r)
     t0 = time.time()
@@ -184,7 +203,9 @@ def continuous_main(cfg, args, *, params=None) -> dict:
     tm = engine.timing
     print(f"arch={cfg.name} ({cfg.param_count() / 1e6:.0f}M params) "
           f"requests={args.requests} slots={pool.n_slots} "
-          f"policy={policy.name} env={args.env} device={device}")
+          f"policy={policy.name} env={args.env} device={device}"
+          + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+             if mesh is not None else ""))
     print(f"policy by_class: "
           f"{ {str(c): r for c, r in sorted(policy.by_class.items(), key=str)} }")
     print(f"{engine.step_no} engine steps in {wall:.2f}s "
@@ -229,6 +250,7 @@ def continuous_main(cfg, args, *, params=None) -> dict:
         print(f"chaos-assert OK: {int(s['completed'])} completed, "
               f"{recoveries} recoveries, 0 past-first-token drops")
     if args.verify_static:
+        # the reference runs without a mesh (on the whole params)
         ref = greedy_reference(params, cfg, reqs, cache_len, device=device)
         mismatched = [r.rid for r in reqs
                       if engine.output(r.rid) != ref[r.rid]]
@@ -259,7 +281,7 @@ def static_batch(cfg, batch: int, seq: int, seed: int, device) -> dict:
     return {k: v.to(device) for k, v in out.items()}
 
 
-def static_main(cfg, args, *, params=None) -> dict:
+def static_main(cfg, args, *, params=None, mesh=None) -> dict:
     """The one-shot static batch, JAX's ``static_main``: one prefill of
     ``--requests`` prompts of ``--prompt-len`` tokens, then ``--new-tokens
     - 1`` batched greedy decode steps at one shared position.  An explicit
@@ -275,17 +297,22 @@ def static_main(cfg, args, *, params=None) -> dict:
     serve = make_serve_step(cfg)
     batch = static_batch(cfg, args.requests, args.prompt_len, args.seed,
                          device)
-    t0 = time.time()
-    logits, cache = prefill(params, batch)
-    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-    out = [tok.cpu()]
-    t_prefill = time.time() - t0
-    pos0 = args.prompt_len + cfg.n_image_tokens
-    t0 = time.time()
-    for i in range(args.new_tokens - 1):
-        tok, logits, cache = serve(params, cache, tok, pos0 + i)
-        out.append(tok.cpu())
-    t_decode = time.time() - t0
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        params, scope = sharded_params(params, mesh), use_rules(mesh)
+    with scope:
+        t0 = time.time()
+        logits, cache = prefill(params, batch)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        out = [host_view(tok).cpu()]
+        t_prefill = time.time() - t0
+        pos0 = args.prompt_len + cfg.n_image_tokens
+        t0 = time.time()
+        for i in range(args.new_tokens - 1):
+            tok, logits, cache = serve(params, cache, tok, pos0 + i)
+            out.append(host_view(tok).cpu())
+        t_decode = time.time() - t0
+        logits = host_view(logits)
     gen = torch.cat(out, dim=1)
     tok_s = args.requests * (args.new_tokens - 1) / max(t_decode, 1e-9)
     print(f"arch={cfg.name} ({cfg.param_count() / 1e6:.0f}M params) "
@@ -329,6 +356,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked (tests)")
+    ap.add_argument("--mesh", choices=("debug", "single", "multi"),
+                    default=None,
+                    help="serve from DTensors on this mesh (default: none, "
+                         "plain tensors)")
     add_chaos_args(ap)
     add_trace_args(ap)
     return ap
@@ -350,9 +381,14 @@ def main(argv=None) -> dict:
     supported, why = engine_supported(cfg)
     if not supported:
         raise SystemExit(f"{args.arch}: {why}")
-    if args.static:
-        return static_main(cfg, args)
-    return continuous_main(cfg, args)
+    mesh = mesh_from_flag(args.mesh, args.device)
+    try:
+        if args.static:
+            return static_main(cfg, args, mesh=mesh)
+        return continuous_main(cfg, args, mesh=mesh)
+    finally:
+        if mesh is not None:
+            destroy_group()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
 """Training launcher of the port: fault-tolerant training with checkpoints.
 
-Counterpart of ``repro.launch.train`` on one device, without ``--mesh``
-(sharding), which waits for a later slice.  The train step runs under
+Counterpart of ``repro.launch.train``.  The train step runs under
 :class:`~repro_torch.ft.TrainingCoordinator` with the pointer checkpoint
 store, the dynamic checkpoint interval, an optional Weibull failure
 injector and the ``--chaos*`` fault traces, and prints the JAX launcher's
@@ -43,6 +42,19 @@ dump and the metrics under ``D`` (``--trace-dump-on-fault`` also dumps at
 every fault and recovery); ``python -m repro_torch.obs.validate D
 --require-span crosspod.partition`` checks the dumps.
 
+``--mesh debug`` lays the params and the AdamW state out as DTensors under
+``distributed.params.param_specs`` (the JAX launcher's placement) on a
+one-rank ``DeviceMesh`` of ``--device`` and runs each step inside
+``sharding.use_rules``; ``single`` / ``multi`` need a process group of 256
+/ 512 ranks.  Without the flag the launcher runs on plain tensors and
+starts no process group (JAX's default is ``debug``): the measured paths
+stay off DTensor's per-op host cost.  Checkpoints and fingerprints read
+each leaf whole, so a sharded run writes and hashes what an unsharded one
+does.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+        --steps 8 --global-batch 4 --seq-len 32 --mesh debug
+
 On the GPU the run is deterministic (``torch.use_deterministic_algorithms``
 and a fixed cuBLAS workspace, set before the first cuBLAS call), so a step
 replayed after a restore gives the bits of its first run, and the pods of a
@@ -61,12 +73,15 @@ import torch
 from ..chaos import DISK_FULL, NET_PARTITION, TRAIN_KINDS
 from ..configs import get_config
 from ..data import DataConfig, SyntheticTokenPipeline
+from ..distributed import params as pshard
+from ..distributed.sharding import use_rules
 from ..distributed.steps import make_train_step
 from ..ft import (CheckpointStore, DynamicInterval, FaultInjector,
                   PodTrainingCluster, TrainingCoordinator, tree_digest)
 from ..models import lm
 from ..obs import profile_jit, save_profiles
 from ..optim import AdamWConfig, adamw_init
+from .mesh import destroy_group, mesh_from_flag
 from .serve import (add_chaos_args, add_trace_args, make_chaos, make_obs,
                     print_trace)
 
@@ -90,22 +105,38 @@ def seeded_params(cfg, args):
     return lm.init_params(cfg, gen)
 
 
-def build(cfg, args, *, params=None, ctx=None) -> dict:
+def in_rules(step_fn, mesh):
+    """``step_fn`` run inside ``use_rules(mesh)`` at each call."""
+    def step(*a, **k):
+        with use_rules(mesh):
+            return step_fn(*a, **k)
+    return step
+
+
+def build(cfg, args, *, params=None, ctx=None, mesh=None) -> dict:
     """The coordinator and what it runs, as the JAX launcher builds them:
     seeded params (or ``params``, e.g. converted from JAX), AdamW state
     without a master copy, the train step at ``q_chunk = min(1024,
     seq_len)``, ``xent_chunk = 512`` and ``total_steps = --steps`` (wrapped
     by ``profile_jit`` under ``--trace-dir``), the pipeline, the injector,
     the chaos engine and the checkpoint store, all reporting to ``ctx``
-    (default: :func:`~repro_torch.launch.serve.make_obs` of the flags)."""
+    (default: :func:`~repro_torch.launch.serve.make_obs` of the flags).
+    With ``mesh`` (``--mesh``) the params and the AdamW state are DTensors
+    under ``param_specs``, the gradient sum is placed there too
+    (``grad_shardings``) and the step runs inside ``use_rules(mesh)``."""
     lm.check_train_family(cfg)
     ctx = ctx if ctx is not None else make_obs(args)
     if params is None:
         params = seeded_params(cfg, args)
-    step_fn = make_train_step(cfg, AdamWConfig(lr=args.lr),
-                              accum_steps=args.accum,
-                              q_chunk=min(1024, args.seq_len),
-                              xent_chunk=512, total_steps=args.steps)
+    step_fn = make_train_step(
+        cfg, AdamWConfig(lr=args.lr), accum_steps=args.accum,
+        q_chunk=min(1024, args.seq_len), xent_chunk=512,
+        total_steps=args.steps,
+        grad_shardings=(None if mesh is None
+                        else pshard.param_shardings(params, mesh)))
+    if mesh is not None:
+        params = pshard.distribute_params(params, mesh)
+        step_fn = in_rules(step_fn, mesh)
     profiled = None
     if args.trace_dir:
         # the wrapper synchronises on each step's outputs (exact wall times
@@ -130,7 +161,7 @@ def build(cfg, args, *, params=None, ctx=None) -> dict:
         registry=ctx.registry)
     return {"coord": coord, "chaos": chaos, "injector": injector,
             "step_fn": step_fn, "pipeline": pipeline, "obs": ctx,
-            "profiled": profiled}
+            "profiled": profiled, "mesh": mesh}
 
 
 def run(cfg, args, built: dict) -> dict:
@@ -321,6 +352,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked (tests)")
+    ap.add_argument("--mesh", choices=("debug", "single", "multi"),
+                    default=None,
+                    help="lay params and optimizer state out as DTensors "
+                         "on this mesh (default: none, plain tensors)")
     add_chaos_args(ap)
     add_trace_args(ap)
     return ap
@@ -338,10 +373,19 @@ def main(argv=None) -> dict:
         lm.check_train_family(cfg)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    if args.mesh and args.pods > 1:
+        raise SystemExit("--mesh and --pods > 1 do not combine: the "
+                         "cluster's pods hold plain tensors")
+
     def go():
         if args.pods > 1:
             return cluster_main(cfg, args)
-        return run(cfg, args, build(cfg, args))
+        mesh = mesh_from_flag(args.mesh, args.device)
+        try:
+            return run(cfg, args, build(cfg, args, mesh=mesh))
+        finally:
+            if mesh is not None:
+                destroy_group()
 
     if args.ckpt_dir:
         return go()

@@ -23,6 +23,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (as_replicated, constrain, guard_spec,
+                                    is_dtensor, local_call, logical_to_spec,
+                                    merge_last, placements_for, put_rows,
+                                    redistribute, replicated,
+                                    spec_to_placements, split_dim,
+                                    split_last)
 from ..kernels.flash_attention import ops as fa_ops
 from .config import ModelConfig
 
@@ -35,8 +41,11 @@ NEG_INF = -1e30
 
 def dense_init(shape, generator: torch.Generator, in_axis: int = 0):
     """Truncated normal on [-2, 2] scaled by ``1/sqrt(fan_in)``, fp32, on
-    the generator's device."""
+    the generator's device (on the ``meta`` device: shape only, nothing
+    drawn)."""
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    if w.device.type == "meta":
+        return w
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=generator)
     return w.mul_(1.0 / math.sqrt(shape[in_axis]))
@@ -119,7 +128,6 @@ def init_attention(generator, cfg: ModelConfig):
 
 def _project_qkv(p, x, cfg: ModelConfig, n_heads, n_kv, dtype):
     """q, k, v with their biases (``use_bias``) added before rope."""
-    b, s, _ = x.shape
     hd = cfg.head_dim
     q = x @ p["wq"].to(dtype)
     k = x @ p["wk"].to(dtype)
@@ -127,19 +135,17 @@ def _project_qkv(p, x, cfg: ModelConfig, n_heads, n_kv, dtype):
     if "bq" in p:
         q, k, v = (q + p["bq"].to(dtype), k + p["bk"].to(dtype),
                    v + p["bv"].to(dtype))
-    return (q.reshape(b, s, n_heads, hd), k.reshape(b, s, n_kv, hd),
-            v.reshape(b, s, n_kv, hd))
+    return (split_last(q, n_heads, hd), split_last(k, n_kv, hd),
+            split_last(v, n_kv, hd))
 
 
 def _project_cross(p, x, context, cfg: ModelConfig, dtype):
     """Cross-attention's q from ``x`` and k, v from ``context``, without
     the q/k/v biases (JAX adds none there, though the layer holds them)."""
-    b, s, _ = x.shape
-    sk = context.shape[1]
     hd = cfg.head_dim
-    q = (x @ p["wq"].to(dtype)).reshape(b, s, cfg.n_heads, hd)
-    k = (context @ p["wk"].to(dtype)).reshape(b, sk, cfg.n_kv_heads, hd)
-    v = (context @ p["wv"].to(dtype)).reshape(b, sk, cfg.n_kv_heads, hd)
+    q = split_last(x @ p["wq"].to(dtype), cfg.n_heads, hd)
+    k = split_last(context @ p["wk"].to(dtype), cfg.n_kv_heads, hd)
+    v = split_last(context @ p["wv"].to(dtype), cfg.n_kv_heads, hd)
     return q, k, v
 
 
@@ -148,6 +154,20 @@ def _out_proj(p, out, dtype):
     if "bo" in p:
         out = out + p["bo"].to(dtype)
     return out
+
+
+def _flash(q, k, v, *, causal: bool, window: int):
+    """The flash-attention kernel on (B, H, S, D) views; on DTensors it runs
+    on each rank's batch rows, every head local (q, k and v are first
+    replicated on every other mesh axis, the layout JAX's constraint on q
+    gives)."""
+    def run(q, k, v):
+        return fa_ops.attention(q, k, v, causal=causal, window=window)
+
+    if not is_dtensor(q):
+        return run(q, k, v)
+    pl = placements_for(q, {0})
+    return local_call(run, (q, k, v), (pl, pl, pl), pl)
 
 
 def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
@@ -178,13 +198,12 @@ def attention_forward(p, x, cfg: ModelConfig, *, positions, mode: str,
         if mode != "bidir":
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-    out = fa_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2),
-                           causal=mode in ("causal", "local"),
-                           window=window if mode == "local" else 0)
-    out = out.transpose(1, 2).reshape(*x.shape[:2],
-                                      cfg.n_heads * cfg.head_dim)
-    out = _out_proj(p, out, dtype)
+    q = constrain(q, ("batch", "seq", None, None))
+    out = _flash(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=mode in ("causal", "local"),
+                 window=window if mode == "local" else 0)
+    out = merge_last(out.transpose(1, 2), 2)
+    out = constrain(_out_proj(p, out, dtype), ("batch", "seq", "embed"))
     if return_kv:
         return out, (k, v)
     return out
@@ -211,7 +230,7 @@ def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, window: int = 0,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b = x.shape[0]
     if cross_kv is not None:
-        q = (x @ p["wq"].to(dtype)).reshape(b, 1, h, hd)
+        q = split_last(x @ p["wq"].to(dtype), h, hd)
         ck, cv = cross_kv
         valid = None
     else:
@@ -226,25 +245,31 @@ def attention_decode(p, x, cache, cfg: ModelConfig, *, pos, window: int = 0,
         k_new = rope(k_new, posb, cfg.rope_theta)
         ck, cv = cache["k"], cache["v"]
         slot = posb % window if window else posb
-        r = torch.arange(b, device=x.device) if rows is None else rows
-        ck[r, slot[r, 0]] = k_new[r, 0].to(ck.dtype)
-        cv[r, slot[r, 0]] = v_new[r, 0].to(cv.dtype)
+        if is_dtensor(ck):
+            put_rows(ck, rows, slot[:, 0], k_new[:, 0])
+            put_rows(cv, rows, slot[:, 0], v_new[:, 0])
+        else:
+            r = torch.arange(b, device=x.device) if rows is None else rows
+            ck[r, slot[r, 0]] = k_new[r, 0].to(ck.dtype)
+            cv[r, slot[r, 0]] = v_new[r, 0].to(cv.dtype)
         idx = torch.arange(ck.shape[1], device=x.device)[None]
         valid = idx <= slot                                      # (B, S)
         if window:
             valid = (valid | (posb >= window)) & (idx < window)
     g = h // kv
-    qg = q.reshape(b, kv, g, hd).to(torch.float32)
+    qg = split_dim(q[:, 0], 1, kv, g).to(torch.float32)
     # bf16 operands, fp32 products and sums: preferred_element_type=f32
     scores = torch.einsum("bkgd,bskd->bkgs", qg,
                           ck.to(dtype).to(torch.float32))
     scores = scores / math.sqrt(hd)
+    # flash-decoding split: the cache *sequence* lives on the model axis
+    scores = constrain(scores, ("batch", "kv_heads", None, "kv_seq"))
     if valid is not None:
         scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w.to(dtype).to(torch.float32),
                        cv.to(dtype).to(torch.float32)).to(dtype)
-    out = out.reshape(b, 1, h * hd)
+    out = merge_last(out, 3)[:, None]
     return _out_proj(p, out, dtype)
 
 
@@ -281,13 +306,15 @@ def mlp_forward(p, x):
         if "b_up" in p:
             h = h + p["b_up"].to(dtype)
         # jax.nn.gelu's default is the tanh approximation
-        out = F.gelu(h, approximate="tanh") @ p["w_down"].to(dtype)
+        h = constrain(F.gelu(h, approximate="tanh"), ("batch", "seq", "mlp"))
+        out = h @ p["w_down"].to(dtype)
         if "b_down" in p:
             out = out + p["b_down"].to(dtype)
-        return out
+        return constrain(out, ("batch", "seq", "embed"))
     gate = F.silu(x @ p["w_gate"].to(dtype))
     up = x @ p["w_up"].to(dtype)
-    return (gate * up) @ p["w_down"].to(dtype)
+    h = constrain(gate * up, ("batch", "seq", "mlp"))
+    return constrain(h @ p["w_down"].to(dtype), ("batch", "seq", "embed"))
 
 
 def init_moe(generator, cfg: ModelConfig):
@@ -359,6 +386,97 @@ def moe_forward(p, x, cfg: ModelConfig):
     renormalised gates.  The Switch load-balancing loss counts every choice,
     kept or not.
     """
+    if is_dtensor(x):
+        return _moe_sharded(p, x, cfg)
+    return _moe(p, x, cfg, lambda xe: xe, lambda ye: ye)
+
+
+def _moe_sharded(p, x, cfg: ModelConfig):
+    """:func:`moe_forward` on DTensors.  The expert products run on the
+    expert rows laid out as JAX constrains them: experts on ``model``, every
+    dispatch group on each rank of the other axes.
+
+    A dispatch group never spans two sequences in training and prefill, so
+    there each rank routes its own batch rows (top-k, capacity and the
+    gathers both ways on local tensors), its expert rows are split to its
+    experts and gathered over the batch's axes, and the products come back
+    the same way; the load-balancing loss takes the batch-wide means.  A
+    decode step's one group spans the batch: there ``x`` and the router are
+    replicated and every rank routes the whole batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    batch = [i for i, q in enumerate(x.placements)
+             if isinstance(q, Shard) and q.dim == 0]
+    if x.shape[1] == 1 or not batch:
+        return _moe_replicated(p, x, cfg)
+    x = redistribute(x, placements_for(x, {0}))
+    rows = [Shard(1) if i in batch else Replicate()
+            for i in range(mesh.ndim)]
+    n = 1
+    for i in batch:
+        n *= mesh.size(i)
+
+    def experts_layout(t):
+        return spec_to_placements(guard_spec(logical_to_spec(
+            ("experts", "expert_capacity", "embed")), t.shape, mesh), mesh)
+
+    def to_experts(xe):
+        xe = DTensor.from_local(xe, mesh, rows, run_check=False)
+        target = experts_layout(xe)
+        # split to this rank's experts first, then gather the groups
+        xe = redistribute(xe, [t if isinstance(t, Shard) else r
+                               for r, t in zip(rows, target)])
+        return redistribute(xe, target)
+
+    def from_experts(ye):
+        target = experts_layout(ye)
+        ye = redistribute(ye, target)
+        ye = redistribute(ye, [r if isinstance(r, Shard) else t
+                               for r, t in zip(rows, target)])
+        return redistribute(ye, rows).to_local()
+
+    def batch_mean(t):
+        part = [Partial() if i in batch else Replicate()
+                for i in range(mesh.ndim)]
+        return replicated(DTensor.from_local(t / n, mesh, part,
+                                             run_check=False)).to_local()
+
+    router = replicated(p["router"]).to_local(
+        grad_placements=[Partial() if i in batch else Replicate()
+                         for i in range(mesh.ndim)])
+    out, aux = _moe(dict(p, router=router), x.to_local(), cfg, to_experts,
+                    from_experts, batch_mean)
+    out = DTensor.from_local(out, mesh, x.placements, run_check=False)
+    return (constrain(out, ("batch", "seq", "embed")),
+            as_replicated(aux, mesh))
+
+
+def _moe_replicated(p, x, cfg: ModelConfig):
+    """:func:`_moe_sharded`'s decode path: the whole batch routed on every
+    rank."""
+    mesh = x.device_mesh
+
+    def to_experts(xe):
+        xe = as_replicated(xe, mesh)
+        return constrain(xe, ("experts", "expert_capacity", "embed"))
+
+    def from_experts(ye):
+        ye = constrain(ye, ("experts", "expert_capacity", "embed"))
+        return replicated(ye).to_local()
+
+    params = dict(p, router=replicated(p["router"]).to_local())
+    out, aux = _moe(params, replicated(x).to_local(), cfg, to_experts,
+                    from_experts)
+    out = constrain(as_replicated(out, mesh), ("batch", "seq", "embed"))
+    return out, as_replicated(aux, mesh)
+
+
+def _moe(p, x, cfg: ModelConfig, to_experts, from_experts,
+         batch_mean=lambda t: t):
+    """The MoE layer with ``to_experts`` applied to the dispatched expert
+    rows (E, G_count * C, D), ``from_experts`` to the products' rows before
+    the combine and ``batch_mean`` to the load-balancing loss's per-expert
+    means over the groups (identities on plain tensors)."""
     dtype = x.dtype
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -408,18 +526,18 @@ def moe_forward(p, x, cfg: ModelConfig):
     token_at = torch.where(pair_at < n_tok * k, pair_at // k, n_tok)
     # the gathers copy values, so they run in the compute dtype; the
     # gradients' sums run in fp32, as JAX's fp32 dispatch einsum's
-    xe = _Route.apply(xt.reshape(n_tok, d), token_at,
-                      slot).reshape(e, g_count * cap, d)
+    xe = to_experts(_Route.apply(xt.reshape(n_tok, d), token_at,
+                                 slot).reshape(e, g_count * cap, d))
     gate = F.silu(torch.bmm(xe, p["w_gate"].to(dtype)))
     up = torch.bmm(xe, p["w_up"].to(dtype))
-    ye = torch.bmm(gate * up, p["w_down"].to(dtype))         # (E, B*C, D)
+    ye = from_experts(torch.bmm(gate * up, p["w_down"].to(dtype)))
     got = _Route.apply(ye.reshape(n_slot, d), slot.reshape(-1),
                        pair_at[:, None])
     got = got.to(torch.float32).reshape(g_count, g, k, d)
     weight = gate_vals.sum(-1, keepdim=True)
     out = (got * weight[..., None]).sum(2).to(dtype)
     # load-balancing auxiliary loss (Switch)
-    me = probs.mean(dim=(0, 1))
-    ce = onehot.sum(2).to(torch.float32).mean(dim=(0, 1))
+    me = batch_mean(probs.mean(dim=(0, 1)))
+    ce = batch_mean(onehot.sum(2).to(torch.float32).mean(dim=(0, 1)))
     aux = e * (me * ce).sum()
     return out.reshape(b, s, d), aux

@@ -33,10 +33,19 @@ the MoE layer's load-balancing loss enters the loss as in JAX.
 """
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (batch_grad, commit_rows, constrain,
+                                    fsdp_gathered, is_dtensor, local_bounds,
+                                    local_call,
+                                    placements_for, redistribute, reduced,
+                                    vocab_lookup, write_slice)
 from ..tree import tree_map
 from . import rglru as rg
 from . import rwkv6 as rw
@@ -45,11 +54,11 @@ from .layers import (apply_norm, attention_decode, attention_forward,
                      dense_init, init_attention, init_mlp, init_moe,
                      init_norm, mlp_forward, moe_forward)
 
-__all__ = ["init_params", "params_from_jax", "cast_params", "init_cache",
-           "prefill", "decode_step", "output_weights", "check_family",
-           "check_train_family", "forward_train", "backbone", "chunked_xent",
-           "hybrid_layout", "commit_axes", "CACHE_BATCH_AXIS", "FP32_READ",
-           "TRAIN_FAMILIES"]
+__all__ = ["init_params", "abstract_params", "params_from_jax", "cast_params",
+           "init_cache", "prefill", "decode_step", "output_weights",
+           "check_family", "check_train_family", "forward_train", "backbone",
+           "chunked_xent", "hybrid_layout", "commit_axes", "CACHE_BATCH_AXIS",
+           "FP32_READ", "TRAIN_FAMILIES"]
 
 #: batch axis of every leaf of the dense cache (L, B, S, KV, D)
 CACHE_BATCH_AXIS = 1
@@ -252,6 +261,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     return params
 
 
+def abstract_params(cfg: ModelConfig, *, cast: bool = False):
+    """:func:`init_params`'s tree on the ``meta`` device: the shapes and
+    dtypes, nothing drawn or allocated (the counterpart of
+    ``jax.eval_shape`` of JAX's init)."""
+    meta = types.SimpleNamespace(device=torch.device("meta"))
+    return init_params(cfg, meta, cast=cast)
+
+
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     """Map a JAX params pytree, converted to numpy (stacked layer leaves),
     onto the port's params.  bf16 leaves go through float32, since torch
@@ -284,18 +301,38 @@ def cast_params(params, cfg: ModelConfig):
 
 
 def _layer(layers, i: int):
-    return tree_map(lambda t: t[i], layers)
+    """Layer ``i`` of a stack, its weights gathered over the batch's mesh
+    axes (``fsdp_gathered``; identity on plain tensors)."""
+    return tree_map(lambda t: fsdp_gathered(t[i]), layers)
+
+
+def _gathered(tree):
+    """``fsdp_gathered`` over a layer's dicts and lists of dicts."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_gathered(v) for v in tree]
+    return fsdp_gathered(tree)
 
 
 def output_weights(params, cfg: ModelConfig, dtype):
-    if cfg.tie_embeddings:
-        return params["embed"].to(dtype).T
-    return params["lm_head"].to(dtype)
+    """The (D, V) output projection; a DTensor's is gathered along D (FSDP)
+    and keeps its vocabulary split, so the logits keep the batch's."""
+    w = (params["embed"].to(dtype).T if cfg.tie_embeddings
+         else params["lm_head"].to(dtype))
+    if is_dtensor(w):
+        w = redistribute(w, placements_for(w, {1}))
+    return w
 
 
 def _embed(params, tokens, dtype):
-    # gather, then cast: the same values as casting the table first
-    return params["embed"][tokens.long()].to(dtype)
+    # gather, then cast: the same values as casting the table first (a
+    # DTensor table: each rank looks up the rows it holds, summed over the
+    # vocabulary's mesh axes)
+    table = params["embed"]
+    x = (vocab_lookup(tokens, table) if is_dtensor(table)
+         else F.embedding(tokens.long(), table))
+    return constrain(x.to(dtype), ("batch", "seq", "embed"))
 
 
 def check_train_family(cfg: ModelConfig) -> None:
@@ -308,11 +345,54 @@ def check_train_family(cfg: ModelConfig) -> None:
 # training: chunked cross-entropy, the layer stack, forward_train
 # ---------------------------------------------------------------------------
 
-def _xent_piece(hc, w_out, tc, mc):
-    logits = (hc @ w_out).to(torch.float32)                  # (B, C, V)
+def _xent_sums(logits, tc, mc):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
     return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def _xent_piece(hc, w_out, tc, mc):
+    logits = (hc @ w_out).to(torch.float32)                  # (B, C, V)
+    if not is_dtensor(logits):
+        return _xent_sums(logits, tc, mc)
+    rows = placements_for(logits, {0})
+    if any(isinstance(p, Shard) and p.dim == 2 for p in logits.placements):
+        return _xent_vocab_split(logits, tc, mc, rows)
+    part = batch_grad(rows)
+    t, c = local_call(_xent_sums, (logits, tc, mc), (rows, rows, rows),
+                      (part, part))
+    return reduced(t), reduced(c)
+
+
+def _xent_vocab_split(logits, tc, mc, rows):
+    """:func:`_xent_sums` on logits whose vocabulary is split over mesh
+    axes (Megatron's vocab-parallel cross-entropy): the row max and the
+    exponentials' sum are reduced over those axes, and each rank picks the
+    gold logits of the targets in its own rows of the vocabulary."""
+    at = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in logits.placements]
+    logits = redistribute(logits, at)
+    # a constant shift: the max carries no gradient (lse does not depend
+    # on it)
+    top = reduced(logits.detach().amax(-1, keepdim=True))
+    lse = top[..., 0] + torch.log(reduced(torch.exp(logits - top).sum(-1)))
+    (_, _, v_rows), (_, _, v0) = local_bounds(logits)
+
+    def gold_of(x, t):
+        ids = t.long() - v0
+        own = (ids >= 0) & (ids < v_rows)
+        g = torch.gather(x, -1, ids.clamp(0, v_rows - 1)[..., None])[..., 0]
+        return torch.where(own, g, torch.zeros_like(g))
+
+    summed = [Partial() if isinstance(p, Shard) and p.dim == 2 else r
+              for p, r in zip(at, rows)]
+    gold = reduced(local_call(gold_of, (logits, tc), (at, rows), summed,
+                              (at, rows)))
+    part = batch_grad(rows)
+    t = local_call(lambda d, m: (d * m).sum(), (lse - gold, mc),
+                   (rows, rows), part)
+    c = local_call(lambda m: m.sum(), (mc,), (rows,), part)
+    return reduced(t), reduced(c)
 
 
 def chunked_xent(h, w_out, targets, mask, *, chunk: int = 512,
@@ -409,10 +489,18 @@ def _unstack(layers, n: int):
 def _run(block, p, x, cfg: ModelConfig, *args):
     """One remat unit: under ``torch.utils.checkpoint`` (non-reentrant)
     with ``cfg.remat``, as ``jax.checkpoint`` wraps the body of JAX's
-    ``_scan_layers``."""
+    ``_scan_layers``; its input is laid out as JAX's scan step constrains
+    the carry (the sequence-parallel residual).  A DTensor layer's weights
+    are gathered over the batch's mesh axes inside the unit (FSDP), so
+    that the backward gathers them again rather than keeping them."""
+    x = constrain(x, ("batch", "seq_resid", "embed"))
+
+    def unit(p, x, *args):
+        return block(_gathered(p), x, cfg, *args)
+
     if cfg.remat:
-        return checkpoint(block, p, x, cfg, *args, use_reentrant=False)
-    return block(p, x, cfg, *args)
+        return checkpoint(unit, p, x, *args, use_reentrant=False)
+    return unit(p, x, *args)
 
 
 def _encoder(params, cfg: ModelConfig, frames):
@@ -484,7 +572,9 @@ def forward_train(params, cfg: ModelConfig, batch, *, q_chunk: int = 1024,
         # slice, then cast: the values of JAX's cast table, sliced
         x = x + params["dec_pos"][:x.shape[1]].to(dtype)[None]
     if cfg.n_image_tokens:
-        x = torch.cat([batch["image_embeds"].to(dtype), x], dim=1)
+        img = constrain(batch["image_embeds"].to(dtype),
+                        ("batch", "seq", "embed"))
+        x = torch.cat([img, x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     h, aux = backbone(params, cfg, x, positions, enc_out=enc_out)
@@ -547,10 +637,25 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return cache
 
 
+def _new_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, x):
+    """:func:`init_cache` on ``x``'s device; for a DTensor ``x``, as
+    DTensors laid out by ``cache_specs`` on its mesh (each rank allocates
+    its shard only)."""
+    if not is_dtensor(x):
+        return init_cache(cfg, batch, cache_len, dtype=dtype, device=x.device)
+    from ..distributed.params import init_cache_sharded
+    return init_cache_sharded(cfg, batch, cache_len, x.device_mesh, dtype)
+
+
 def _commit(cache, cfg: ModelConfig, name: str, index: tuple, new, rows):
     """Write ``new`` (batch first) into ``cache[name][index]`` in place,
     along that leaf's batch axis (:func:`commit_axes`), for the batch rows
-    in ``rows`` only (every row when None)."""
+    in ``rows`` only (every row when None); on a DTensor cache each rank
+    writes its own rows (``commit_rows``), so the cache keeps its
+    placements."""
+    if is_dtensor(cache[name]):
+        commit_rows(cache[name], index, new, rows)
+        return
     dst = cache[name][index]
     axis = commit_axes(cfg)[name] - len(index)
     new = new.to(dst.dtype)
@@ -666,7 +771,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, live=None):
             x = _decoder_tail(p, x, hh, a, cfg)
     h = apply_norm(cfg, params["final_norm"], x)
     logits = (h[:, 0] @ output_weights(params, cfg, dtype)).to(torch.float32)
-    return logits, cache
+    return constrain(logits, ("batch", "vocab")), cache
 
 
 def _rec_prefill(rp, x, cfg: ModelConfig):
@@ -688,9 +793,9 @@ def _prefill_rwkv(params, cfg: ModelConfig, cache, x):
         hh = apply_norm(cfg, p["ln2"], x)
         c, x_cm = rw.channel_mix_forward(p["cm"], hh, zeros)
         x = x + c
-        cache["S"][i] = S
-        cache["x_tm"][i] = x_tm.to(dtype)
-        cache["x_cm"][i] = x_cm.to(dtype)
+        write_slice(cache["S"], (i,), S)
+        write_slice(cache["x_tm"], (i,), x_tm.to(dtype))
+        write_slice(cache["x_cm"], (i,), x_cm.to(dtype))
     return x
 
 
@@ -700,15 +805,20 @@ def _prefill_hybrid(params, cfg: ModelConfig, cache, x, positions):
     dtype = x.dtype
     s = x.shape[1]
     w = cache["k"].shape[2]
-    slots = (torch.arange(s - w, s, device=x.device) % w if s >= w
-             else torch.arange(s, device=x.device))
+    ring = (slice(None), slice(0, min(s, w)))
+
+    def last_w(t):
+        # the last w positions rotated so that position p sits at p % w
+        t = t[:, -w:].to(dtype)
+        return torch.roll(t, s % w, dims=1) if s >= w else t
+
     n_super, n_tail = hybrid_layout(cfg)
     for si in range(n_super):
         sp = _layer(params["super"], si)
         for ri in range(cfg.rec_per_attn):
             x, st = _rec_prefill(_layer(sp["rec"], ri), x, cfg)
-            cache["h"][si, ri] = st["h"]
-            cache["conv"][si, ri] = st["conv"]
+            write_slice(cache["h"], (si, ri), st["h"])
+            write_slice(cache["conv"], (si, ri), st["conv"])
         ap = sp["attn"]
         a, (k, v) = attention_forward(
             ap["attn"], apply_norm(cfg, ap["ln1"], x), cfg,
@@ -716,12 +826,12 @@ def _prefill_hybrid(params, cfg: ModelConfig, cache, x, positions):
             return_kv=True)
         x = x + a
         x = x + mlp_forward(ap["mlp"], apply_norm(cfg, ap["ln2"], x))
-        cache["k"][si][:, slots] = k[:, -w:].to(dtype)
-        cache["v"][si][:, slots] = v[:, -w:].to(dtype)
+        write_slice(cache["k"], (si, *ring), last_w(k))
+        write_slice(cache["v"], (si, *ring), last_w(v))
     for ti in range(n_tail):
         x, st = _rec_prefill(_layer(params["tail"], ti), x, cfg)
-        cache["tail_h"][ti] = st["h"]
-        cache["tail_conv"][ti] = st["conv"]
+        write_slice(cache["tail_h"], (ti,), st["h"])
+        write_slice(cache["tail_conv"], (ti,), st["conv"])
     return x
 
 
@@ -746,12 +856,14 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
     dtype = compute_dtype(cfg)
     x = _embed(params, batch["tokens"], dtype)
     if cfg.n_image_tokens:
-        x = torch.cat([batch["image_embeds"].to(dtype), x], dim=1)
+        img = constrain(batch["image_embeds"].to(dtype),
+                        ("batch", "seq", "embed"))
+        x = torch.cat([img, x], dim=1)
     b, s = x.shape[:2]
     if s > cache_len:
         raise ValueError(f"prefill length {s} exceeds cache_len {cache_len}")
     positions = torch.arange(s, device=x.device).expand(b, s)
-    cache = init_cache(cfg, b, cache_len, dtype=dtype, device=x.device)
+    cache = _new_cache(cfg, b, cache_len, dtype, x)
     if cfg.rwkv:
         x = _prefill_rwkv(params, cfg, cache, x)
     elif cfg.rglru:
@@ -775,12 +887,14 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
                     context=enc_out, return_kv=True)
                 x = x + ax
                 x = x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
-                cache["cross_k"][i] = xk.to(dtype)
-                cache["cross_v"][i] = xv.to(dtype)
+                write_slice(cache["cross_k"], (i,), xk.to(dtype))
+                write_slice(cache["cross_v"], (i,), xv.to(dtype))
             else:
                 x = _decoder_tail(p, x, hh, a, cfg)
-            cache["k"][i, :, :s] = k.to(dtype)
-            cache["v"][i, :, :s] = v.to(dtype)
+            write_slice(cache["k"], (i, slice(None), slice(0, s)),
+                        k.to(dtype))
+            write_slice(cache["v"], (i, slice(None), slice(0, s)),
+                        v.to(dtype))
     h = apply_norm(cfg, params["final_norm"], x)
     if last_idx is None:
         h_last = h[:, -1]
@@ -788,4 +902,4 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
         h_last = h[torch.arange(b, device=h.device),
                    last_idx.to(device=h.device, dtype=torch.int64)]
     logits = (h_last @ output_weights(params, cfg, dtype)).to(torch.float32)
-    return logits, cache
+    return constrain(logits, ("batch", "vocab")), cache

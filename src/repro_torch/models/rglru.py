@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (constrain, is_dtensor, local_call,
+                                    placements_for)
 from ..kernels.rglru_scan import ops as lru_ops
 from .config import ModelConfig
 from .layers import dense_init
@@ -74,18 +76,32 @@ def _conv_train(p, u, dtype):
     return out + p["conv_b"].to(dtype)
 
 
+def _scan(a, b):
+    """The RG-LRU scan kernel; on DTensors it runs on each rank's batch rows
+    and channels (the recurrence is per channel), the sequence whole."""
+    if not is_dtensor(a):
+        return lru_ops.lru_scan(a, b)
+    from torch.distributed.tensor import Shard
+    pl = placements_for(a, {0, 2})
+    last = [Shard(1) if isinstance(q, Shard) and q.dim == 2 else q
+            for q in pl]
+    return local_call(lru_ops.lru_scan, (a, b), (pl, pl), (pl, last))
+
+
 def rglru_block_forward(p, x, cfg: ModelConfig, *, return_state=False):
     """Prefill path.  Returns (out, state) where state is the decode carry
     ``{"h": (B, W) fp32, "conv": (B, conv_width - 1, W)}`` (or the fp32 last
     ``h`` alone without ``return_state``, as in JAX)."""
     dtype = x.dtype
     gate = _gelu(x @ p["w_gate_branch"].to(dtype))
-    u_raw = x @ p["w_rec_branch"].to(dtype)
+    u_raw = constrain(x @ p["w_rec_branch"].to(dtype),
+                      ("batch", "seq", "lru"))
     u = _conv_train(p, u_raw, dtype)
     a, b = _gates(p, u, dtype)                    # (B, S, W) fp32
-    h, h_last = lru_ops.lru_scan(a, b)
-    h = h.to(dtype)
-    out = (gate * h) @ p["w_out"].to(dtype)
+    h, h_last = _scan(a, b)
+    h = constrain(h.to(dtype), ("batch", "seq", "lru"))
+    out = constrain((gate * h) @ p["w_out"].to(dtype),
+                    ("batch", "seq", "embed"))
     if not return_state:
         return out, h[:, -1].to(torch.float32)
     width = p["conv_w"].shape[0]

@@ -20,6 +20,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (batch_grad, constrain, is_dtensor,
+                                    local_call, merge_last, placements_for,
+                                    split_last)
 from ..kernels.rwkv6_scan import ops as wkv_ops
 from .config import ModelConfig
 from .layers import dense_init
@@ -77,7 +80,7 @@ def _ddlerp(p, x, x_prev, dtype):
     xx = x_prev - x                                          # (B, S, D)
     coarse = x + xx * p["mu"][:, None, None, :].to(dtype)    # (5, B, S, D)
     lora = torch.tanh((x + 0.5 * xx) @ p["lora_a"].to(dtype))
-    lora = lora.reshape(*x.shape[:-1], 5, LORA_R)
+    lora = split_last(lora, 5, LORA_R)
     delta = torch.einsum("bsfr,frd->fbsd", lora, p["lora_b"].to(dtype))
     return coarse + xx * delta
 
@@ -95,7 +98,7 @@ def _group_norm(p, o, h):
     mean = of.mean(-1, keepdim=True)
     var = of.var(-1, keepdim=True, correction=0)
     of = (of - mean) * torch.rsqrt(var + 64e-5)
-    return of.reshape(*of.shape[:-2], h * HEAD_N) * p["ln_scale"]
+    return merge_last(of, 2) * p["ln_scale"]
 
 
 def time_mix_forward(p, x, x_prev_last, cfg: ModelConfig):
@@ -103,22 +106,35 @@ def time_mix_forward(p, x, x_prev_last, cfg: ModelConfig):
     last_x (B, D))): the recurrence runs on the WKV6 kernel from a zero
     state."""
     dtype = x.dtype
-    b, s, _ = x.shape
     h = n_heads(cfg)
     x_prev = torch.cat([x_prev_last[:, None], x[:, :-1]], 1)
     xr, xk, xv, xw, xg = _ddlerp(p, x, x_prev, dtype)
-    r = (xr @ p["wr"].to(dtype)).reshape(b, s, h, HEAD_N)
-    k = (xk @ p["wk"].to(dtype)).reshape(b, s, h, HEAD_N)
-    v = (xv @ p["wv"].to(dtype)).reshape(b, s, h, HEAD_N)
+    r = split_last(xr @ p["wr"].to(dtype), h, HEAD_N)
+    k = split_last(xk @ p["wk"].to(dtype), h, HEAD_N)
+    v = split_last(xv @ p["wv"].to(dtype), h, HEAD_N)
     g = F.silu(xg @ p["wg"].to(dtype))
-    log_w = _decay(p, xw, dtype).reshape(b, s, h, HEAD_N)
-    u = p["u"].reshape(h, HEAD_N)
+    log_w = split_last(_decay(p, xw, dtype), h, HEAD_N)
+    u = split_last(p["u"], h, HEAD_N)
     # (B, S, H, N) read in place as (B, H, S, N) views; o.transpose(1, 2)
     # is the contiguous (B, S, H, N) output
-    o, S_fin = wkv_ops.wkv6(r.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), log_w.transpose(1, 2), u)
+    o, S_fin = _wkv6(r.transpose(1, 2), k.transpose(1, 2),
+                     v.transpose(1, 2), log_w.transpose(1, 2), u)
     o = _group_norm(p, o.transpose(1, 2), h).to(dtype) * g
-    return o @ p["wo"].to(dtype), (S_fin, x[:, -1])
+    out = constrain(o @ p["wo"].to(dtype), ("batch", "seq", "embed"))
+    return out, (S_fin, x[:, -1])
+
+
+def _wkv6(r, k, v, log_w, u):
+    """The WKV6 kernel; on DTensors it runs on each rank's batch rows (every
+    head local), ``u`` replicated (its gradient a partial sum over the
+    batch's mesh axes)."""
+    if not is_dtensor(r):
+        return wkv_ops.wkv6(r, k, v, log_w, u)
+    pl = placements_for(r, {0})
+    rep = placements_for(u, ())
+    return local_call(wkv_ops.wkv6, (r, k, v, log_w, u),
+                      (pl, pl, pl, pl, rep), (pl, pl),
+                      (pl, pl, pl, pl, batch_grad(pl)))
 
 
 def time_mix_decode(p, x, state, cfg: ModelConfig):
@@ -126,15 +142,17 @@ def time_mix_decode(p, x, state, cfg: ModelConfig):
     Returns (out (B, 1, D), (S_new, x[:, 0]))."""
     dtype = x.dtype
     S, last_x = state
-    b = x.shape[0]
     h = n_heads(cfg)
     xr, xk, xv, xw, xg = _ddlerp(p, x, last_x[:, None], dtype)
-    r = (xr @ p["wr"].to(dtype)).reshape(b, h, HEAD_N).to(torch.float32)
-    k = (xk @ p["wk"].to(dtype)).reshape(b, h, HEAD_N).to(torch.float32)
-    v = (xv @ p["wv"].to(dtype)).reshape(b, h, HEAD_N).to(torch.float32)
+    r = split_last((xr @ p["wr"].to(dtype))[:, 0], h, HEAD_N).to(
+        torch.float32)
+    k = split_last((xk @ p["wk"].to(dtype))[:, 0], h, HEAD_N).to(
+        torch.float32)
+    v = split_last((xv @ p["wv"].to(dtype))[:, 0], h, HEAD_N).to(
+        torch.float32)
     g = F.silu(xg @ p["wg"].to(dtype))[:, 0]
-    w = torch.exp(_decay(p, xw, dtype).reshape(b, h, HEAD_N))
-    u = p["u"].reshape(h, HEAD_N)
+    w = torch.exp(split_last(_decay(p, xw, dtype)[:, 0], h, HEAD_N))
+    u = split_last(p["u"], h, HEAD_N)
     kv = k[..., :, None] * v[..., None, :]
     o = torch.einsum("bhn,bhnm->bhm", r, S + u[None, :, :, None] * kv)
     S_new = w[..., None] * S + kv
@@ -148,7 +166,9 @@ def _channel_mix(p, x, xx):
     xk = x + xx * p["mu_k"].to(dtype)
     xr = x + xx * p["mu_r"].to(dtype)
     kk = torch.square(torch.relu(xk @ p["wk"].to(dtype)))
-    return torch.sigmoid(xr @ p["wr"].to(dtype)) * (kk @ p["wv"].to(dtype))
+    kk = constrain(kk, ("batch", "seq", "mlp"))
+    out = torch.sigmoid(xr @ p["wr"].to(dtype)) * (kk @ p["wv"].to(dtype))
+    return constrain(out, ("batch", "seq", "embed"))
 
 
 def channel_mix_forward(p, x, x_prev_last):

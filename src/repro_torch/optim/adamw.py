@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributed.sharding import is_dtensor, redistribute, replicated
 from ..tree import flatten, tree_map, unflatten
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
@@ -33,9 +34,12 @@ class AdamWConfig:
 def adamw_init(params, *, master: bool = False):
     """``{"mu", "nu"}``: fp32 zeros like ``params``; ``"step"``: a 0-d int32
     tensor on the host (the schedule and the bias corrections are host
-    scalars); ``master=True`` adds an fp32 copy of the params."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    scalars); ``master=True`` adds an fp32 copy of the params.  DTensor
+    params give DTensor state at their placements."""
+    zeros = lambda p: (torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+                       if is_dtensor(p) else
+                       torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device))
     state = {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
              "step": torch.zeros((), dtype=torch.int32)}
     if master:
@@ -69,18 +73,33 @@ def _decay_mask(path) -> bool:
                                        "mu", "u"))
 
 
+def _square_sum(x) -> torch.Tensor:
+    s = torch.sum(torch.square(x.to(torch.float32)))
+    # a DTensor leaf's partial sums are added over its ranks: every rank
+    # then holds the same plain scalar
+    return replicated(s).to_local() if is_dtensor(s) else s
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX's order) of each leaf's fp32 sum of
     squares."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for _, x in flatten(tree)]
+    sums = [_square_sum(x) for _, x in flatten(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
+def _like(new, old):
+    """``new`` at ``old``'s placements when both are DTensors."""
+    if is_dtensor(new) and is_dtensor(old):
+        return redistribute(new, old.placements)
+    return new
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
     """Returns (new_params, new_state, {"grad_norm"}); the inputs are left
     unchanged.  Host scalars (bias corrections, the learning rate) are
-    float32, as JAX computes them."""
+    float32, as JAX computes them.  On DTensor trees each new leaf takes
+    the placements of the leaf it replaces (the new params: the params',
+    as JAX's out_shardings give them)."""
     f32 = np.float32
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -102,10 +121,10 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
         if _decay_mask(path):
             update = update + cfg.weight_decay * src
         m2 = src - lr * update
-        new_p.append(m2.to(p.dtype))
-        new_mu.append(mu2)
-        new_nu.append(nu2)
-        new_m.append(m2)
+        new_p.append(_like(m2.to(p.dtype), p))
+        new_mu.append(_like(mu2, mu))
+        new_nu.append(_like(nu2, nu))
+        new_m.append(_like(m2, m))
     new_state = {"mu": unflatten(params, new_mu),
                  "nu": unflatten(params, new_nu),
                  "step": torch.tensor(step, dtype=torch.int32)}

@@ -56,6 +56,8 @@ import numpy as np
 import torch
 
 from ..chaos import faults
+from ..distributed.params import init_cache_sharded
+from ..distributed.sharding import host_view, use_rules
 from ..distributed.steps import make_prefill_step, make_serve_step
 from ..ft.interval import DynamicInterval
 from ..models import lm
@@ -138,7 +140,8 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig | None = None, *,
                  pool: WorkerPool, policy: ReplicaPolicy | None = None,
                  params=None, metrics: ServeMetrics | None = None,
-                 chaos=None, seed: int = 0, tracer=None, device="cuda"):
+                 chaos=None, seed: int = 0, tracer=None, device="cuda",
+                 mesh=None):
         ok, why = engine_supported(cfg)
         if not ok:
             raise ValueError(f"{cfg.name}: {why}")
@@ -183,9 +186,12 @@ class ServeEngine:
             prior_mtbf_s=self.ecfg.prior_mtbf_steps)
 
         cache_len = self.ecfg.cache_len
-        # bf16 cache whatever the compute dtype, as in JAX
-        self.cache = lm.init_cache(cfg, pool.n_slots, cache_len,
-                                   device=self.device)
+        self.mesh = mesh
+        # bf16 cache whatever the compute dtype, as in JAX; on a mesh laid
+        # out by cache_specs
+        self.cache = (lm.init_cache(cfg, pool.n_slots, cache_len,
+                                    device=self.device) if mesh is None else
+                      init_cache_sharded(cfg, pool.n_slots, cache_len, mesh))
         self.axes = cache_batch_axes(cfg, cache_len)
         self._serve = make_serve_step(cfg, cache_axes=self.axes)
         self._prefill_step = make_prefill_step(cfg, cache_len)
@@ -423,7 +429,7 @@ class ServeEngine:
             slot_set(self.cache, self.axes, slot.sid,
                      {k: v.select(self.axes[k], 0) for k, v in row1.items()})
             # host argmax on the fp32 logits (first maximum, as np.argmax)
-            tok = int(torch.argmax(logits[0].cpu()))
+            tok = int(torch.argmax(host_view(logits)[0].cpu()))
             self.timing["prefill_s"] += time.perf_counter() - t0
             self.timing["prefill_calls"] += 1
             slot.pos = offset + p
@@ -458,7 +464,7 @@ class ServeEngine:
                 torch.from_numpy(toks).to(self.device),
                 torch.from_numpy(poss).to(self.device),
                 torch.from_numpy(live).to(self.device))
-        nxt = nxt.cpu().numpy()
+        nxt = host_view(nxt).cpu().numpy()
         self.timing["decode_s"] += time.perf_counter() - t0
         self.timing["decode_calls"] += 1
         for s in busy:
@@ -516,6 +522,14 @@ class ServeEngine:
 
     # -- main loop -----------------------------------------------------------
     def step(self) -> None:
+        """One engine tick (inside the mesh's rules when the engine has
+        one)."""
+        if self.mesh is None:
+            return self._step()
+        with use_rules(self.mesh):
+            return self._step()
+
+    def _step(self) -> None:
         t = self.step_no
         if self.chaos is not None:
             self._apply_chaos(t)

@@ -19,6 +19,7 @@ import hashlib
 import numpy as np
 import torch
 
+from ..distributed.sharding import host_view, is_dtensor, write_slice
 from ..models import lm
 from ..models.config import ModelConfig
 
@@ -50,16 +51,21 @@ def cache_batch_axes(cfg: ModelConfig, cache_len: int) -> dict[str, int]:
 
 
 def slot_get(cache, axes, slot: int) -> dict[str, torch.Tensor]:
-    """A host copy of one batch row (slot) of every cache leaf."""
-    return {name: leaf.select(axes[name], slot).to("cpu", copy=True)
-            for name, leaf in cache.items()}
+    """A host copy of one batch row (slot) of every cache leaf (a DTensor
+    leaf's row read whole)."""
+    return {name: host_view(leaf.select(axes[name], slot)).to(
+        "cpu", copy=True) for name, leaf in cache.items()}
 
 
 def slot_set(cache, axes, slot: int, row) -> dict[str, torch.Tensor]:
     """Write a single-slot row back into the batched cache, in place, cast
-    to the cache's dtype."""
+    to the cache's dtype (on a DTensor leaf each rank writes its part)."""
     for name, leaf in cache.items():
-        leaf.select(axes[name], slot).copy_(row[name])
+        if is_dtensor(leaf):
+            write_slice(leaf, (slice(None),) * axes[name] + (slot,),
+                        row[name])
+        else:
+            leaf.select(axes[name], slot).copy_(row[name])
     return cache
 
 

@@ -1295,3 +1295,77 @@ def test_capture_cost_on_card_counts_the_kernels(cuda_device):
     assert cost["kernels"]["flash_attention"]["flops"] > 0
     analytic = F.cell_flops(cfg, Shape("prefill_test", "prefill", s, b)).flops
     assert analytic == pytest.approx(cost["flops"], rel=0.35)
+
+
+@pytest.fixture
+def cuda_mesh(cuda_device):
+    """A one-rank ("data", "model") mesh on the card (its world-size-1 NCCL
+    group ended after the test)."""
+    from repro_torch.launch.mesh import destroy_group, make_debug_mesh
+    mesh = make_debug_mesh(device=cuda_device)
+    yield mesh
+    destroy_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+def test_flash_on_a_mesh_is_bit_equal_to_the_direct_call(cuda_mesh, causal,
+                                                         window):
+    """B2 forward and backward through the model's ``local_map`` call site
+    on a 1x1 CUDA mesh give the direct kernel calls' bits, and launch."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models import layers
+    b, h, kv, s, d = 2, 8, 4, 256, 128
+    g = torch.Generator(device="cuda").manual_seed(7)
+    # (B, S, H, D) projections seen as (B, H, S, D) views, as the model
+    # passes them
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for n in (h, kv, kv))
+    do = torch.randn((b, h, s, d), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.attention(*leaves, causal=causal, window=window)
+    want = (out, *torch.autograd.grad(out, leaves, do))
+    dts = [DTensor.from_local(t.detach(), cuda_mesh, [Shard(0), Shard(1)])
+           .requires_grad_() for t in (q, k, v)]
+    f0, b0 = fa_ops.flash_attention.launches, fa_ops.flash_attention_bwd.launches
+    with use_rules(cuda_mesh):
+        out = layers._flash(*dts, causal=causal, window=window)
+        got = (out, *torch.autograd.grad(
+            out, dts, DTensor.from_local(do, cuda_mesh, out.placements)))
+    assert fa_ops.flash_attention.launches > f0
+    assert fa_ops.flash_attention_bwd.launches > b0
+    for x, y in zip(got, want):
+        assert torch.equal(x.to_local(), y)
+
+
+@pytest.mark.cuda
+def test_lru_scan_on_a_mesh_is_bit_equal_to_the_direct_call(cuda_mesh):
+    """B4 forward and backward through the RG-LRU call site on a 1x1 CUDA
+    mesh give the direct calls' bits."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models import rglru
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.rand((2, 300, 256), generator=g, device="cuda")
+    x = torch.randn((2, 300, 256), generator=g, device="cuda")
+    dh = torch.randn((2, 300, 256), generator=g, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (a, x)]
+    h, _ = lru_ops.lru_scan(*leaves)
+    want = (h, *torch.autograd.grad(h, leaves, dh))
+    dts = [DTensor.from_local(t.clone(), cuda_mesh, [Shard(0), Shard(2)])
+           .requires_grad_() for t in (a, x)]
+    f0, b0 = lru_ops.lru_scan.launches, lru_ops.lru_scan_bwd.launches
+    with use_rules(cuda_mesh):
+        h, _ = rglru._scan(*dts)
+        got = (h, *torch.autograd.grad(
+            h, dts, DTensor.from_local(dh, cuda_mesh, h.placements)))
+    assert lru_ops.lru_scan.launches > f0
+    assert lru_ops.lru_scan_bwd.launches > b0
+    for x_, y in zip(got, want):
+        assert torch.equal(x_.to_local(), y)

@@ -45,6 +45,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.obs.profile", "repro_torch.analysis",
             "repro_torch.analysis.flops", "repro_torch.launch.shapes",
             "repro_torch.kernels._cost"} <= set(mods)
+    assert {"repro_torch.distributed.sharding",
+            "repro_torch.distributed.params", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun",
+            "repro_torch.analysis.hlo"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
