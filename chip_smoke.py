@@ -33,7 +33,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    decoder-only families' shapes before any of them runs: the forward at
    each one's largest prefill bucket (GQA groups 2 at D = 64, and 4, 7, 48
    and 12), timed beside SDPA, and the backward at granite-moe-1b's
-   training shape (timed) and at groups 7, 12 and 48 (the MQA one timed);
+   training shape (timed) and at groups 7, 12 and 48 (the MQA one timed),
+   and bf16 forward and backward at deepseek-coder-33b's, granite-20b's and
+   command-r-plus-104b's training shapes (4 x 2048 tokens, groups 7, 48 and
+   12; ``decoder_train_shapes``), timed beside SDPA's, with the kernel's
+   device time over SDPA's;
    B2 at whisper-small's and llava-next's shapes (``multimodal_shapes``):
    the forward at the encoder's 1500 frames (bidirectional), at the
    cross-attention of the largest prompt bucket to them (Sq != Sk, a
@@ -126,11 +130,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    three 4 x 2048 batches as three identical pods and as three that
    differ; each average within its int8 bound of the fp32 mean, int8
    bytes a quarter of fp32's; each part's ms and ``tree_digest``'s GB/s;
-8. train rwkv6-3b, recurrentgemma-2b and llava-next-mistral-7b (4 x (576 +
-   1472) positions) at their published widths and a cut depth
-   (``FAMILY_TRAIN``: the largest whose peak device memory stays under ~70
-   GB; recurrentgemma at 3k + 2 layers), granite-moe-1b-a400m whole (its
-   logged loss must be xent + 0.01 x the MoE aux loss, aux > 0) and
+8. train rwkv6-3b, recurrentgemma-2b, llava-next-mistral-7b (4 x (576 +
+   1472) positions), deepseek-coder-33b, granite-20b and
+   phi3.5-moe-42b-a6.6b (4 x 2048 tokens) at their published widths and a
+   cut depth (``FAMILY_TRAIN``: the largest whose peak device memory stays
+   under ~70 GB; recurrentgemma at 3k + 2 layers), granite-moe-1b-a400m
+   whole (its and phi3.5-moe's logged loss must be xent + 0.01 x the MoE
+   aux loss, aux > 0; each also prints one MoE layer's device time) and
    whisper-small whole (12 + 12 layers, 16 x 448 tokens, 1500 frames a
    sample), through the launcher's
    ``build`` and its train step, deterministic: step time, tokens/s, model
@@ -140,10 +146,33 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    D = 256; B2 forward and backward);
 9. a crash run of each but llava at reduced depth (rwkv6 2 layers,
    recurrentgemma 3, granite-moe 2, whisper 2 + 2 at 448 tokens;
-   ``CRASH_CUTS``: a llava checkpoint would not fit the disk),
-   4 x 512 tokens, through the launcher's code path with a forced crash:
-   final params bit-identical to a fault-free run (sha1 of every leaf),
-   restores == failures > 0.
+   ``CRASH_CUTS``: a llava, deepseek-coder, granite-20b or phi3.5-moe
+   checkpoint would not fit the disk), 4 x 512 tokens, through the
+   launcher's code path with a forced crash: final params bit-identical to
+   a fault-free run (sha1 of every leaf), restores == failures > 0;
+   b. command-r-plus-104b's gradient at its published widths and one layer
+   (the parallel block, the tied 256000 x 12288 embedding): fp32 params
+   drawn on the card, bf16 compute, 4 x 2048 tokens, two calls of
+   ``distributed.steps.make_grad_fn``; the loss and every gradient leaf
+   finite, every leaf nonzero, both flash kernels launched; the call's
+   ms and peak memory, and why no AdamW step follows (``GRAD_SPEC``);
+   c. the model-level reference: every family of ``configs.all_configs()``
+   at its published widths and the smallest depth that holds each of its
+   layer kinds (one layer; recurrentgemma two recurrent and one attention
+   layer; whisper one encoder and one decoder layer), fp32 params and
+   compute, weights drawn on the card from a seed and copied to the host,
+   one seeded row of 256 tokens (llava with its 576 image rows, whisper
+   with 1500 frames): ``lm.prefill``'s logits (atol = rtol = 2e-4),
+   ``make_grad_fn``'s loss (2e-4 relative) and every gradient leaf (1e-3
+   relative in the 2-norm, a leaf at a time; whisper's four leaves whose
+   gradient is 0 in exact arithmetic to 1e-7 of the whole gradient's norm)
+   on the card (B2's fp32
+   forward and SIMT backward, B3, B4) against the same functions on the
+   CPU (the plain versions); the MoE families' routing first, token by
+   token (a difference is a near-tie only where the CPU's gate gap is at
+   most 1e-5, and then only the logits of the last token whose routing
+   agreed are held); each family's errors, leaf and seconds, and the
+   host's memory.
 10. mesh: the sharding layer (``distributed.sharding``/``params``) on a
    one-rank CUDA ``DeviceMesh`` (``--mesh debug``): olmo-1b at full width
    and depth, 3 steps of 4 x 2048 tokens in two microbatches, without a
@@ -312,20 +341,27 @@ FAMILIES = {
 #: serve depth cuts (the published widths are kept): bf16 weights of
 #: phi3.5-moe (83.7 GB) and command-r-plus (207.6 GB) do not fit one 80 GB
 #: card; deepseek-coder-33b and granite-20b fit whole (66.7 and 56.3 GB,
-#: peaks 71.0 and 60.7 GB).  deepseek-coder, granite-20b and
-#: command-r-plus are served at about an eighth of their depth and
-#: phi3.5-moe at 12 of 32 layers, so that the script, which also serves
-#: whisper-small and llava-next whole (~190 s on one H100), stays well
-#: within its time limit: their phases are mostly host-bound decoding,
-#: whose time follows the depth (at 16, 13, 24 and 18 layers they took 29,
-#: 26, 68 and 33 s on one H100).  For the cross-pod cluster's phase (~170
-#: s) rwkv6-3b, recurrentgemma-2b (2 super blocks and its 2 tail layers),
-#: granite-moe-1b and llava-next serve at about a quarter of their depth
-#: (whole, their serve phases took 60, 50, 67 and 66 s)
-SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 12, "command-r-plus-104b": 8,
-                "deepseek-coder-33b": 8, "granite-20b": 7, "rwkv6-3b": 8,
-                "recurrentgemma-2b": 8, "granite-moe-1b-a400m": 6,
-                "llava-next-mistral-7b": 8}
+#: peaks 71.0 and 60.7 GB).  The rest is the time limit: the serve phases
+#: are mostly host-bound decoding, whose time follows the depth (at 16,
+#: 13, 24 and 18 layers deepseek-coder, granite-20b, phi3.5-moe and
+#: command-r-plus took 29, 26, 68 and 33 s on one H100).  For the
+#: cross-pod cluster's phase (~170 s) rwkv6-3b, recurrentgemma-2b (2 super
+#: blocks and its 2 tail layers), granite-moe-1b and llava-next went to
+#: about a quarter of their depth; for the three trained families, the
+#: gradient phase and the model-level reference (~85 s, every layer kind
+#: of every family at its published widths) deepseek-coder, granite-20b,
+#: phi3.5-moe, command-r-plus, rwkv6-3b and llava-next serve 4 layers and
+#: granite-moe-1b 3 (their phases 19.1 -> 11.0, 16.5 -> 9.6, 34.8 ->
+#: 12.7, 24.1 -> 12.5, 18.8 -> 9.7, 21.7 -> 12.1 and 17.4 -> 8.0 s:
+#: chip_serve_depths.py on one H100).  recurrentgemma-2b keeps 8: at 5
+#: layers the reference parity's measured logit difference was 0, so its
+#: divergence bound was 0, and one request's tokens parted from the
+#: reference's at decode step 41 by a 0.0156 logit gap (ROADMAP, Queue C,
+#: check 2).  olmo-1b and whisper-small serve whole
+SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 4, "command-r-plus-104b": 4,
+                "deepseek-coder-33b": 4, "granite-20b": 4, "rwkv6-3b": 4,
+                "recurrentgemma-2b": 8, "granite-moe-1b-a400m": 3,
+                "llava-next-mistral-7b": 4}
 
 
 def serve_args(arch):
@@ -536,7 +572,8 @@ def time_kernel(rec, fn, prefix=""):
 
 
 def kernel_device_ms(fn, reps=10):
-    """{kernel name: device ms a call} of the kernels ``fn`` launches, from
+    """{kernel name: device ms a call of ``fn``} of the kernels ``fn``
+    launches (all launches of one name in a call summed), from
     ``torch.profiler`` over ``reps`` calls after a warm-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -551,7 +588,7 @@ def kernel_device_ms(fn, reps=10):
         if e.device_time_total > 0:
             name = e.key.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0][:60]
-            out[name] = e.device_time_total / e.count / 1e3
+            out[name] = out.get(name, 0.0) + e.device_time_total / reps / 1e3
     return out
 
 
@@ -1246,13 +1283,36 @@ def decoder_prefill_shapes():
     return out
 
 
+#: the decoder-only families trained (or, command-r-plus-104b, whose
+#: gradient is run) at 4 x 2048 tokens besides olmo-1b and granite-moe-1b:
+#: B2 forward and backward at their training shapes, GQA groups 7, 48 (MQA)
+#: and 12 (phi3.5-moe's (4, 32, 8, 2048, 128) is llava-next's, timed with
+#: the multimodal shapes)
+TRAIN_DECODERS = ("deepseek-coder-33b", "granite-20b", "command-r-plus-104b")
+
+
+def decoder_train_shapes():
+    """(B, H, KV, S, D) of B2 in each of :data:`TRAIN_DECODERS`' training
+    (:data:`FAMILY_TRAIN`, :data:`GRAD_SPEC`)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in TRAIN_DECODERS:
+        cfg = get_config(arch)
+        spec = FAMILY_TRAIN.get(arch, GRAD_SPEC)
+        out[arch] = (spec["batch"], cfg.n_heads, cfg.n_kv_heads, spec["seq"],
+                     cfg.head_dim)
+    return out
+
+
 def decoder_kernel_cases(recs):
     """B2 at :data:`NEW_DECODERS`' shapes, before any of them runs: the
     forward at each one's prefill shape (GQA groups 2 at
     D = 64, and 4, 7, 48, 12 at D = 128), timed beside SDPA; the backward at
     granite-moe-1b's training shape (timed) and at groups 7, 12 and 48 (the
     MQA one timed: each dK/dV block sums 48 query heads), fp32 and bf16,
-    causal and bidirectional."""
+    causal and bidirectional; then bf16 forward and backward at
+    :func:`decoder_train_shapes`, each timed beside SDPA's, with the
+    kernel's device time over SDPA's."""
     for arch, shape in decoder_prefill_shapes().items():
         rec = flash_case(*shape, "bfloat16", True, timed=True)
         rec["arch"] = arch
@@ -1269,6 +1329,17 @@ def decoder_kernel_cases(recs):
         flash_bwd_case(*shape, "float32", True, timed=False)
         flash_bwd_case(*shape[:3], 129, shape[4], "bfloat16", False,
                        timed=False)
+    for arch, shape in decoder_train_shapes().items():
+        fwd = flash_case(*shape, "bfloat16", True, timed=True)
+        bwd = flash_bwd_case(*shape, "bfloat16", True, timed=True)
+        recs[f"flash_attention_train_{arch}"] = dict(fwd, arch=arch)
+        recs[f"flash_attention_bwd_train_{arch}"] = dict(bwd, arch=arch)
+        print(f"  B2 at {arch}'s training shape {shape}: device time over "
+              f"SDPA's, forward "
+              f"{fwd['device_ms'] / fwd['library_device_ms']:.2f}x, backward "
+              f"{bwd['device_ms'] / bwd['library_device_ms']:.2f}x "
+              f"({shape[0] * shape[2] * -(-shape[3] // 64)} dK/dV blocks "
+              f"of 64 keys)")
 
 
 def multimodal_shapes():
@@ -1768,19 +1839,20 @@ def phase_fault_transparency(arch, res):
 
 def _dropped(log, real=None):
     """(token, choice) pairs the MoE layers dropped for capacity in the
-    calls whose keep masks ``log`` holds; with ``real``, among the first
+    calls whose routing ``log`` holds; with ``real``, among the first
     ``real`` tokens of each (one-row) group only."""
-    return sum(int((~k[:, :real]).sum()) for k in log)
+    return sum(int((~r["keep"][:, :real]).sum()) for r in log)
 
 
 def _moe_logged(fn):
-    """``fn()`` with the MoE keep masks logged: (its result, the log)."""
+    """``fn()`` with the MoE layers' routing logged (``layers.route_log``):
+    (its result, the log)."""
     from repro_torch.models import layers
-    layers.keep_log = []
+    layers.route_log = []
     try:
-        return fn(), layers.keep_log
+        return fn(), layers.route_log
     finally:
-        layers.keep_log = None
+        layers.route_log = None
 
 
 def phase_reference(res):
@@ -2259,6 +2331,19 @@ FAMILY_TRAIN = {
     "llava-next-mistral-7b": dict(layers=8, batch=4, seq=1472,
                                   kernels=("flash_attention",
                                            "flash_attention_bwd")),
+    # 3 of 62 layers: 2.05 B params, ~57.5 GB at ~28 bytes a parameter
+    "deepseek-coder-33b": dict(layers=3, batch=4, seq=2048,
+                               kernels=("flash_attention",
+                                        "flash_attention_bwd")),
+    # 3 of 52 layers (MQA, q/k/v/o and LayerNorm biases): 2.19 B params,
+    # ~61.4 GB at ~28 bytes a parameter
+    "granite-20b": dict(layers=3, batch=4, seq=2048,
+                        kernels=("flash_attention", "flash_attention_bwd")),
+    # 1 of 32 layers (16 experts, top 2): 1.56 B params, ~43.8 GB at ~28
+    # bytes a parameter; 2 layers (2.86 B, ~80 GB) would not fit
+    "phi3.5-moe-42b-a6.6b": dict(layers=1, batch=4, seq=2048,
+                                 kernels=("flash_attention",
+                                          "flash_attention_bwd")),
 }
 FAMILY_TRAIN_STEPS = 4   # the first warms up; the time is the others' median
 MEM_TARGET = 70e9
@@ -2267,7 +2352,10 @@ MEM_TARGET = 70e9
 # each config's cut and extra flags.  llava has none: its checkpoint holds
 # the 32000 x 4096 embedding and head and their moments, ~5.8 GB even at
 # one layer, and the machine allows ~45 GiB of disk writes, ~40 GB of them
-# taken already (TRAIN_ARGS)
+# taken already (TRAIN_ARGS).  Nor have deepseek-coder-33b, granite-20b
+# and phi3.5-moe: their checkpoints (params and AdamW moments) are 12-19
+# GB even at one layer, and the crash path (coordinator, store, replay)
+# does not depend on the family: the cells above hold it
 CRASH_CUTS = {"rwkv6-3b": (dict(n_layers=2), []),
               "recurrentgemma-2b": (dict(n_layers=3), []),
               "granite-moe-1b-a400m": (dict(n_layers=2), []),
@@ -2447,6 +2535,455 @@ def phase_train_crash(arch, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: command-r-plus-104b's gradient at one layer
+# ---------------------------------------------------------------------------
+
+#: command-r-plus-104b at its published widths and one layer (the parallel
+#: block and the tied 256000 x 12288 embedding): 4.72 B params, 18.9 GB in
+#: fp32.  With AdamW's out-of-place state (~28 bytes a parameter) a step
+#: would need ~132 GB, the tied embedding alone 88.1 GB: no training step
+#: fits one 80 GB card, so the phase runs the gradient (params, their fp32
+#: gradients and the bf16 casts).  Global batch 4 x 2048 tokens
+GRAD_ARCH = "command-r-plus-104b"
+GRAD_SPEC = dict(layers=1, batch=4, seq=2048,
+                 kernels=("flash_attention", "flash_attention_bwd"))
+GRAD_CALLS = 2   # the first warms up
+ADAMW_BYTES_PER_PARAM = 28
+
+
+def phase_grad(arch=GRAD_ARCH):
+    """``distributed.steps.make_grad_fn`` of ``arch`` at its published
+    widths and the depth and batch of :data:`GRAD_SPEC`: fp32 params drawn
+    a layer at a time on the card by ``lm.init_params``, bf16 compute,
+    :data:`GRAD_CALLS` calls on one seeded batch.  The loss and every
+    gradient leaf must be finite, every leaf nonzero (the loss reaches
+    each), and both flash kernels launched; prints the last call's ms,
+    the peak device memory and the launches, and why no AdamW step
+    follows.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.distributed.steps import make_grad_fn
+    from repro_torch.models import lm
+    from repro_torch.tree import flatten
+    spec = GRAD_SPEC
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    b, seq = spec["batch"], spec["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for _, t in flatten(params))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in SyntheticTokenPipeline(
+        DataConfig(b, seq, seed=0), cfg).batch_at(0).items()}
+    grads_of = make_grad_fn(cfg)
+    counted = _zero_launches()
+    times, losses, grads = [], [], None
+    for _ in range(GRAD_CALLS):
+        grads = None     # the previous call's gradients go first
+        t0 = time.perf_counter()
+        loss, grads = grads_of(params, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    leaves = flatten(grads)
+    bad = ["/".join(p) for p, g in leaves if not bool(torch.isfinite(g).all())]
+    zero = ["/".join(p) for p, g in leaves if not bool((g != 0).any())]
+    model = 3 * forward_flops(cfg, b, seq)
+    emb = cfg.vocab_size * cfg.d_model
+    print(f"grad {arch}: published widths (d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.block_type} block, tied embedding), "
+          f"depth {cfg.n_layers} of {full.n_layers}, {n_params / 1e9:.3f} B "
+          f"params in fp32, bf16 compute, global batch {b} x {seq}; "
+          f"gradient call {1e3 * times[-1]:.1f} ms (host clock, the last of "
+          f"{GRAD_CALLS}, ending in a copy of its loss), "
+          f"{b * seq / times[-1]:.0f} tokens/s, model {model / 1e12:.2f} "
+          f"TFLOP, {model / times[-1] / PEAK_BF16:.3f} of the bf16 peak; "
+          f"losses {[round(x, 4) for x in losses]}; peak device memory "
+          f"{peak / 1e9:.2f} GB; {len(leaves)} gradient leaves, "
+          f"{len(bad)} not finite, {len(zero)} all zero; launches "
+          f"{launches}")
+    print(f"grad {arch}: no AdamW step follows: a step takes ~"
+          f"{ADAMW_BYTES_PER_PARAM} bytes a parameter (fp32 params, "
+          f"gradients, mu, nu and the update's new params, mu and nu), "
+          f"{n_params * ADAMW_BYTES_PER_PARAM / 1e9:.1f} GB here; the tied "
+          f"embedding alone ({emb / 1e9:.2f} B params) "
+          f"{emb * ADAMW_BYTES_PER_PARAM / 1e9:.1f} GB, past the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} "
+          f"GiB")
+    check(all(np.isfinite(losses)), f"{arch}: a non-finite loss {losses}")
+    check(not bad, f"{arch}: non-finite gradient leaves {bad}")
+    check(not zero, f"{arch}: gradient leaves the loss reaches are all zero: "
+                    f"{zero}")
+    check(peak < 80e9, f"{arch}: peak device memory {peak / 1e9:.1f} GB")
+    for name in spec["kernels"]:
+        check(launches[name] > 0, f"the {arch} gradient path never launched "
+                                  f"{name}")
+    del params, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9c: every family against the port's CPU path at published widths
+# ---------------------------------------------------------------------------
+
+#: text tokens of the reference batch: one row, a prompt bucket (the
+#: engine's prefill shape); cut down to REF_MIN_TOKENS only where the host
+#: would not hold the CPU side at REF_TOKENS
+REF_TOKENS = 256
+REF_MIN_TOKENS = 128
+REF_SEED = 0
+#: the port's fp32 limits: the logits (atol, rtol), the loss (relative) and
+#: each gradient leaf, |g_card - g_cpu| <= REF_GRAD_RTOL |g_cpu| in the
+#: 2-norm; a leaf whose gradient is 0 in exact arithmetic
+#: (:func:`zero_gradient_leaves`) <= REF_GRAD_FLOOR |G_cpu|, G the whole
+#: gradient: one fp32 rounding of it
+REF_LOGITS_TOL = dict(atol=2e-4, rtol=2e-4)
+REF_LOSS_RTOL = 2e-4
+REF_GRAD_RTOL = 1e-3
+REF_GRAD_FLOOR = 1e-7
+#: an MoE token whose top-k experts differ is a near-tie when the CPU's gap
+#: between its k-th and (k+1)-th router probabilities is at most this
+ROUTE_TIE_GAP = 1e-5
+def reference_configs(tiny=False):
+    """``configs.all_configs(tiny=)`` (keyed by module name) at the smallest
+    depth that holds each layer kind of the family once, fp32 params and
+    compute: one layer, but recurrentgemma's ``rec_per_attn`` recurrent
+    layers and its attention layer (one super block) and whisper-small's
+    one encoder and one decoder layer."""
+    from repro_torch.configs import all_configs
+    out = {}
+    for name, cfg in all_configs(tiny=tiny).items():
+        cut = (dict(n_layers=cfg.rec_per_attn + 1) if cfg.rglru else
+               dict(n_layers=1, encoder_layers=1) if cfg.is_encdec else
+               dict(n_layers=1))
+        out[name] = dataclasses.replace(cfg, param_dtype="float32",
+                                        compute_dtype="float32", **cut)
+    return out
+
+
+def reference_batch(cfg, tokens):
+    """One seeded row of ``tokens`` text tokens (the pipeline's batch 0,
+    with its frames or image embeddings)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    return SyntheticTokenPipeline(DataConfig(1, tokens, seed=REF_SEED),
+                                  cfg).batch_at(0)
+
+
+def _on(params, batch):
+    import torch
+    from repro_torch.tree import flatten
+    dev = flatten(params)[0][1].device
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def reference_logits(params, cfg, batch, pos):
+    """``lm.prefill``'s fp32 logits (1, V) at text position ``pos`` of the
+    one-row ``batch`` (its whole length: the engine's prefill shape), on the
+    params' device, and the MoE routing of that call."""
+    import torch
+    from repro_torch.models import lm
+    on = _on(params, batch)
+    inputs = {k: v for k, v in on.items()
+              if k in ("tokens", "frames", "image_embeds")}
+    s = cfg.n_image_tokens + on["tokens"].shape[1]
+    last = torch.tensor([cfg.n_image_tokens + pos], device=on["tokens"].device)
+    with torch.no_grad():
+        (logits, _), log = _moe_logged(lambda: lm.prefill(
+            params, cfg, inputs, s, last_idx=last))
+    return logits, log
+
+
+def reference_run(params, cfg, batch):
+    """One side of the reference: :func:`reference_logits` at the last text
+    position and ``make_grad_fn``'s loss and gradients (a tree on the
+    params' device), with the MoE routing of both calls (the gradient's
+    forward logs each layer twice: remat runs it again in the backward) and
+    each part's seconds."""
+    import torch
+    from repro_torch.distributed.steps import make_grad_fn
+    pos = batch["tokens"].shape[1] - 1
+    t0 = time.perf_counter()
+    logits, routes = reference_logits(params, cfg, batch, pos)
+    (loss, grads), log = _moe_logged(
+        lambda: make_grad_fn(cfg)(params, _on(params, batch)))
+    loss = float(loss)
+    if logits.is_cuda:
+        torch.cuda.synchronize()
+    return {"pos": pos, "logits": logits, "loss": loss, "grads": grads,
+            "routes": routes + log, "seconds": time.perf_counter() - t0}
+
+
+def route_check(card_routes, cpu_routes, label):
+    """Each MoE call's routing, card against CPU, token by token: its top-k
+    expert set and its kept (token, choice) pairs.  A token whose expert
+    set differs is a near-tie where the CPU's gap between its k-th and
+    (k+1)-th router probabilities is at most :data:`ROUTE_TIE_GAP`, else
+    a fault; a token whose kept pairs alone differ must come after a
+    differing token of its dispatch group (capacity passes down the group
+    in token order), else a fault.  Raises on a fault; returns the
+    near-ties [(call, token, gap)] and the (tokens,) mask of the tokens
+    whose routing agreed in every call (None without MoE layers)."""
+    import torch.nn.functional as F
+    check(len(card_routes) == len(cpu_routes),
+          f"{label}: {len(card_routes)} MoE calls on the card, "
+          f"{len(cpu_routes)} on the CPU")
+    ties, faults, agreed = [], [], None
+    for call, (a, b) in enumerate(zip(card_routes, cpu_routes)):
+        probs = b["probs"].cpu()
+        e = probs.shape[-1]
+        ea, eb = a["experts"].cpu(), b["experts"].cpu()
+        k, g = eb.shape[-1], eb.shape[1]
+        ha, hb = F.one_hot(ea, e), F.one_hot(eb, e)
+        chose = (ha.sum(-2) != hb.sum(-2)).any(-1)                # (Gc, G)
+        kept = ((ha * a["keep"].cpu()[..., None]).sum(-2)
+                != (hb * b["keep"].cpu()[..., None]).sum(-2)).any(-1)
+        top = probs.sort(-1, descending=True).values
+        gap = top[..., k - 1] - top[..., min(k, e - 1)]
+        before = chose.int().cumsum(-1) - chose.int() > 0
+        for gi, t in chose.nonzero().tolist():
+            item = (call, gi * g + t, float(gap[gi, t]))
+            (ties if item[2] <= ROUTE_TIE_GAP else faults).append(item)
+        for gi, t in (kept & ~chose & ~before).nonzero().tolist():
+            faults.append((call, gi * g + t, None))
+        ok = ~(chose | kept).reshape(-1)
+        agreed = ok if agreed is None else agreed & ok
+    for call, token, gap in ties:
+        print(f"  {label}: MoE near-tie in call {call} at token {token}: "
+              f"the CPU's gap {gap:.3g} <= {ROUTE_TIE_GAP}")
+    check(not faults, f"{label}: the card's MoE routing differs from the "
+                      f"CPU's beyond a near-tie at (call, token, gap) "
+                      f"{faults[:8]}")
+    return ties, agreed
+
+
+def zero_gradient_leaves(cfg):
+    """The leaves whose gradient is 0 in exact arithmetic: the
+    encoder-decoder's cross-attention q/k/v biases, which it does not add
+    (JAX adds none there: 0 on both sides), and its encoder's key bias (no
+    rope in the bidirectional encoder, so q.bk shifts each softmax row by a
+    constant: its fp32 gradient is rounding, ~1e-11 of the whole
+    gradient's norm at whisper-small's widths, and the card's and the
+    CPU's part by more than its size)."""
+    if not (cfg.is_encdec and cfg.use_bias):
+        return set()
+    return {"enc_layers/attn/bk", "layers/xattn/bq", "layers/xattn/bk",
+            "layers/xattn/bv"}
+
+
+def leaf_error(got, want, chunk=1 << 26):
+    """(|got - want|, |want|) in the 2-norm, summed in fp64 a chunk at a
+    time on ``got``'s device: ``want`` (the CPU's) goes there a chunk at a
+    time, in its own dtype through a pinned buffer when ``got`` is on the
+    card, so that neither side holds a second copy of a leaf."""
+    import torch
+    g, w = got.reshape(-1), want.reshape(-1)
+    stage = (torch.empty(min(chunk, w.numel()), dtype=w.dtype,
+                         pin_memory=True)
+             if g.is_cuda and not w.is_cuda and w.numel() else None)
+    diff = norm = 0.0
+    for i in range(0, g.numel(), chunk):
+        wc = w[i:i + chunk]
+        if stage is not None:
+            wc = stage[:wc.numel()].copy_(wc).to(g.device, non_blocking=True)
+        wc = wc.to(g.device).double()
+        # the float()s wait for the chunk, so the buffer is free again
+        diff += float((g[i:i + chunk].double() - wc).square().sum())
+        norm += float(wc.square().sum())
+    return diff ** 0.5, norm ** 0.5
+
+
+def compare_reference(cfg, card, cpu, logits_at):
+    """The card side against the CPU side (:func:`reference_run`): the MoE
+    routing first (:func:`route_check`); then the logits at
+    :data:`REF_LOGITS_TOL`, the loss at :data:`REF_LOSS_RTOL` and each
+    gradient leaf at :data:`REF_GRAD_RTOL`, a leaf at a time (those of
+    :func:`zero_gradient_leaves`, and any the CPU gives 0, at
+    :data:`REF_GRAD_FLOOR`: the CPU's gradient and the difference).  After
+    a near-tie only the logits are held, at the last position whose routing
+    agreed in every call (one MoE layer: a token's routing reaches only its
+    own output); ``logits_at(pos)`` gives both sides' logits there.  Raises
+    on a fault; returns the record."""
+    import torch
+    from repro_torch.tree import flatten
+    label = cfg.name
+    ties, agreed = route_check(card["routes"], cpu["routes"], label)
+    pos, cl, pl = card["pos"], card["logits"], cpu["logits"]
+    if ties:
+        ok = agreed.nonzero().reshape(-1)
+        check(ok.numel() > 0, f"{label}: no token's routing agreed")
+        pos = int(ok[-1])
+        if pos != card["pos"]:
+            cl, pl = logits_at(pos)
+    cl, pl = cl.float().cpu(), pl.float()
+    logits_err = float((cl - pl).abs().max())
+    rec = {"family": label, "near_ties": ties, "logits_pos": pos,
+           "logits_err": logits_err}
+    check(bool(torch.allclose(cl, pl, **REF_LOGITS_TOL)),
+          f"{label}: the card's logits at position {pos} differ from the "
+          f"CPU's by {logits_err:.3g} (atol, rtol "
+          f"{REF_LOGITS_TOL['atol']})")
+    if ties:
+        print(f"  {label}: {len(ties)} MoE near-tie(s): held to the logits "
+              f"at position {pos}, the last whose routing agreed; the loss "
+              f"and gradients are not compared")
+        return rec
+    rec["loss_err"] = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(rec["loss_err"] <= REF_LOSS_RTOL,
+          f"{label}: the card's loss {card['loss']} against the CPU's "
+          f"{cpu['loss']}: relative {rec['loss_err']:.3g}")
+    errs = []
+    for (path, g), (path_w, w) in zip(flatten(card["grads"]),
+                                      flatten(cpu["grads"])):
+        check(path == path_w and g.shape == w.shape,
+              f"{label}: gradient trees differ at {path}, {path_w}")
+        errs.append(("/".join(path), *leaf_error(g, w)))
+    floor = REF_GRAD_FLOOR * sum(n * n for _, _, n in errs) ** 0.5
+    zero = zero_gradient_leaves(cfg)
+    held = [(name, diff / norm) for name, diff, norm in errs
+            if name not in zero and norm > 0]
+    rec["grad_leaf"], rec["grad_err"] = max(held, key=lambda x: x[1])
+    rec["grad_leaves"] = len(errs)
+    rec["grad_floor"] = floor
+    rec["floor_leaves"] = {name: (diff, norm) for name, diff, norm in errs
+                           if name in zero or norm == 0}
+    bad = [(name, diff, norm) for name, diff, norm in errs
+           if (max(diff, norm) > floor if name in rec["floor_leaves"]
+               else diff > REF_GRAD_RTOL * norm)]
+    check(not bad, f"{label}: gradient leaves past the limit "
+                   f"({REF_GRAD_RTOL} |g_cpu|; {floor:.3g} for "
+                   f"{sorted(rec['floor_leaves'])}): (leaf, "
+                   f"|g_card - g_cpu|, |g_cpu|) {bad[:8]}")
+    return rec
+
+
+def reference_family(cfg, params, batch):
+    """Both sides of one family: ``params`` on their device (the card's
+    kernels) first, then a host copy of them on the CPU (the plain
+    versions), which must launch no kernel; then :func:`compare_reference`.
+    Returns its record with each side's seconds and the first side's
+    launches."""
+    from repro_torch.tree import tree_map
+    counted = _zero_launches()
+    card = reference_run(params, cfg, batch)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    t0 = time.perf_counter()
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    copy_s = time.perf_counter() - t0
+    cpu = reference_run(host, cfg, batch)
+    check(all(fn.launches == launches[n] for n, fn in counted.items()),
+          f"{cfg.name}: the CPU side launched a kernel")
+    t0 = time.perf_counter()
+    rec = compare_reference(cfg, card, cpu, lambda pos: (
+        reference_logits(params, cfg, batch, pos)[0],
+        reference_logits(host, cfg, batch, pos)[0]))
+    rec.update(launches=launches, card_s=card["seconds"], copy_s=copy_s,
+               cpu_s=cpu["seconds"], compare_s=time.perf_counter() - t0)
+    return rec
+
+
+def _host_need(cfg, tokens, n_bytes, largest):
+    """Host bytes of the CPU side: the params' host copy, their gradients,
+    a second copy of the largest leaf (a tied embedding's two gradients
+    before they are summed), fp32 activations a token (a few of the
+    logits' rows and of the layer's widths) and 2 GB to spare."""
+    ff = cfg.d_ff * max(1, cfg.top_k)
+    per_token = 4 * (4 * cfg.vocab_size + 32 * cfg.d_model + 8 * ff)
+    return 2 * n_bytes + largest + tokens * per_token + 2e9
+
+
+def reference_tokens(cfg, n_bytes, largest):
+    """:data:`REF_TOKENS`, or :data:`REF_MIN_TOKENS` where the host's
+    available memory would not hold the CPU side at it
+    (:func:`_host_need`); fails where it would not hold it at all."""
+    avail = _meminfo("MemAvailable")
+    need = _host_need(cfg, REF_TOKENS, n_bytes, largest)
+    if need <= avail:
+        return REF_TOKENS
+    low = _host_need(cfg, REF_MIN_TOKENS, n_bytes, largest)
+    print(f"  the CPU side needs ~{need / 1e9:.1f} GB of host memory at "
+          f"{REF_TOKENS} tokens, {low / 1e9:.1f} GB at {REF_MIN_TOKENS}; "
+          f"{avail / 1e9:.1f} GB available: the batch is cut to "
+          f"{REF_MIN_TOKENS} tokens")
+    check(low <= avail, f"the host cannot hold the CPU side of {cfg.name} "
+                        f"(~{low / 1e9:.1f} GB)")
+    return REF_MIN_TOKENS
+
+
+def phase_model_reference():
+    """Every family of ``configs.all_configs()`` at its published widths and
+    :func:`reference_configs`' depth, fp32 params and compute (TF32 off),
+    weights drawn on the card by ``lm.init_params`` from a seed and copied
+    to the host: ``lm.prefill``'s logits and ``make_grad_fn``'s loss and
+    gradients on one seeded row of :data:`REF_TOKENS` tokens, on the card
+    (the hand-written kernels in fp32: B2's forward and SIMT backward, B3,
+    B4) against the same port functions on the CPU (the plain versions),
+    held by :func:`compare_reference`.  Prints each family's line (depth,
+    tokens, the largest logit, loss and gradient error and its leaf,
+    near-ties, seconds) and the host's memory.  Returns the card sides'
+    launch counts."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.tree import flatten
+    print(f"model reference: host memory {_meminfo('MemTotal') / 1e9:.1f} "
+          f"GB, {_meminfo('MemAvailable') / 1e9:.1f} GB available; torch "
+          f"CPU threads {torch.get_num_threads()}")
+    total = None
+    for cfg in reference_configs().values():
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = lm.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(REF_SEED))
+        leaves = [t for _, t in flatten(params)]
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        tokens = reference_tokens(
+            cfg, n_bytes, max(t.numel() * t.element_size() for t in leaves))
+        rec = reference_family(cfg, params, reference_batch(cfg, tokens))
+        launches = rec["launches"]
+        kernels = (("wkv6", "wkv6_bwd") if cfg.rwkv else
+                   ("flash_attention", "flash_attention_bwd")
+                   + (("lru_scan", "lru_scan_bwd") if cfg.rglru else ()))
+        for name in kernels:
+            check(launches[name] > 0, f"the card side of {cfg.name} never "
+                                      f"launched {name}")
+        total = (launches if total is None else
+                 {n: total[n] + launches[n] for n in total})
+        depth = (f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.is_encdec
+                 else str(cfg.n_layers))
+        tail = ("; loss and gradients not compared (near-tie)"
+                if rec["near_ties"] else
+                f", loss {rec['loss_err']:.3g} (relative), largest gradient "
+                f"error {rec['grad_err']:.3g} (relative, "
+                f"{rec['grad_leaves']} leaves) at {rec['grad_leaf']}"
+                + (f"; held to the floor {rec['grad_floor']:.3g}: "
+                   + ", ".join(f"{n} {d:.3g} (CPU {w:.3g})"
+                               for n, (d, w) in rec["floor_leaves"].items())
+                   if rec["floor_leaves"] else ""))
+        print(f"model reference {cfg.name}: depth {depth}, "
+              f"{sum(t.numel() for t in leaves) / 1e9:.3f} B params, 1 x "
+              f"{tokens} tokens"
+              + (f" + {cfg.n_image_tokens} image rows" if cfg.n_image_tokens
+                 else f" + {cfg.n_frames} frames" if cfg.is_encdec else "")
+              + f": logits error {rec['logits_err']:.3g} at position "
+              f"{rec['logits_pos']}{tail}; near-ties "
+              f"{len(rec['near_ties'])}; seconds: card {rec['card_s']:.1f}, "
+              f"host copy {rec['copy_s']:.1f}, CPU {rec['cpu_s']:.1f}, "
+              f"compare {rec['compare_s']:.1f}, family "
+              f"{time.perf_counter() - t0:.1f}; card launches "
+              f"{ {n: c for n, c in launches.items() if c} }")
+        del params, leaves, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 def phase_train_chaos():
@@ -2810,8 +3347,10 @@ def kernel_records(recs, by_path):
     the tensor cores, and fp32 on SIMT), granite-moe-1b-a400m's training
     shape (``moe_case``) and granite-20b's MQA group of 48 (``mqa_case``)
     ride along, as do flash_attention's prefill shapes of the decoder-only
-    families (``decoder_cases``).  wkv6_bwd's and lru_scan_bwd's records
-    are rwkv6-3b's and recurrentgemma-2b's training shapes."""
+    families (``decoder_cases``) and both kernels' cases at
+    :data:`TRAIN_DECODERS`' training shapes (``train_cases``).  wkv6_bwd's
+    and lru_scan_bwd's records are rwkv6-3b's and recurrentgemma-2b's
+    training shapes."""
     out = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         paths = {arch: counts[name] for arch, counts in by_path.items()
@@ -2832,6 +3371,9 @@ def kernel_records(recs, by_path):
                 arch: {k: recs[f"{name}_{arch}"][k] for k in TIMED_KEYS}
                 for arch in NEW_DECODERS}
         if name in ("flash_attention", "flash_attention_bwd"):
+            rec["train_cases"] = {
+                arch: {k: recs[f"{name}_train_{arch}"][k] for k in TIMED_KEYS}
+                for arch in TRAIN_DECODERS}
             pre = name + "_"
             rec["multimodal_cases"] = {
                 key[len(pre):]: {k: recs[key].get(k) for k in
@@ -3096,6 +3638,16 @@ def main() -> int:
             empty_dir(tmp)
             print(f"train crash {arch} done at "
                   f"{time.perf_counter() - t_start:.1f} s")
+        # 9b. command-r-plus-104b's gradient at one layer
+        with ledger.phase(f"grad {GRAD_ARCH}"):
+            by_path[f"grad_{GRAD_ARCH}"] = phase_grad()
+        print(f"grad {GRAD_ARCH} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        # 9c. every family against the port's CPU path at published widths
+        with ledger.phase("model reference"):
+            by_path["model_reference"] = phase_model_reference()
+        print(f"model reference done at "
+              f"{time.perf_counter() - t_start:.1f} s")
         # 10. the sharding layer on a one-rank mesh, two dry-run cells
         with ledger.phase("mesh"):
             by_path["mesh"] = phase_mesh(tmp, card)

@@ -2,8 +2,9 @@
 
 ``get_config(name)`` returns the full published configuration;
 ``get_config(name, tiny=True)`` the reduced same-family config the CPU tests
-use.  Every family of the JAX package is registered; asking for another
-name raises a ``ValueError`` that names what is available.
+use; ``all_configs(tiny=)`` every family's, keyed by module name.  Every
+family of the JAX package is registered; asking for another name raises a
+``ValueError`` that names what is available.
 """
 from __future__ import annotations
 
@@ -39,3 +40,7 @@ def get_config(name: str, *, tiny: bool = False):
                          f"runs: {', '.join(sorted(ALIASES))}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.tiny() if tiny else mod.CONFIG
+
+
+def all_configs(*, tiny: bool = False):
+    return {a: get_config(a, tiny=tiny) for a in ARCHS}

@@ -329,10 +329,13 @@ def init_moe(generator, cfg: ModelConfig):
 
 MOE_GROUP = 2048  # tokens per dispatch group (GShard-style local capacity)
 
-#: when a list, :func:`moe_forward` appends each call's keep mask
-#: ``(G_count, G, k)`` bool (False: the (token, choice) pair was dropped
-#: for capacity) to it; instrumentation for parity checks, off by default
-keep_log: list | None = None
+#: when a list, :func:`moe_forward` appends each call's routing to it as a
+#: dict: ``experts`` ``(G_count, G, k)`` (each token's top k, largest
+#: first), ``keep`` ``(G_count, G, k)`` bool (False: the (token, choice)
+#: pair was dropped for capacity) and ``probs`` ``(G_count, G, E)`` fp32
+#: (the router's softmax); instrumentation for parity checks, off by
+#: default
+route_log: list | None = None
 
 
 def _pick(x, idx):
@@ -502,8 +505,9 @@ def _moe(p, x, cfg: ModelConfig, to_experts, from_experts,
         -1, dtype=torch.int32).transpose(1, 2).reshape(onehot.shape)
     pos = (seen * onehot).sum(-1) - 1
     keep = pos < cap
-    if keep_log is not None:
-        keep_log.append(keep)
+    if route_log is not None:
+        route_log.append({"experts": gate_idx, "keep": keep,
+                          "probs": probs.detach()})
     dev = x.device
     n_tok, n_slot = g_count * g, e * g_count * cap
     # slot id (expert, group, position): the expert rows are contiguous;

@@ -667,6 +667,26 @@ def test_flash_backward_at_the_train_main_path(cuda_device):
         assert g.transpose(1, 2).is_contiguous()
 
 
+# (B, H, KV, S, D) of the training shapes of deepseek-coder-33b (GQA group
+# 7), granite-20b (MQA, 48:1) and command-r-plus-104b (12) at global batch
+# 4 x 2048 tokens
+FA_BWD_TRAIN_SHAPES = [(4, 56, 8, 2048, 128), (4, 48, 1, 2048, 128),
+                       (4, 96, 8, 2048, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d", FA_BWD_TRAIN_SHAPES)
+def test_flash_backward_at_the_large_decoders_train_shapes(cuda_device, b, h,
+                                                           kv, s, d):
+    """bf16 causal, from the model's (B, S, H, D) projections as transposed
+    views, against the plain backward in fp32."""
+    rng = np.random.default_rng(h + kv)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).transpose(1, 2)
+        for n in (h, kv, kv))
+    _check_flash_bwd(q, k, v, _do_like(q, h))
+
+
 @pytest.mark.cuda
 def test_flash_backward_refuses_an_unported_head_dim(cuda_device):
     """D = 32 has no kernel in either direction (the backward takes 64,

@@ -159,12 +159,13 @@ def _moe_check(arch, p_np, x, **kw):
     tp = {k: torch.from_numpy(np.array(v)).requires_grad_()
           for k, v in p_np.items()}
     tx = torch.from_numpy(x.copy()).requires_grad_()
-    layers.keep_log = []
+    layers.route_log = []
     try:
         to, ta = layers.moe_forward(tp, tx, tcfg)
-        (keep,) = layers.keep_log
+        (route,) = layers.route_log
+        keep = route["keep"]
     finally:
-        layers.keep_log = None
+        layers.route_log = None
     (to * torch.from_numpy(dout)).sum().add(0.7 * ta).backward()
     want_keep, want_idx = _jax_keep(jp, jnp.asarray(x), jcfg)
     np.testing.assert_array_equal(keep.numpy(), want_keep)

@@ -68,8 +68,9 @@ IMPORT_RE = re.compile(
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert (ROOT / "chip_smoke.py").exists()
+    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_serve_depths.py"]
+    files = sorted(PORT.rglob("*.py")) + scripts
+    assert all(f.exists() for f in scripts)
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if IMPORT_RE.search(f.read_text())]
     assert not offenders, offenders
