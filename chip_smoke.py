@@ -8,18 +8,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA, no run;
 2. build: ``nvcc`` compiles every ``kernels/csrc/*.cu`` for sm_90a, in
    parallel, into ``build/kernels``; prints ptxas's registers and spill
-   bytes of the backward's kernels and fails if its bf16 (tensor-core)
-   kernels spill; ``cuobjdump -sass`` counts each library's ``HGMMA``
-   (wgmma) and ``UTMALDG`` (TMA load) instructions, and the run fails if a
-   bf16 flash-attention kernel, forward or backward, has none of either;
+   bytes of the flash-attention kernels (the fp32 split-TF32 ones among
+   them) and fails if the backward's bf16 (tensor-core) kernels spill;
+   ``cuobjdump -sass`` counts each library's ``HGMMA`` (wgmma),
+   ``UTMALDG`` (TMA load) and ``HMMA`` (mma.sync) instructions, and the
+   run fails if a bf16 flash-attention kernel, forward or backward, has
+   none of the first two, or an fp32 one (``*_split``) no ``HMMA``;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the JAX package's test shapes, at the serve paths' shapes and at large
    ones, with times (CUDA events, median of 25 after warm-up, the host's
    submission included, and the device's time alone) beside the plain
    version's, a library call's and the card's bound (and the share of it
    reached); bf16 flash attention also at a grid that covers every SM
-   (128-row query blocks), which must give the same bits, and its fp32
-   SIMT instance timed on its own; WKV6 also at its 16-token chunk edges
+   (128-row query blocks), which must give the same bits; every flash
+   call counts one launch and a repeat gives the same bits; WKV6 also at
+   its 16-token chunk edges
    and at both ends of log_w's clamp, against its sequential and its
    chunked plain version; WKV6 and pairwise distance give the same bits
    on a repeat call; the flash-attention backward against its plain
@@ -45,6 +48,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    bucket (causal), the backward at their training shapes, each timed
    beside SDPA, and the backward at cross and bidirectional cases with Sq
    and Sk apart (``FA_BWD_CROSS_CASES``) in fp32 and bf16;
+   B2's fp32 kernels (split TF32 on the tensor cores,
+   ``fp32_kernel_cases``): the kernels' TF32 rounding against
+   ``cvt.rna.tf32.f32`` over all 2^32 fp32 patterns (NaNs aside) and the
+   CPU emulation's on 2^20, both directions at the fp32 tiles' edges
+   (``FA_FP32_EDGE_S``), then forward and backward at
+   :data:`FA_FP32_TIMED` each timed beside SDPA's fp32 call (SDPA's
+   kernels' names printed), with the device time over SDPA's and the bound
+   at the split-TF32 rate (a third of 495 TFLOP/s), and a x1.1
+   softmax-scale mutant of the fp32 backward failing the limit;
 4. planner: the CRCH workflow planner at the paper's largest size, each
    of the four workflow types at 700 tasks on 20 VMs under each of the
    three failure environments: ``crch.plan`` on the card (PCA and B1 there,
@@ -92,6 +104,16 @@ Phases, in order; the first failure ends the run with a non-zero exit:
       others.
 
    Each family's engines are freed before the next family starts.
+
+   e. fp32 serve parity (``phase_serve_fp32``, ROADMAP Queue C check 2):
+      olmo-1b whole and recurrentgemma-2b at 5 layers with fp32 params
+      and compute, the same requests and no failures; every request's
+      engine tokens ("exact", or the first divergent step and the
+      reference's logit gap) against ``greedy_decode`` storing its cache
+      as the engine does (bf16, as in JAX) and against the plain fp32
+      ``greedy_decode``, each with delta measured on the engine's own path
+      (``fp32_parity``) and floored at :data:`FP32_DELTA_FLOOR`, a gap
+      over 4 x delta failing the run; the phase's seconds.
 
 6. train: olmo-1b at full width and depth (16 layers, d_model 2048, fp32
    params, bf16 compute, global batch 4 x 2048 tokens, deterministic
@@ -167,8 +189,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    relative in the 2-norm, a leaf at a time; whisper's four leaves whose
    gradient is 0 in exact arithmetic to 1e-7 of the whole gradient's norm)
    on the card (B2's fp32
-   forward and SIMT backward, B3, B4) against the same functions on the
-   CPU (the plain versions); the MoE families' routing first, token by
+   split-TF32 forward and backward, B3, B4) against the same functions on
+   the CPU (the plain versions); the MoE families' routing first, token by
    token (a difference is a near-tie only where the CPU's gate gap is at
    most 1e-5, and then only the logits of the last token whose routing
    agreed are held); each family's errors, leaf and seconds, and the
@@ -224,15 +246,30 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data-sheet peaks (dense): the bound of a kernel's time
+# H100 SXM data-sheet peaks (dense): the bound of a kernel's time.  B2's
+# fp32 kernels take every product as three TF32 products on the tensor
+# cores (split TF32), so their rate is a third of the 495 TFLOP/s TF32 peak
+# ("tf32x3"); the other fp32 kernels (B1, B3, B4) run on the fp32 FMA
+# pipes, 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12}   # fp32: no tensor core
+PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 SLEEP_CYCLES = 2_000_000   # ~1 ms at the H100's clock: covers a submission
 
 PA_SHAPES = [(16, 4), (100, 10), (130, 3), (256, 64), (4096, 10)]
 FA_TEST_SHAPES = [(1, 4, 2, 128, 128), (2, 8, 8, 256, 128),
                   (1, 2, 1, 130, 128), (1, 4, 2, 384, 256)]
 FA_BIG_SHAPES = [(1, 16, 16, 512, 128), (4, 16, 16, 2048, 128)]
+# B2's fp32 kernels (split TF32), forward and backward, each timed beside
+# SDPA's fp32 call at ((B, H, KV, S, D), window): olmo-1b's largest prefill
+# bucket and its training shape (causal), recurrentgemma-2b's training
+# shape (window 2048) and granite-moe-1b's (GQA 2 at D = 64)
+FA_FP32_TIMED = [((1, 16, 16, 512, 128), 0), ((4, 16, 16, 2048, 128), 0),
+                 ((2, 10, 1, 4096, 256), 2048), ((4, 16, 8, 2048, 64), 0)]
+# the fp32 tiles' edges at (1, 4, 2, S, D), D = 64, 128 and 256: 64 query
+# rows a block (forward, dQ pass), 64 or 32 keys a K/V tile split in two
+# halves (forward), 64 or 16 keys (dQ pass), 16 queries a dK/dV tile at
+# D = 256
+FA_FP32_EDGE_S = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 129)
 # fp32: the JAX tests' limit.  bf16 flash attention: the kernel rounds the
 # output to bf16 once and, on the tensor cores, each probability P to bf16
 # before the PV product (at most 2^-9 absolute, |P| <= 1), where the plain
@@ -609,7 +646,7 @@ def launch_cost(fn):
 def add_bound(rec, bytes_, flops, dtype):
     """The card's least time for the work (bytes once over the memory rate,
     operations over the peak for ``dtype``, the larger) and the share of it
-    the kernel reached."""
+    the kernel reached.  B2's fp32 work counts at the split-TF32 rate."""
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     rec["bound_ms"] = max(t_bytes, t_ops)
@@ -654,18 +691,22 @@ def ptxas_report(log):
 
 
 def phase_build_report(build):
-    """Every kernel's ptxas lines; the backward kernels' registers and spill
-    bytes by name, and no spill in its bf16 (tensor-core) kernels."""
+    """Every kernel's ptxas lines; the flash-attention kernels' registers
+    and spill bytes by name (the fp32 ones, ``*_split``, among them), and
+    no spill in the backward's bf16 (tensor-core) kernels."""
     for name, log in sorted(build.build_logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        rep = ptxas_report(build.build_logs.get(lib, ""))
+        check(rep, f"no ptxas report of {lib}")
+        for fn, r in sorted(rep.items()):
+            if fn.startswith("flash_"):
+                print(f"  ptxas {lib} {fn}: {r.get('registers')} registers, "
+                      f"spill stores {r.get('spill_stores')} B, spill loads "
+                      f"{r.get('spill_loads')} B")
     report = ptxas_report(build.build_logs.get("flash_attention_bwd", ""))
-    check(report, "no ptxas report of the flash-attention backward")
-    for fn, r in sorted(report.items()):
-        print(f"  ptxas flash_attention_bwd {fn}: {r.get('registers')} "
-              f"registers, spill stores {r.get('spill_stores')} B, spill "
-              f"loads {r.get('spill_loads')} B")
     tc = {fn: r for fn, r in report.items() if "_tc<" in fn}
     check(tc and all(r.get("spill_stores") == r.get("spill_loads") == 0
                      for r in tc.values()),
@@ -673,9 +714,10 @@ def phase_build_report(build):
 
 
 def phase_sass(build):
-    """Counts of HGMMA (wgmma) and UTMALDG (TMA load) in each library's SASS,
-    by kernel; the bf16 flash-attention kernels, forward and backward, must
-    hold both."""
+    """Counts of HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) in
+    each library's SASS, by kernel; the bf16 flash-attention kernels,
+    forward and backward, must hold HGMMA and UTMALDG, and the fp32 ones
+    (``*_split``: split TF32) HMMA."""
     import re
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     by_fn = {}
@@ -690,14 +732,15 @@ def phase_sass(build):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
             elif fn:
-                for op in ("HGMMA", "UTMALDG"):
+                for op in ("HGMMA", "UTMALDG", "HMMA"):
                     counts[fn][op] += op in line
         total = {op: sum(c[op] for c in counts.values())
-                 for op in ("HGMMA", "UTMALDG")}
+                 for op in ("HGMMA", "UTMALDG", "HMMA")}
         print(f"  sass {name}: HGMMA {total['HGMMA']}, UTMALDG "
-              f"{total['UTMALDG']} in {len(counts)} kernels")
+              f"{total['UTMALDG']}, HMMA {total['HMMA']} in {len(counts)} "
+              f"kernels")
         by_fn.update({f"{name}:{fn}": c for fn, c in counts.items()})
     tc = {fn: c for fn, c in by_fn.items()
           if any(fn.startswith(f"flash_attention{lib}:") and k in fn
@@ -718,6 +761,14 @@ def phase_sass(build):
                      for c in tc.values()),
           "a bf16 flash-attention kernel holds no HGMMA or no UTMALDG "
           "instruction")
+    split = {fn: c for fn, c in by_fn.items()
+             if fn.startswith("flash_attention") and "_split" in fn}
+    for fn, c in sorted(split.items()):
+        print(f"    {fn[:60]}: HMMA {c['HMMA']}")
+    # the forward, the dQ and the dK/dV pass at each of D = 64, 128, 256
+    check(len(split) == 9 and all(c["HMMA"] > 0 for c in split.values()),
+          f"the fp32 flash-attention kernels are not 9 kernels on the tensor "
+          f"cores (HMMA): {split}")
 
 
 # ---------------------------------------------------------------------------
@@ -804,13 +855,17 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                .to("cuda", dt)
                for shape in ((b, h, s, d), (b, kv, sk, d), (b, kv, sk, d)))
+    before = ops.flash_attention.launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    counted = ops.flash_attention.launches == before + 1
+    same = bool(torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
+                                                     window=window)))
     want = ref.attention(q, k, v, causal=causal, window=window)
     err = float((got.float() - want.float()).abs().max())
     ok = bool(torch.allclose(got.float(), want.float(), **FA_TOL[dtype_name]))
     rec = {"shape": [b, h, kv, s, d], "dtype": dtype_name, "causal": causal,
-           "window": window, "max_abs_err": err, "ok": ok}
+           "window": window, "max_abs_err": err, "ok": ok and same}
     if sk != s:
         rec["sk"] = sk
     wide = (flash_wide_grid_check(q, k, v, got, causal, window)
@@ -831,17 +886,28 @@ def flash_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
             time_kernel(rec, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, **gqa), "library_")
         add_bound(rec, *launch_cost(lambda: ops.flash_attention(
-            q, k, v, causal=causal, window=window)), dtype_name)
+            q, k, v, causal=causal, window=window)), _peak_key(dtype_name))
     tol = FA_TOL[dtype_name]
     mode = _mode(s, sk, causal, window)
     print(f"  flash_attention {(b, h, kv, s, d)} {dtype_name} {mode}: "
-          f"max_abs_err {err:.3g} (atol {tol['atol']} rtol {tol['rtol']}) "
-          f"{'ok' if ok else 'FAIL'}"
+          f"max_abs_err {err:.3g} (atol {tol['atol']} rtol {tol['rtol']}); "
+          f"repeat {'same bits' if same else 'DIFFERS'} "
+          f"{'ok' if rec['ok'] else 'FAIL'}"
           + (f", same bits at {wide} blocks of 128 rows" if wide else "")
           + (_timing_text(rec, "sdpa") if timed else ""))
+    check(counted, f"flash_attention {(b, h, kv, s, d)} {dtype_name}: one "
+                   f"call did not count one launch")
     check(ok, f"flash_attention {(b, h, kv, s, d)} {dtype_name} "
               f"{mode} disagrees with its plain version")
+    check(same, f"flash_attention {(b, h, kv, s, d)} {dtype_name}: a repeat "
+                f"call changed the bits")
     return rec
+
+
+def _peak_key(dtype_name):
+    """The peak rate B2's work counts against: bf16's, or for fp32 the
+    split-TF32 rate (three TF32 products a product)."""
+    return "tf32x3" if dtype_name == "float32" else dtype_name
 
 
 def _bwd_inputs(b, h, kv, s, d, dtype_name, window, sk=None):
@@ -916,8 +982,10 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
     lse_want = ref.attention_lse(q, k, v, **kw)
     lse_err = float((lse - lse_want).abs().max())
     lse_ok = bool(torch.allclose(lse, lse_want, **LSE_TOL))
+    before = ops.flash_attention_bwd.launches
     got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
+    counted = ops.flash_attention_bwd.launches == before + 1
     want = ref.attention_backward(q.float(), k.float(), v.float(), o.float(),
                                   lse, do.float(), **kw)
     err, nerr, ok = _bwd_check(got, want, dtype_name)
@@ -943,9 +1011,14 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
         time_kernel(rec, lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), "library_")
         add_bound(rec, *launch_cost(lambda: ops.flash_attention_bwd(
-            q, k, v, o, lse, do, **kw)), dtype_name)
+            q, k, v, o, lse, do, **kw)), _peak_key(dtype_name))
         rec["passes_device_ms"] = kernel_device_ms(
             lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        if dtype_name == "float32":
+            # the dQ and dK/dV passes are the split-TF32 kernels
+            check(sum("_split<" in name for name in rec["passes_device_ms"])
+                  == 2, f"the fp32 backward's kernels are not the split-TF32 "
+                        f"passes: {sorted(rec['passes_device_ms'])}")
     tol = FA_BWD_TOL[dtype_name]
     mode = _mode(s, sk, causal, window)
     print(f"  flash_attention_bwd {(b, h, kv, s, d)} {dtype_name} {mode}: "
@@ -960,6 +1033,8 @@ def flash_bwd_case(b, h, kv, s, d, dtype_name, causal, *, timed, window=0,
     for name, ms in rec.get("passes_device_ms", {}).items():
         print(f"    flash_attention_bwd pass {name}: {ms:.4f} ms of device "
               f"time a call")
+    check(counted, f"flash_attention_bwd {(b, h, kv, s, d)} {dtype_name}: "
+                   f"one call did not count one launch")
     check(ok, f"flash_attention_bwd {(b, h, kv, s, d)} {dtype_name} {mode} "
               f"disagrees with its plain version")
     check(lse_ok, f"flash_attention lse {(b, h, kv, s, d)} {dtype_name} "
@@ -1320,7 +1395,6 @@ def decoder_kernel_cases(recs):
         flash_case(*shape, "float32", True, timed=False)
     recs["flash_attention_bwd_moe"] = flash_bwd_case(
         *FA_BWD_MOE_MAIN, "bfloat16", True, timed=True)
-    flash_bwd_case(*FA_BWD_MOE_MAIN, "float32", True, timed=False)
     for shape in FA_BWD_GROUP_CASES:
         mqa = shape[1] // shape[2] == 48
         rec = flash_bwd_case(*shape, "bfloat16", True, timed=mqa)
@@ -1340,6 +1414,108 @@ def decoder_kernel_cases(recs):
               f"{bwd['device_ms'] / bwd['library_device_ms']:.2f}x "
               f"({shape[0] * shape[2] * -(-shape[3] // 64)} dK/dV blocks "
               f"of 64 keys)")
+
+
+def tf32_round_case():
+    """The fp32 kernels' rounding of their operands' hi parts (tf32::rna in
+    csrc/tf32.cuh: two integer ops) against cvt.rna.tf32.f32 over all 2^32
+    fp32 bit patterns but the NaNs (their operands are finite), and
+    ``ref.tf32_round`` (the CPU emulation's rounding) against cvt.rna.tf32
+    .f32 on 2^20 seeded patterns, NaNs included, bit for bit."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ref
+    fn = _build.load("flash_attention").flash_tf32_round
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def round_on_card(x):
+        cvt, rna = torch.empty_like(x), torch.empty_like(x)
+        err = fn(x.data_ptr(), cvt.data_ptr(), rna.data_ptr(), x.numel(),
+                 stream)
+        check(err == 0, f"flash_tf32_round launch failed: CUDA error {err}")
+        return cvt.view(torch.int32), rna.view(torch.int32)
+
+    t0 = time.perf_counter()
+    chunk, differ, nans = 1 << 28, 0, 0
+    for start in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(start, start + chunk, device="cuda",
+                         dtype=torch.int64).to(torch.int32).view(torch.float32)
+        cvt, rna = round_on_card(x)
+        nan = torch.isnan(x)
+        differ += int(((cvt != rna) & ~nan).sum())
+        nans += int(nan.sum())
+        del x, cvt, rna, nan
+    bits = np.random.default_rng(0).integers(
+        0, 2 ** 32, 1 << 20, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    x = torch.from_numpy(bits.copy())
+    cvt, _ = round_on_card(x.cuda().view(torch.float32))
+    want = ref.tf32_round(x.view(torch.float32)).view(torch.int32)
+    ref_differ = int((cvt.cpu() != want).sum())
+    print(f"  tf32 rounding: tf32::rna differs from cvt.rna.tf32.f32 on "
+          f"{differ} of the {2 ** 32 - nans} non-NaN fp32 patterns; "
+          f"ref.tf32_round on {ref_differ} of 2^20 seeded patterns "
+          f"({int(torch.isnan(x.view(torch.float32)).sum())} NaNs) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(differ == 0, "the fp32 kernels' TF32 rounding differs from "
+                       "cvt.rna.tf32.f32")
+    check(ref_differ == 0, "ref.tf32_round differs from cvt.rna.tf32.f32")
+
+
+def sdpa_kernel_names(b, h, kv, s, d):
+    """The kernels SDPA's fp32 call and its backward launch at a causal
+    (b, h, kv, s, d), from one profile of both: the yardstick's route."""
+    import torch
+    q, k, v, do = _bwd_inputs(b, h, kv, s, d, "float32", 0)
+
+    def forward_backward():
+        leaves, out = _sdpa_graph(q, k, v, True, 0)
+        torch.autograd.grad(out, leaves, do)
+
+    names = sorted(kernel_device_ms(forward_backward, reps=3))
+    print(f"  SDPA fp32 at {(b, h, kv, s, d)}, forward and backward: "
+          f"kernels {names}")
+
+
+def fp32_kernel_cases(recs):
+    """B2's fp32 kernels (split TF32 on the tensor cores): forward and
+    backward at their tiles' edges (:data:`FA_FP32_EDGE_S`, D = 64, 128 and
+    256, causal and bidirectional), then each direction at
+    :data:`FA_FP32_TIMED` timed beside SDPA's fp32 call, with the kernel's
+    device time over SDPA's.  The other fp32 cases (the JAX test shapes,
+    the backward's edges, GQA groups, windows, Sq != Sk) run beside their
+    bf16 twins."""
+    tf32_round_case()
+    for d in (64, 128, 256):
+        for s in FA_FP32_EDGE_S:
+            for causal in (True, False):
+                flash_case(1, 4, 2, s, d, "float32", causal, timed=False)
+            if d == 256:
+                flash_bwd_case(1, 4, 2, s, d, "float32", True, timed=False)
+    sdpa_kernel_names(*FA_FP32_TIMED[0][0])
+    fwd_recs, bwd_recs = {}, {}
+    for shape, window in FA_FP32_TIMED:
+        tag = "x".join(map(str, shape)) + (f"_w{window}" if window else "")
+        fwd = flash_case(*shape, "float32", True, timed=True, window=window)
+        bwd = flash_bwd_case(*shape, "float32", True, timed=True,
+                             window=window)
+        fwd_recs[tag], bwd_recs[tag] = fwd, bwd
+        print(f"  B2 fp32 (split TF32) at {shape}"
+              + (f" window {window}" if window else " causal")
+              + f": device ms, kernel / SDPA's fp32: forward "
+              f"{fwd['device_ms']:.4f} / {fwd['library_device_ms']:.4f} = "
+              f"{fwd['device_ms'] / fwd['library_device_ms']:.2f}x, "
+              f"backward {bwd['device_ms']:.4f} / "
+              f"{bwd['library_device_ms']:.4f} = "
+              f"{bwd['device_ms'] / bwd['library_device_ms']:.2f}x")
+    recs["flash_attention_fp32"] = fwd_recs["1x16x16x512x128"]
+    recs["flash_attention_bwd_d256_fp32"] = bwd_recs["2x10x1x4096x256_w2048"]
+    recs["flash_attention_fp32_cases"] = fwd_recs
+    recs["flash_attention_bwd_fp32_cases"] = bwd_recs
 
 
 def multimodal_shapes():
@@ -1414,10 +1590,10 @@ def phase_kernels():
     fa_recs = [flash_case(*shape, "bfloat16", True, timed=True)
                for shape in fa_main]
     recs["flash_attention"] = max(fa_recs, key=lambda r: r["shape"][3])
-    # the fp32 SIMT kernel, at the tight limit, timed on its own
-    fp32_recs = [flash_case(*shape, "float32", True, timed=True)
-                 for shape in fa_main]
-    recs["flash_attention_fp32"] = max(fp32_recs, key=lambda r: r["shape"][3])
+    # the fp32 kernels (split TF32) at the prefill buckets, at the tight
+    # limit; timed below (FA_FP32_TIMED)
+    for shape in fa_main:
+        flash_case(*shape, "float32", True, timed=False)
     recs["flash_attention_window"] = flash_case(
         *fw_shape, "bfloat16", True, timed=True, window=window)
     flash_case(*fw_shape, "float32", True, timed=True, window=window)
@@ -1440,7 +1616,6 @@ def phase_kernels():
     # the backward: olmo-1b's training shape, then its edges and cases
     recs["flash_attention_bwd"] = flash_bwd_case(*FA_BWD_MAIN, "bfloat16",
                                                  True, timed=True)
-    flash_bwd_case(*FA_BWD_MAIN, "float32", True, timed=False)
     flash_bwd_mutant_case(*FA_BWD_MAIN, "bfloat16")
     for dt in ("float32", "bfloat16"):
         for d in (64, 128):
@@ -1456,10 +1631,8 @@ def phase_kernels():
     recs["flash_attention_bwd_d256"] = flash_bwd_case(
         *FA_BWD_256_MAIN, "bfloat16", True, timed=True,
         window=FA_BWD_256_WINDOW)
-    recs["flash_attention_bwd_d256_fp32"] = flash_bwd_case(
-        *FA_BWD_256_MAIN, "float32", True, timed=True,
-        window=FA_BWD_256_WINDOW)
     flash_bwd_mutant_case(1, 10, 1, 700, 256, "bfloat16", window=200)
+    flash_bwd_mutant_case(1, 10, 1, 700, 256, "float32", window=200)
     for dt in ("float32", "bfloat16"):
         for s in FA_BWD_256_EDGE_S:
             flash_bwd_case(1, 10, 1, s, 256, dt, True, timed=False,
@@ -1467,6 +1640,7 @@ def phase_kernels():
         for b, h, kv, s, d, causal, window in FA_BWD_256_CASES:
             flash_bwd_case(b, h, kv, s, d, dt, causal, timed=False,
                            window=window)
+    fp32_kernel_cases(recs)
     decoder_kernel_cases(recs)
     multimodal_kernel_cases(recs)
     recs["wkv6_bwd"] = wkv6_bwd_case(*WKV_BWD_MAIN, "bfloat16", False,
@@ -1976,6 +2150,162 @@ def phase_family(arch):
         f"{name} {b - a:.1f}" for name, a, b in zip(
             ("serve", "profile", "fault transparency", "reference"),
             t, t[1:])))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the fp32 serve parity (ROADMAP Queue C, check 2): olmo-1b whole and
+#: recurrentgemma-2b at 5 layers, the depth where the bf16 rule measured a
+#: logit difference of 0 (so a bound of 0) and a request parted from the
+#: reference at decode step 41; fp32 params and compute (B2's split-TF32
+#: kernels at the engine's prefill buckets), no failures.  delta is floored
+#: at FP32_DELTA_FLOOR so that a bound cannot be 0
+FP32_SERVE = {"olmo-1b": None, "recurrentgemma-2b": 5}
+FP32_DELTA_FLOOR = 1e-4
+
+
+def fp32_parity(res):
+    """The fp32 engine's tokens against ``greedy_decode`` two ways, each
+    held to 4 x delta, delta the larger of the measured path differences
+    and :data:`FP32_DELTA_FLOOR`.  The engine stores its cache in bf16
+    whatever the compute dtype (``lm.init_cache``, as JAX's engine does),
+    where ``greedy_decode`` keeps the compute dtype (as JAX's prefill
+    does), so the paths differ by that storage, and by the bucket prefill
+    and the decode batch:
+
+    * like for like: ``greedy_decode`` storing its cache as the engine
+      does (``cache_dtypes``); delta from the prefill logits (bucket
+      against exact length) and the first decode step (the bucket
+      prefill's cache as the engine stores it, batch of every slot,
+      against the exact prefill's stored the same way, batch 1);
+    * fp32 end to end: the plain ``greedy_decode``; delta the same, its
+      first decode step against the fp32-cache reference's.
+
+    Prints every request's outcome ("exact", or the first divergent step
+    and the reference's logit gap) and returns the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.steps import (make_prefill_step,
+                                               make_serve_step)
+    from repro_torch.serve import greedy_decode
+    from repro_torch.serve.engine import prefill_inputs
+    from repro_torch.serve.snapshot import cache_batch_axes
+    eng, cfg = res["engine"], res["engine"].cfg
+    params, cache_len = eng.params, res["cache_len"]
+    axes = cache_batch_axes(cfg, cache_len)
+    pre = make_prefill_step(cfg, cache_len)
+    serve = make_serve_step(cfg)
+    n = eng.pool.n_slots
+    stored = {k: v.dtype for k, v in eng.cache.items()}
+
+    def as_stored(c):
+        return {k: v.to(stored[k], copy=True) for k, v in c.items()}
+
+    def first_step(cache, tok, width, pos):
+        c = {k: v.repeat_interleave(width, dim=axes[k]) for k, v in
+             cache.items()}
+        return serve(params, c, tok.expand(width, 1), pos)[1][0]
+
+    off = cfg.n_image_tokens
+    d_pre = d_like = d_fp32 = 0.0
+    for r in res["requests"]:
+        p = r.prompt_len
+        toks = np.zeros((1, _prefill_len(cfg, p)), dtype=np.int32)
+        toks[0, :p] = r.prompt
+        lb, cache_b = pre(params, prefill_inputs(cfg, r, toks, "cuda"),
+                          torch.tensor([off + p - 1], device="cuda"))
+        le, cache_e = pre(params, prefill_inputs(cfg, r, toks[:, :p].copy(),
+                                                 "cuda"))
+        d_pre = max(d_pre, float((lb - le).abs().max()))
+        tok = torch.argmax(le, -1).to(torch.int32)[:, None]
+        engine = first_step(as_stored(cache_b), tok, n, off + p)
+        like = first_step(as_stored(cache_e), tok, 1, off + p)
+        fp32 = first_step(cache_e, tok, 1, off + p)
+        d_like = max(d_like, float((engine - like).abs().max()))
+        d_fp32 = max(d_fp32, float((engine - fp32).abs().max()))
+        del cache_b, cache_e
+    out = {}
+    for label, dtypes, measured in (
+            ("like for like (the engine's cache storage)", stored,
+             max(d_pre, d_like)),
+            ("fp32 end to end (greedy_decode's fp32 cache)", None,
+             max(d_pre, d_fp32))):
+        delta = max(measured, FP32_DELTA_FLOOR)
+        bound = 4 * delta
+        print(f"  fp32 parity {cfg.name}, {label}: measured delta "
+              f"{measured:.4g} (prefill {d_pre:.4g}), floored "
+              f"{delta:.4g}, bound {bound:.4g}")
+        exact, worst = 0, 0.0
+        for r in res["requests"]:
+            got = eng.output(r.rid)
+            ref_toks, logits = greedy_decode(params, cfg, r, cache_len,
+                                             device="cuda", expect=got,
+                                             cache_dtypes=dtypes)
+            t = next((i for i, (a, b) in enumerate(zip(got, ref_toks))
+                      if a != b), None)
+            if t is None:
+                check(len(got) == len(ref_toks), f"rid {r.rid}: length "
+                                                 f"differs")
+                exact += 1
+                print(f"    rid {r.rid}: exact ({len(got)} tokens)")
+                continue
+            check(t == len(ref_toks) - 1, f"rid {r.rid}: decoded past a "
+                                          f"divergence")
+            gap = float(logits[t, ref_toks[t]] - logits[t, got[t]])
+            worst = max(worst, gap)
+            print(f"    rid {r.rid}: first differs at step {t} (engine "
+                  f"{got[t]}, reference {ref_toks[t]}), reference gap "
+                  f"{gap:.4g} {'<=' if gap <= bound else '>'} bound")
+            check(gap <= bound, f"fp32 {cfg.name} rid {r.rid} ({label}): "
+                                f"divergence at step {t} with logit gap "
+                                f"{gap:.4g} > bound {bound:.4g}")
+        print(f"  fp32 parity {cfg.name}, {label}: {exact}/"
+              f"{len(res['requests'])} token-exact, largest divergence gap "
+              f"{worst:.4g}")
+        out[label.split(" (")[0]] = {"exact": exact, "delta": delta,
+                                     "measured": measured, "bound": bound,
+                                     "worst_gap": worst}
+    return out
+
+
+def phase_serve_fp32(arch, layers):
+    """``arch`` served in fp32 (published widths, ``layers`` of its depth or
+    all) by the launcher's engine with the serve phase's requests and no
+    failures; every request must complete and the fp32 flash forward must
+    have run; then :func:`fp32_parity`.  Prints the phase's seconds and
+    returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    counted = wrappers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fn in counted.values():
+        fn.launches = 0
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    t0 = time.perf_counter()
+    args = launch.build_parser().parse_args(serve_args(arch)
+                                            + ["--env", "none"])
+    res = launch.continuous_main(cfg, args)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    n = len(res["requests"])
+    done = int(res["summary"]["completed"])
+    print(f"serve fp32 {arch}: {cfg.n_layers} of {get_config(arch).n_layers} "
+          f"layers, fp32 params and compute (cache stored as "
+          f"{sorted({str(v.dtype) for v in res['engine'].cache.values()})}), "
+          f"{done}/{n} requests completed in "
+          f"{time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: c for k, c in launches.items() if c} }")
+    check(done == n, f"fp32 {arch}: {done}/{n} requests completed")
+    check(launches["flash_attention"] > 0,
+          f"the fp32 {arch} serve path never launched flash_attention")
+    fp32_parity(res)
+    print(f"serve fp32 {arch}: phase {time.perf_counter() - t0:.1f} s")
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -2924,8 +3254,9 @@ def phase_model_reference():
     weights drawn on the card by ``lm.init_params`` from a seed and copied
     to the host: ``lm.prefill``'s logits and ``make_grad_fn``'s loss and
     gradients on one seeded row of :data:`REF_TOKENS` tokens, on the card
-    (the hand-written kernels in fp32: B2's forward and SIMT backward, B3,
-    B4) against the same port functions on the CPU (the plain versions),
+    (the hand-written kernels in fp32: B2's split-TF32 forward and
+    backward, B3, B4) against the same port functions on the CPU (the plain
+    versions),
     held by :func:`compare_reference`.  Prints each family's line (depth,
     tokens, the largest logit, loss and gradient error and its leaf,
     near-ties, seconds) and the host's memory.  Returns the card sides'
@@ -3339,12 +3670,14 @@ def kernel_records(recs, by_path):
     """One JSON record per kernel: its main-path timing, its launches summed
     over the planner, serve and train paths and per path.
     flash_attention's record is olmo's causal bf16 prefill (tensor cores);
-    its windowed (recurrentgemma) case, its fp32 (SIMT) instance at olmo's
-    shape and its case at olmo-1b's training shape ride along, as do
+    its windowed (recurrentgemma) case, its fp32 (split TF32) instance at
+    olmo's shape and its case at olmo-1b's training shape ride along, as
+    do both kernels' fp32 cases at :data:`FA_FP32_TIMED` (``fp32_cases``),
+    as do
     pairwise_distance's (4096, 10) case and its planner case (montage's
     700-task projection).  flash_attention_bwd's record is olmo-1b's
-    training shape; its D = 256 instance at recurrentgemma-2b's (bf16 on
-    the tensor cores, and fp32 on SIMT), granite-moe-1b-a400m's training
+    training shape; its D = 256 instance at recurrentgemma-2b's (bf16 and
+    fp32, both on the tensor cores), granite-moe-1b-a400m's training
     shape (``moe_case``) and granite-20b's MQA group of 48 (``mqa_case``)
     ride along, as do flash_attention's prefill shapes of the decoder-only
     families (``decoder_cases``) and both kernels' cases at
@@ -3380,6 +3713,10 @@ def kernel_records(recs, by_path):
                                  TIMED_KEYS + ("sk", "causal")}
                 for key in recs
                 if key.startswith((pre + "whisper", pre + "llava"))}
+        if name in ("flash_attention", "flash_attention_bwd"):
+            rec["fp32_cases"] = {
+                tag: {"window": r["window"], **{k: r[k] for k in TIMED_KEYS}}
+                for tag, r in recs[name + "_fp32_cases"].items()}
         if name == "flash_attention_bwd":
             for case in ("d256", "d256_fp32"):
                 rec[case + "_case"] = {
@@ -3605,6 +3942,11 @@ def main() -> int:
     for arch in FAMILIES:
         by_path[arch] = phase_family(arch)
         print(f"{arch} done at {time.perf_counter() - t_start:.1f} s")
+    # 5e. fp32 serve parity: the engine against the greedy reference
+    for arch, layers in FP32_SERVE.items():
+        by_path[f"serve_fp32_{arch}"] = phase_serve_fp32(arch, layers)
+        print(f"serve fp32 {arch} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
     # 6-9. training: olmo-1b at full width with a crash, then every fault
     # class; the recurrent families
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")

@@ -64,9 +64,18 @@
 //     order, row sums reduce over the 4 lanes of a row by a butterfly, and
 //     the output is bit-identical from run to run (and between Bq = 64 and
 //     128: a tile wholly masked for a row leaves it unchanged).
-// fp32 inputs keep the first version's SIMT kernel (flash_fwd_simt): the
-// tensor cores would take them as TF32, which breaks the 2e-4 fp32 limit;
-// no caller on the serve path passes fp32.
+// fp32 inputs run on the tensor cores too (flash_fwd_split below), each
+// product as a split TF32 product (tf32.cuh: three TF32 products of the
+// operands' hi and lo parts, fp32 accumulators), which keeps the 2e-4 fp32
+// limit where one TF32 pass would break it; P stays fp32 up to its split.
+// They are mma.sync products from fragments loaded by hand: wgmma takes
+// 32-bit operands from shared memory only K-major, with no transpose, and
+// P V (V's contiguous dim is D, not the keys) would need V transposed into
+// shared memory.  Its bound is operations at a third of the 495 TFLOP/s
+// TF32 rate; what holds it to ~0.2 of that is instruction issue: each
+// element a warp loads costs its load and its split (3 ops) for three
+// mma.  The model reference (chip_smoke.py) and fp32 models call it; bf16
+// serve and train paths do not.
 // Both kernels can also write each row's log-sum-exp of the scaled scores,
 // m * scale + log(l), which the backward (csrc/flash_attention_bwd.cu)
 // takes to recompute P; the serve path passes no lse buffer, and the
@@ -75,6 +84,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -83,187 +93,255 @@ using hopper::Strides;
 constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
-// fp32: the SIMT kernel
-//   * a block owns 64 query rows of one (batch, head); 256 threads as
-//     16 x 16, each thread 4 query rows x (Bk / 16) keys of the score tile
-//     and 4 rows x (D / 16) columns of the output accumulator, all in
-//     registers, so each shared-memory read feeds 4 FMAs;
-//   * the query tile is staged once; K/V tiles (Bk = 64, 32 at D = 256 to
-//     fit shared memory) are staged per step, rows padded so that the
-//     column reads hit distinct banks;
-//   * row max and row sum are butterfly shuffles over the 16 lanes that
-//     hold a row (every lane ends with the same bits).
+// fp32: the split-TF32 kernel (mma.sync on the tensor cores; tf32.cuh)
+//   * a block owns 64 query rows of one (batch, head): 8 warps, two a
+//     group of 16 rows, each of the two on half of every K/V tile's keys
+//     with its own 16 x D fp32 O accumulator (D / 2 registers), merged at
+//     the end; K/V tiles (Bk = 64 keys, 32 at D = 256 to fit shared
+//     memory) in a ring of 2 filled by cp.async, the next tile's copies in
+//     flight while this one's products run; Q staged once;
+//   * S = Q K^T and O += P V are split products (tf32.cuh): Q, K, V and P
+//     are each split into hi + lo as their fragments are loaded, P straight
+//     from the S accumulator's registers (acc_as_a), so it never touches
+//     shared memory and stays fp32 to the split;
+//   * the online softmax, the masks, the tile range and the output are
+//     those of the tensor-core kernel below, in fp32 (its softmax_tile
+//     arithmetic on the same accumulator layout); one visiting order, no
+//     atomics: the bits are the same from run to run.
 // ---------------------------------------------------------------------------
 
-namespace simt {
+namespace fp32 {
 
-constexpr int kBq = 64;        // query rows per block
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = 4;       // query rows per thread (16 * 4 = kBq)
+using namespace tf32;
+using hopper::ex2;
 
 template <int D>
-struct Cfg {
-  static constexpr int kBk = D >= 256 ? 32 : 64;  // keys per tile
-  static constexpr int kCols = kBk / 16;          // score columns per thread
-  static constexpr int kOcols = D / 16;           // output columns per thread
-  static constexpr int kKld = D + 1;              // padded Q/K row
-  static constexpr int kPld = kBk + 4;            // padded P row
-  static constexpr size_t kSmem =
-      sizeof(float) * (kBq * kKld + kBk * kKld + kBk * D + kBq * kPld);
+struct Tile {
+  static constexpr int kBq = 64;                  // query rows: 4 groups
+  static constexpr int kBk = D <= 128 ? 64 : 32;  // keys a K/V tile
+  static constexpr int kKw = kBk / 2;             // keys a warp a tile
+  static constexpr int kThreads = 256;
+  static constexpr int kLd = D + 4;               // padded row, floats
+  static constexpr int kQ = kBq * kLd;
+  static constexpr int kKV = kBk * kLd;
+  // Q | K[2] | V[2]; after the loop K/V hold the merge's partial results
+  static constexpr int kSmem = 4 * (kQ + 4 * kKV);
+  static_assert(kSmem <= 232448, "tiles do not fit shared memory");
+  static_assert(4 * kKV >= kBq * kLd + 2 * kBq, "no room for the merge");
 };
 
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
+// Warps w and w + 4 own the same 16 query rows (group w % 4) and take the
+// first and the second half of each K/V tile's keys, each with its own
+// online softmax (m, l) and O accumulator; at the end the second warp's
+// (m, l, O) goes through shared memory to the first, which merges the two
+// in fp32 and writes the rows.  Eight warps an SM at every grid size (the
+// longest block of a one-wave grid, the serve prefill's, halves its walk).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, int H,
-               int group, int Sq, int Sk, int causal, int window, float scale,
-               Strides qst, Strides kst, Strides vst, Strides ost) {
-  using C = Cfg<D>;
-  constexpr int Bk = C::kBk;
-  extern __shared__ float smem[];
-  float* Qs = smem;                // [kBq][kKld]
-  float* Ks = Qs + kBq * C::kKld;  // [Bk][kKld]
-  float* Vs = Ks + Bk * C::kKld;   // [Bk][D]
-  float* Ps = Vs + Bk * D;         // [kBq][kPld]
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_split(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ lse, int H, int group, int Sq, int Sk,
+                int causal, int window, float scale_log2, Strides qst,
+                Strides kst, Strides vst, Strides ost) {
+  using T = Tile<D>;
+  constexpr int Bq = T::kBq, Bk = T::kBk, Kw = T::kKw, L = T::kLd;
+  constexpr int NB = Kw / 8;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + T::kQ;
+  float* Vs = Ks + 2 * T::kKV;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int hk = h / group;
-  const int q0 = blockIdx.x * kBq;
-
-  const float* qb = q + b * qst.b + h * qst.h;
+  const int tid = threadIdx.x, lane = tid % 32;
+  // warp-uniform: the row group and key half of this warp
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int rg = warp % 4, kh = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  // the longest blocks (last query tiles under causal) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Bq;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / group;
   const float* kb = k + b * kst.b + hk * kst.h;
   const float* vb = v + b * vst.b + hk * vst.h;
-  float* ob = o + b * ost.b + h * ost.h;
-
-  for (int idx = tid; idx < kBq * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    const int qi = q0 + r;
-    Qs[r * C::kKld + d] = qi < Sq ? qb[qi * qst.s + d] : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][C::kOcols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::kOcols; ++c) acc[i][c] = 0.f;
-  }
 
   int n_tiles = (Sk + Bk - 1) / Bk;
-  if (causal) {
-    const int q_last = min(q0 + kBq, Sq) - 1;
-    n_tiles = min(n_tiles, q_last / Bk + 1);
-  }
+  if (causal) n_tiles = min(n_tiles, (min(q0 + Bq, Sq) - 1) / Bk + 1);
   // the first key any row of this block may see is q0 - window + 1
   const int t_first = window > 0 ? max(q0 - window + 1, 0) / Bk : 0;
+  const int n_iter = max(n_tiles - t_first, 0);
 
-  for (int t = t_first; t < n_tiles; ++t) {
-    const int k0 = t * Bk;
-    __syncthreads();  // the previous tile's PV reads are done
-    for (int idx = tid; idx < Bk * D; idx += kThreads) {
-      const int r = idx / D, d = idx % D;
-      const int kj = k0 + r;
-      const bool ok = kj < Sk;
-      Ks[r * C::kKld + d] = ok ? kb[kj * kst.s + d] : 0.f;
-      Vs[r * D + d] = ok ? vb[kj * vst.s + d] : 0.f;
+  auto load_kv = [&](int j) {
+    const int st = j & 1, k0 = (t_first + j) * Bk;
+    load_rows<D, Bk, 256>(Ks + st * T::kKV, kb, kst.s, k0, Sk);
+    load_rows<D, Bk, 256>(Vs + st * T::kKV, vb, vst.s, k0, Sk);
+  };
+  load_rows<D, Bq, 256>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
+  if (n_iter > 0) load_kv(0);
+  cp_async_commit();
+
+  // this thread's rows row0 and row1 = row0 + 8 of the group's 16
+  const int qw0 = q0 + rg * 16;
+  const int row0 = qw0 + g, row1 = row0 + 8;
+  const float* Qw = Qs + rg * 16 * L;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < n_iter; ++j) {
+    if (j + 1 < n_iter) {
+      load_kv(j + 1);  // into the stage tile j-1 left
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    float s[kRows][C::kCols];
+    // this warp's keys of the tile
+    const float* Kt = Ks + (j & 1) * T::kKV + kh * Kw * L;
+    const float* Vt = Vs + (j & 1) * T::kKV + kh * Kw * L;
+    const int k0 = (t_first + j) * Bk + kh * Kw;
+    // keys all past Sk, right of the diagonal or left of the window for
+    // every row of the warp: nothing to add (m, l and O stay as they are)
+    const bool skip = k0 >= Sk || (causal && k0 > qw0 + 15) ||
+                      (window > 0 && qw0 - (k0 + Kw - 1) >= window);
+    if (!skip) {
+      // S = Q K^T, raw scores
+      float s[NB][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < C::kCols; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[C::kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty * kRows + i) * C::kKld + d];
-#pragma unroll
-      for (int j = 0; j < C::kCols; ++j) kv[j] = Ks[(tx + 16 * j) * C::kKld + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < C::kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + ty * kRows + i;
-      float rmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < C::kCols; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool valid = kj < Sk && (!causal || qi >= kj) &&
-                           (window <= 0 || qi - kj < window);
-        const float x = valid ? s[i][j] * scale : kNegInf;
-        s[i][j] = x;
-        rmax = fmaxf(rmax, x);
+      for (int n = 0; n < NB; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {
+        FragA a;
+        load_a(a, Qw + kk * 8, L, g, t);
+        mma_step<NB>(s, a, Kt + kk * 8, L, g, t);
       }
-      const float m_new = fmaxf(m[i], max16(rmax));
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < C::kCols; ++j) {
-        const float p = s[i][j] == kNegInf ? 0.f : expf(s[i][j] - m_new);
-        s[i][j] = p;
-        rsum += p;
-      }
-      rsum = sum16(rsum);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C::kOcols; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < C::kCols; ++j)
-        Ps[(ty * kRows + i) * C::kPld + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
 
-    for (int j = 0; j < Bk; ++j) {
-      float pv[kRows];
+      // the online softmax; masks only where the warp's keys cross the
+      // diagonal, the window's left edge or Sk
+      const bool masked = k0 + Kw > Sk || (causal && k0 + Kw - 1 > qw0) ||
+                          (window > 0 && qw0 + 15 - k0 >= window);
+      if (masked) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty * kRows + i) * C::kPld + j];
+        for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int c = 0; c < C::kOcols; ++c) {
-        const float vv = Vs[j * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+          for (int r = 0; r < 4; ++r) {
+            const int row = r < 2 ? row0 : row1;
+            const int key = k0 + 8 * n + 2 * t + (r & 1);
+            if (!(key < Sk && (!causal || row >= key) &&
+                  (window <= 0 || row - key < window)))
+              s[n][r] = kNegInf;
+          }
       }
+      // the 4 lanes of a row agree on its max
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float alpha0 = ex2((m0 - mx0) * scale_log2);
+      const float alpha1 = ex2((m1 - mx1) * scale_log2);
+      m0 = mx0;
+      m1 = mx1;
+      const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float p = ex2(fmaf(s[n][r], scale_log2, -(r < 2 ? mb0 : mb1)));
+          if (masked && s[n][r] == kNegInf) p = 0.f;
+          s[n][r] = p;
+          if (r < 2) ps0 += p;
+          else ps1 += p;
+        }
+      l0 = alpha0 * l0 + ps0;  // this lane's columns, summed at the end
+      l1 = alpha1 * l1 + ps1;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] *= alpha0;
+        acc[n][1] *= alpha0;
+        acc[n][2] *= alpha1;
+        acc[n][3] *= alpha1;
+      }
+
+      // O += P V
+      FragA pa[NB];
+      acc_as_a<NB>(pa, s);
+      mma_acc<NB, D / 8>(acc, pa, Vt, L, g, t);
     }
+    __syncthreads();  // every warp is done with this stage
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty * kRows + i;
-    if (qi >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // the merge: the second key half's (m, l, O) of each row group through
+  // the K/V tiles' memory (free after the loop's last barrier)
+  float* Xs = Ks;                  // [64 rows][L]
+  float* Ms = Xs + Bq * L;         // [64 rows] m, then [64 rows] l
+  const int r0 = rg * 16 + g, r1 = r0 + 8;
+  if (kh == 1) {
 #pragma unroll
-    for (int c = 0; c < C::kOcols; ++c)
-      ob[qi * ost.s + tx + 16 * c] = acc[i][c] / denom;
-    // the row's log-sum-exp of the scaled scores, for the backward
-    if (lse && tx == 0)
-      lse[((int64_t)b * H + h) * Sq + qi] =
-          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(Xs + r0 * L + col) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(Xs + r1 * L + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+    if (t == 0) {
+      Ms[r0] = m0;
+      Ms[r1] = m1;
+      Ms[Bq + r0] = l0;
+      Ms[Bq + r1] = l1;
+    }
+  }
+  __syncthreads();
+  if (kh == 1) return;
+  const float mo0 = Ms[r0], mo1 = Ms[r1];
+  const float mm0 = fmaxf(m0, mo0), mm1 = fmaxf(m1, mo1);
+  const float f0 = ex2((m0 - mm0) * scale_log2);
+  const float f1 = ex2((m1 - mm1) * scale_log2);
+  const float fo0 = ex2((mo0 - mm0) * scale_log2);
+  const float fo1 = ex2((mo1 - mm1) * scale_log2);
+  l0 = l0 * f0 + Ms[Bq + r0] * fo0;
+  l1 = l1 * f1 + Ms[Bq + r1] * fo1;
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  float* ob = o + b * ost.b + h * ost.h;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    const float2 x0 = *reinterpret_cast<const float2*>(Xs + r0 * L + col);
+    const float2 x1 = *reinterpret_cast<const float2*>(Xs + r1 * L + col);
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(ob + row0 * ost.s + col) =
+          make_float2((acc[n][0] * f0 + x0.x * fo0) / d0,
+                      (acc[n][1] * f0 + x0.y * fo0) / d0);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(ob + row1 * ost.s + col) =
+          make_float2((acc[n][2] * f1 + x1.x * fo1) / d1,
+                      (acc[n][3] * f1 + x1.y * fo1) / d1);
+  }
+  // the rows' log-sum-exp of the scaled scores (natural log), for the
+  // backward
+  if (lse && t == 0) {
+    float* lb = lse + ((int64_t)b * H + h) * Sq;
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (row0 < Sq)
+      lb[row0] =
+          l0 > 0.f ? (mm0 * scale_log2 + log2f(l0)) * kLn2 : -INFINITY;
+    if (row1 < Sq)
+      lb[row1] =
+          l1 > 0.f ? (mm1 * scale_log2 + log2f(l1)) * kLn2 : -INFINITY;
   }
 }
 
@@ -272,19 +350,21 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KV, int Sq, int Sk, int causal, int window,
            float scale, Strides qst, Strides kst, Strides vst, Strides ost,
            cudaStream_t stream) {
-  const size_t smem = Cfg<D>::kSmem;
+  using T = Tile<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_split<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + kBq - 1) / kBq, B * H);
-  flash_fwd_simt<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((Sq + T::kBq - 1) / T::kBq, B * H);
+  flash_fwd_split<D><<<grid, T::kThreads, T::kSmem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H,
-      H / KV, Sq, Sk, causal, window, scale, qst, kst, vst, ost);
+      H / KV, Sq, Sk, causal, window,
+      scale * 1.4426950408889634f,  // log2(e): exp via ex2
+      qst, kst, vst, ost);
   return (int)cudaGetLastError();
 }
 
-}  // namespace simt
+}  // namespace fp32
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel (wgmma, TMA, mbarriers; sm_90a only)
@@ -609,13 +689,26 @@ bool wide_block(int D, int B, int H, int Sq) {
 
 }  // namespace tc
 
+// cvt.rna.tf32.f32 and the kernels' own rounding (tf32::rna) of n values:
+// the card's checks hold the second, and ref.tf32_round (the rounding of
+// the split-TF32 arithmetic on the CPU), to the first
+__global__ void tf32_round_values(const float* __restrict__ in,
+                                  float* __restrict__ out_cvt,
+                                  float* __restrict__ out_rna, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    out_cvt[i] = __uint_as_float(tf32::cvt_rna(in[i]));
+    out_rna[i] = __uint_as_float(tf32::rna(in[i]));
+  }
+}
+
 template <int D>
 int dispatch(int is_bf16, const void* q, const void* k, const void* v,
              void* o, float* lse, int B, int H, int KV, int Sq, int Sk,
              int causal, int window, float scale, Strides qst, Strides kst,
              Strides vst, Strides ost, cudaStream_t stream) {
   if (!is_bf16)
-    return simt::launch<D>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window,
+    return fp32::launch<D>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window,
                            scale, qst, kst, vst, ost, stream);
   if constexpr (D <= 128)
     if (tc::wide_block(D, B, H, Sq))
@@ -630,12 +723,12 @@ int dispatch(int is_bf16, const void* q, const void* k, const void* v,
 // q: (B, H, Sq, D), k/v: (B, KV, Sk, D), o: (B, H, Sq, D), each addressed by
 // its (batch, head, seq) element strides with a contiguous head dim; all of
 // one dtype (is_bf16 ? bf16 : fp32).  D must be 64, 128 or 256.  window > 0
-// (causal only) keeps the keys with q_pos - k_pos < window.  bf16 needs
-// 16-byte aligned pointers and strides (TMA).  lse, if not null, receives
-// each row's natural-log log-sum-exp of the scaled scores as a contiguous
-// (B, H, Sq) fp32 tensor (the backward's input; the output's bits do not
-// depend on it).  Launches on `stream`; returns a CUDA error code (0 on
-// success).
+// (causal only) keeps the keys with q_pos - k_pos < window.  Both types
+// need 16-byte aligned pointers and strides (bf16: TMA; fp32: cp.async).
+// lse, if not null, receives each row's natural-log log-sum-exp of the
+// scaled scores as a contiguous (B, H, Sq) fp32 tensor (the backward's
+// input; the output's bits do not depend on it).  Launches on `stream`;
+// returns a CUDA error code (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int is_bf16,
@@ -662,4 +755,15 @@ extern "C" int flash_attention_fwd(
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// out_cvt[i] = cvt.rna.tf32.f32(in[i]) and out_rna[i] = the fp32 kernels'
+// rounding of their operands' hi parts (tf32::rna), for the card's checks;
+// returns a CUDA error code
+extern "C" int flash_tf32_round(const float* in, float* out_cvt,
+                                float* out_rna, int n, void* stream) {
+  if (n <= 0) return n == 0 ? 0 : (int)cudaErrorInvalidValue;
+  tf32_round_values<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      in, out_cvt, out_rna, n);
+  return (int)cudaGetLastError();
 }

@@ -74,10 +74,26 @@
 // One visiting order and no atomics: the gradients are bit-identical from
 // run to run.
 //
-// fp32 keeps the first version's SIMT kernels (flash_bwd_*_simt): the
-// tensor cores would take fp32 as TF32, which breaks the 2e-4 fp32 limit.
-// Each thread holds a 4 x 4 score tile and a 4 x D/16 accumulator in
-// registers over padded fp32 tiles in shared memory.
+// fp32 runs on the tensor cores too, every product a split TF32 product
+// (tf32.cuh: each operand split into TF32 hi + lo, three TF32 products
+// into fp32 accumulators, lo*lo dropped), which keeps the 2e-4 fp32 limit
+// where one TF32 pass would break it; P and dS stay fp32 up to their split,
+// and S, dP, delta and every accumulator are fp32
+// (ref.attention_backward_split_tf32 is this arithmetic on the CPU).  The
+// products are mma.sync m16n8k8 from fragments loaded by hand out of
+// cp.async-filled fp32 tiles: wgmma takes 32-bit operands from shared
+// memory only K-major, with no transpose bit, and four of the five
+// products (dV += P^T dO, dK += dS^T Q, dQ += dS K and the forward's P V)
+// take a B whose contiguous dim is D, not K.  Two kernels after the delta
+// pass (flash_bwd_dq_split, flash_bwd_dkdv_split; their tiles below): a dQ
+// pass whose two warps of a row group split each key tile, and a dK/dV
+// pass whose 8 warps are 4 dV warps and 4 dK warps over the same 64 keys
+// (P^T handed from one to the other through shared memory), so that no
+// warp holds two D-wide accumulators at any D (D = 256 needs no separate
+// passes).  Bound, as the forward's: operations at a third of the TF32
+// rate, held to 0.13-0.2 of it by instruction issue (a load and a split
+// per element a warp loads).  The same visiting order every run and no
+// atomics: bit-identical from run to run.
 //
 // D = 256 (recurrentgemma's local attention: 10 query heads of 256 on one
 // KV head, window 2048) runs on the tensor cores too, with the same tiles,
@@ -102,6 +118,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -110,12 +127,6 @@ using hopper::Strides;
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ bool admitted(int qi, int kj, int Sq, int Sk,
-                                         int causal, int window) {
-  return qi < Sq && kj < Sk && (!causal || qi >= kj) &&
-         (window <= 0 || qi - kj < window);
 }
 
 // delta = rowsum(dO o O) in fp32, one warp a row; lanes take every 32nd
@@ -151,301 +162,365 @@ int launch_delta(const void* o, const void* dout, float* delta, int B, int H,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the SIMT kernels
+// fp32: the split-TF32 kernels (mma.sync on the tensor cores; tf32.cuh)
 // ---------------------------------------------------------------------------
 
-namespace simt {
+namespace fp32 {
 
-constexpr int kThreads = 256;    // 16 x 16
+using namespace tf32;
+using hopper::ex2;
 
-// tiles of kB rows (queries or keys): 64 up to D = 128; 32 at D = 256, so
-// that the four staged fp32 tiles fit in shared memory (141 KB)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The dQ pass: 64 query rows a block (Q and dO staged once) and 8 warps,
+// two a group of 16 rows, each of the two on half of every K/V tile's keys
+// with its own 16 x D dQ accumulator, summed at the end; K/V tiles of Bk
+// keys (64; 16 at D = 256, where Q and dO take 130 KB) in a ring of 2
+// filled by cp.async.
 template <int D>
-struct Cfg {
-  static constexpr int kB = D <= 128 ? 64 : 32;
-  static constexpr int kRows = kB / 16;  // tile rows per thread
-  static constexpr int kCols = kB / 16;  // tile columns per thread
-  static constexpr int kLd = D + 1;      // padded fp32 row of a staged tile
-  static constexpr int kPld = kB + 4;    // padded row of a P or dS tile
-  static constexpr int kOcols = D / 16;  // accumulator columns per thread
-  // dK/dV: K, V, Q, dO, P^T, dS^T, lse, delta
-  static constexpr size_t kSmemKV =
-      sizeof(float) * (4 * kB * kLd + 2 * kB * kPld + 2 * kB);
-  // dQ: Q, dO, K, V, dS, lse, delta
-  static constexpr size_t kSmemQ =
-      sizeof(float) * (4 * kB * kLd + kB * kPld + 2 * kB);
+struct QTile {
+  static constexpr int kBq = 64;
+  static constexpr int kBk = D <= 128 ? 64 : 16;
+  static constexpr int kKw = kBk / 2;  // keys a warp a tile
+  static constexpr int kRg = kBq / 16;  // row groups
+  static constexpr int kThreads = 64 * kRg;
+  static constexpr int kLd = D + 4;
+  static constexpr int kQ = kBq * kLd;
+  static constexpr int kKV = kBk * kLd;
+  // Q | dO | K[2] | V[2]; after the loop K/V hold the second halves' dQ
+  static constexpr int kSmem = 4 * (2 * kQ + 4 * kKV);
+  static_assert(kSmem <= 232448, "tiles do not fit shared memory");
+  static_assert(4 * kKV >= kBq * D, "no room for the dQ sum");
 };
 
-// rows [r0, r0 + kB) of a (seq, D) slab into a padded fp32 tile; rows past
-// `n` are zeros
+// The dK/dV pass: 64 keys a block (K and V staged once) in 4 groups of 16
+// and 8 warps: warp w < 4 computes S^T and P^T of key group w and
+// accumulates dV, warp w + 4 computes dP^T of the same keys, takes P^T
+// from warp w through shared memory (a named barrier of the pair) and
+// accumulates dK: four products, two a warp, and one D-wide accumulator a
+// warp at every D (two would take 2 x D / 2 registers a thread).
+// Streamed tiles of Bq queries (64; 16 at D = 256, where K and V take
+// 130 KB) of Q and dO, with their rows' lse (log2 units) and delta, in a
+// ring of 2.
 template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src, int64_t ss,
-                                      int r0, int n) {
-  constexpr int kB = Cfg<D>::kB;
-  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    dst[r * Cfg<D>::kLd + d] = r0 + r < n ? src[(r0 + r) * ss + d] : 0.f;
-  }
-}
+struct KVTile {
+  static constexpr int kBk = 64;
+  static constexpr int kBq = D <= 128 ? 64 : 16;
+  static constexpr int kThreads = 256;
+  static constexpr int kLd = D + 4;
+  static constexpr int kKV = kBk * kLd;
+  static constexpr int kQ = kBq * kLd;
+  static constexpr int kP = kBq / 2 * 32;  // one warp's P^T fragments
+  // K | V | Q[2] | dO[2] | rows[2][2][kBq] | P^T[4]
+  static constexpr int kSmem = 4 * (2 * kKV + 4 * kQ + 4 * kBq + 4 * kP);
+  static_assert(kSmem <= 232448, "tiles do not fit shared memory");
+};
 
-// dK and dV of kB keys of one (batch, KV head)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, int H, int group, int Sq, int Sk,
-                    int causal, int window, float scale, Strides qst,
-                    Strides kst, Strides vst, Strides dost, Strides dkst,
-                    Strides dvst) {
-  using C = Cfg<D>;
-  constexpr int kB = C::kB, kRows = C::kRows, kCols = C::kCols;
-  constexpr int L = C::kLd, PL = C::kPld, OC = C::kOcols;
-  extern __shared__ float smem[];
-  float* Ks = smem;           // [kB][L]
-  float* Vs = Ks + kB * L;    // [kB][L]
-  float* Qs = Vs + kB * L;    // [kB][L]
-  float* dOs = Qs + kB * L;   // [kB][L]
-  float* Pt = dOs + kB * L;   // [kB keys][PL]
-  float* dSt = Pt + kB * PL;  // [kB keys][PL]
-  float* lse_s = dSt + kB * PL;
-  float* dl_s = lse_s + kB;
+__global__ void __launch_bounds__(QTile<D>::kThreads, 1)
+flash_bwd_dq_split(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int H, int group, int Sq, int Sk, int causal, int window,
+                   float scale, float scale_log2, Strides qst, Strides kst,
+                   Strides vst, Strides dost, Strides dqst) {
+  using T = QTile<D>;
+  constexpr int Bq = T::kBq, Bk = T::kBk, Kw = T::kKw, L = T::kLd;
+  constexpr int NB = Kw / 8, NT = T::kThreads;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Os = Qs + T::kQ;
+  float* Ks = Os + T::kQ;
+  float* Vs = Ks + 2 * T::kKV;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int KV = H / group;
-  const int b = blockIdx.x / KV, hk = blockIdx.x % KV;
-  const int k0 = blockIdx.y * kB;  // key tile 0 sees the most queries: first
-
-  stage<D>(Ks, k + b * kst.b + hk * kst.h, kst.s, k0, Sk);
-  stage<D>(Vs, v + b * vst.b + hk * vst.h, vst.s, k0, Sk);
-
-  float dka[kRows][OC], dva[kRows][OC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < OC; ++c) dka[i][c] = dva[i][c] = 0.f;
-
-  // the query tiles that see a key of this tile
-  const int nq = (Sq + kB - 1) / kB;
-  const int i_first = causal ? k0 / kB : 0;
-  int i_end = nq;
-  if (window > 0) i_end = min(nq, (min(k0 + kB, Sk) - 1 + window - 1) / kB + 1);
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const float* qb = q + b * qst.b + h * qst.h;
-    const float* db = dout + b * dost.b + h * dost.h;
-    const float* lb = lse + ((int64_t)b * H + h) * Sq;
-    const float* deb = delta + ((int64_t)b * H + h) * Sq;
-    for (int it = i_first; it < i_end; ++it) {
-      const int q0 = it * kB;
-      __syncthreads();  // the previous tile's reads are done
-      stage<D>(Qs, qb, qst.s, q0, Sq);
-      stage<D>(dOs, db, dost.s, q0, Sq);
-      if (tid < kB) {
-        const bool ok = q0 + tid < Sq;
-        lse_s[tid] = ok ? lb[q0 + tid] : 0.f;
-        dl_s[tid] = ok ? deb[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: keys ty*kRows+i, queries tx+16j
-      float s[kRows][kCols], dp[kRows][kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kr[kRows], vr[kRows], qc[kCols], oc[kCols];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          kr[i] = Ks[(ty * kRows + i) * L + d];
-          vr[i] = Vs[(ty * kRows + i) * L + d];
-        }
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          qc[j] = Qs[(tx + 16 * j) * L + d];
-          oc[j] = dOs[(tx + 16 * j) * L + d];
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
-            dp[i][j] = fmaf(vr[i], oc[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int kr = ty * kRows + i;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int qr = tx + 16 * j;
-          const float p =
-              admitted(q0 + qr, k0 + kr, Sq, Sk, causal, window)
-                  ? expf(fmaf(s[i][j], scale, -lse_s[qr]))
-                  : 0.f;
-          Pt[kr * PL + qr] = p;
-          dSt[kr * PL + qr] = p * (dp[i][j] - dl_s[qr]);
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T dO, dK += dS^T Q
-      for (int qq = 0; qq < kB; ++qq) {
-        float pv[kRows], sv[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          pv[i] = Pt[(ty * kRows + i) * PL + qq];
-          sv[i] = dSt[(ty * kRows + i) * PL + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < OC; ++c) {
-          const float ov = dOs[qq * L + tx + 16 * c];
-          const float qv = Qs[qq * L + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            dva[i][c] = fmaf(pv[i], ov, dva[i][c]);
-            dka[i][c] = fmaf(sv[i], qv, dka[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dkb = dk + b * dkst.b + hk * dkst.h;
-  float* dvb = dv + b * dvst.b + hk * dvst.h;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int kj = k0 + ty * kRows + i;
-    if (kj >= Sk) continue;
-#pragma unroll
-    for (int c = 0; c < OC; ++c) {
-      dkb[kj * dkst.s + tx + 16 * c] = dka[i][c] * scale;
-      dvb[kj * dvst.s + tx + 16 * c] = dva[i][c];
-    }
-  }
-}
-
-// dQ of kB query rows of one (batch, head)
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dq,
-                  int H, int group, int Sq, int Sk, int causal, int window,
-                  float scale, Strides qst, Strides kst, Strides vst,
-                  Strides dost, Strides dqst) {
-  using C = Cfg<D>;
-  constexpr int kB = C::kB, kRows = C::kRows, kCols = C::kCols;
-  constexpr int L = C::kLd, PL = C::kPld, OC = C::kOcols;
-  extern __shared__ float smem[];
-  float* Qs = smem;           // [kB][L]
-  float* dOs = Qs + kB * L;   // [kB][L]
-  float* Ks = dOs + kB * L;   // [kB][L]
-  float* Vs = Ks + kB * L;    // [kB][L]
-  float* dS = Vs + kB * L;    // [kB queries][PL]
-  float* lse_s = dS + kB * PL;
-  float* dl_s = lse_s + kB;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int rg = warp % T::kRg, kh = warp / T::kRg;
+  const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / group;
   // the last query tiles see the most keys under causal: they start first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;
-
-  stage<D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
-  stage<D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, Sq);
-  if (tid < kB) {
-    const bool ok = q0 + tid < Sq;
-    const int64_t row = ((int64_t)b * H + h) * Sq + q0 + tid;
-    lse_s[tid] = ok ? lse[row] : 0.f;
-    dl_s[tid] = ok ? delta[row] : 0.f;
-  }
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * Bq;
   const float* kb = k + b * kst.b + hk * kst.h;
   const float* vb = v + b * vst.b + hk * vst.h;
 
-  float dqa[kRows][OC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < OC; ++c) dqa[i][c] = 0.f;
-
-  int n_tiles = (Sk + kB - 1) / kB;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + kB, Sq) - 1) / kB + 1);
+  int n_tiles = (Sk + Bk - 1) / Bk;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + Bq, Sq) - 1) / Bk + 1);
   // the first key any row of this block may see is q0 - window + 1
-  const int t_first = window > 0 ? max(q0 - window + 1, 0) / kB : 0;
+  const int t_first = window > 0 ? max(q0 - window + 1, 0) / Bk : 0;
+  const int n_iter = max(n_tiles - t_first, 0);
 
-  for (int t = t_first; t < n_tiles; ++t) {
-    const int k0 = t * kB;
-    __syncthreads();  // the previous tile's reads are done
-    stage<D>(Ks, kb, kst.s, k0, Sk);
-    stage<D>(Vs, vb, vst.s, k0, Sk);
-    __syncthreads();
+  auto load_kv = [&](int j) {
+    const int st = j & 1, k0 = (t_first + j) * Bk;
+    load_rows<D, Bk, NT>(Ks + st * T::kKV, kb, kst.s, k0, Sk);
+    load_rows<D, Bk, NT>(Vs + st * T::kKV, vb, vst.s, k0, Sk);
+  };
+  load_rows<D, Bq, NT>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, Sq);
+  load_rows<D, Bq, NT>(Os, dout + b * dost.b + h * dost.h, dost.s, q0, Sq);
+  if (n_iter > 0) load_kv(0);
+  cp_async_commit();
 
-    // S = Q K^T and dP = dO V^T: queries ty*kRows+i, keys tx+16j
-    float s[kRows][kCols], dp[kRows][kCols];
+  const int qw0 = q0 + rg * 16;
+  const int row0 = qw0 + g, row1 = row0 + 8;
+  const int64_t rbase = ((int64_t)b * H + h) * Sq;
+  const float l2_0 = row0 < Sq ? lse[rbase + row0] * kLog2e : 0.f;
+  const float l2_1 = row1 < Sq ? lse[rbase + row1] * kLog2e : 0.f;
+  const float dl_0 = row0 < Sq ? delta[rbase + row0] : 0.f;
+  const float dl_1 = row1 < Sq ? delta[rbase + row1] : 0.f;
+  const float* Qw = Qs + rg * 16 * L;
+  const float* Ow = Os + rg * 16 * L;
+
+  float acc[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qr[kRows], orr[kRows], kc[kCols], vc[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        qr[i] = Qs[(ty * kRows + i) * L + d];
-        orr[i] = dOs[(ty * kRows + i) * L + d];
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        kc[j] = Ks[(tx + 16 * j) * L + d];
-        vc[j] = Vs[(tx + 16 * j) * L + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
-          dp[i][j] = fmaf(orr[i], vc[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty * kRows + i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        const float p = admitted(q0 + r, k0 + c, Sq, Sk, causal, window)
-                            ? expf(fmaf(s[i][j], scale, -lse_s[r]))
-                            : 0.f;
-        dS[r * PL + c] = p * (dp[i][j] - dl_s[r]);
-      }
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < n_iter; ++j) {
+    if (j + 1 < n_iter) {
+      load_kv(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    // this warp's keys of the tile
+    const float* Kt = Ks + (j & 1) * T::kKV + kh * Kw * L;
+    const float* Vt = Vs + (j & 1) * T::kKV + kh * Kw * L;
+    const int k0 = (t_first + j) * Bk + kh * Kw;
 
+    // S = Q K^T and dP = dO V^T
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[n][r] = dp[n][r] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      FragA aq, ao;
+      load_a(aq, Qw + kk * 8, L, g, t);
+      load_a(ao, Ow + kk * 8, L, g, t);
+      mma_step<NB>(s, aq, Kt + kk * 8, L, g, t);
+      mma_step<NB>(dp, ao, Vt + kk * 8, L, g, t);
+    }
+    // P = exp(S * scale - lse), masked entries exactly 0, and dS = P (dP -
+    // delta) in place of dP; masks only where the warp's rows and keys
+    // cross the diagonal, the window's edge or a ragged end
+    const bool masked = qw0 + 16 > Sq || k0 + Kw > Sk ||
+                        (causal && k0 + Kw - 1 > qw0) ||
+                        (window > 0 && qw0 + 15 - k0 >= window);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = r < 2 ? row0 : row1;
+        const int key = k0 + 8 * n + 2 * t + (r & 1);
+        float p = ex2(fmaf(s[n][r], scale_log2, -(r < 2 ? l2_0 : l2_1)));
+        if (masked && !(row < Sq && key < Sk && (!causal || row >= key) &&
+                        (window <= 0 || row - key < window)))
+          p = 0.f;
+        dp[n][r] = p * (dp[n][r] - (r < 2 ? dl_0 : dl_1));
+      }
     // dQ += dS K
-    for (int kk = 0; kk < kB; ++kk) {
-      float sv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) sv[i] = dS[(ty * kRows + i) * PL + kk];
-#pragma unroll
-      for (int c = 0; c < OC; ++c) {
-        const float kv = Ks[kk * L + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) dqa[i][c] = fmaf(sv[i], kv, dqa[i][c]);
-      }
-    }
+    FragA da[NB];
+    acc_as_a<NB>(da, dp);
+    mma_acc<NB, D / 8>(acc, da, Kt, L, g, t);
+    __syncthreads();  // every warp is done with this stage
   }
 
+  // the second key half's dQ of each row group through the K/V tiles'
+  // memory (free after the loop's last barrier), added in fp32
+  float* Xs = Ks;  // [64 rows][D]
+  const int r0 = rg * 16 + g, r1 = r0 + 8;
+  if (kh == 1) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(Xs + r0 * D + col) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(Xs + r1 * D + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncthreads();
+  if (kh == 1) return;
   float* dqb = dq + b * dqst.b + h * dqst.h;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty * kRows + i;
-    if (qi >= Sq) continue;
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    const float2 x0 = *reinterpret_cast<const float2*>(Xs + r0 * D + col);
+    const float2 x1 = *reinterpret_cast<const float2*>(Xs + r1 * D + col);
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(dqb + row0 * dqst.s + col) =
+          make_float2((acc[n][0] + x0.x) * scale, (acc[n][1] + x0.y) * scale);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(dqb + row1 * dqst.s + col) =
+          make_float2((acc[n][2] + x1.x) * scale, (acc[n][3] + x1.y) * scale);
+  }
+}
+
+// the pair's barrier: warp w < 4 arrives once its P^T is in shared memory,
+// warp w + 4 waits for it (64 threads; barrier 0 is __syncthreads)
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_split(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int group, int Sq, int Sk,
+                     int causal, int window, float scale, float scale_log2,
+                     Strides qst, Strides kst, Strides vst, Strides dost,
+                     Strides dkst, Strides dvst) {
+  using T = KVTile<D>;
+  constexpr int Bq = T::kBq, Bk = T::kBk, L = T::kLd;
+  constexpr int NB = Bq / 8;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + T::kKV;
+  float* Qs = Vs + T::kKV;      // [2][Bq][L]
+  float* Os = Qs + 2 * T::kQ;   // [2][Bq][L]
+  float* Rs = Os + 2 * T::kQ;   // [2][lse2, delta][Bq]
+  float* Ps = Rs + 4 * Bq;      // [4 key groups][NB][4][32 lanes]
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  // warp-uniform: the role and key group of this warp
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const bool dk_warp = warp >= 4;
+  const int kg = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int KV = H / group;
+  const int b = blockIdx.x / KV, hk = blockIdx.x % KV;
+  const int k0 = blockIdx.y * Bk;  // key tile 0 sees the most queries: first
+
+  // the query tiles that see a key of this block, for each head of the group
+  const int nq = (Sq + Bq - 1) / Bq;
+  const int i_first = causal ? k0 / Bq : 0;
+  int i_end = nq;
+  if (window > 0)
+    i_end = min(nq, (min(k0 + Bk, Sk) - 1 + window - 1) / Bq + 1);
+  const int n_q = max(i_end - i_first, 0);
+  const int n_iter = group * n_q;
+
+  auto load_q = [&](int j) {
+    const int st = j & 1;
+    const int h = hk * group + j / n_q;
+    const int qt0 = (i_first + j % n_q) * Bq;
+    load_rows<D, Bq, 256>(Qs + st * T::kQ, q + b * qst.b + h * qst.h, qst.s,
+                          qt0, Sq);
+    load_rows<D, Bq, 256>(Os + st * T::kQ, dout + b * dost.b + h * dost.h,
+                          dost.s, qt0, Sq);
+    // read by every warp only after the barrier that follows the wait
+    const int64_t row = ((int64_t)b * H + h) * Sq + qt0;
+    float* rs = Rs + st * 2 * Bq;
+    for (int r = tid; r < Bq; r += 256) {
+      const bool ok = qt0 + r < Sq;
+      rs[r] = ok ? lse[row + r] * kLog2e : 0.f;
+      rs[Bq + r] = ok ? delta[row + r] : 0.f;
+    }
+  };
+  load_rows<D, Bk, 256>(Ks, k + b * kst.b + hk * kst.h, kst.s, k0, Sk);
+  load_rows<D, Bk, 256>(Vs, v + b * vst.b + hk * vst.h, vst.s, k0, Sk);
+  if (n_iter > 0) load_q(0);
+  cp_async_commit();
+
+  const int kw0 = k0 + kg * 16;
+  const int key0 = kw0 + g, key1 = key0 + 8;
+  // dV warps read K's rows, dK warps V's
+  const float* Xw = (dk_warp ? Vs : Ks) + kg * 16 * L;
+  float* Pw = Ps + kg * NB * 4 * 32 + lane;
+  float acc[D / 8][4];
 #pragma unroll
-    for (int c = 0; c < OC; ++c)
-      dqb[qi * dqst.s + tx + 16 * c] = dqa[i][c] * scale;
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < n_iter; ++j) {
+    if (j + 1 < n_iter) {
+      load_q(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = j & 1;
+    const int qt0 = (i_first + j % n_q) * Bq;
+    const float* Qt = Qs + st * T::kQ;
+    const float* Ot = Os + st * T::kQ;
+    const float* rs = Rs + st * 2 * Bq;
+
+    // S^T = K Q^T (dV warp) or dP^T = V dO^T (dK warp): rows keys,
+    // columns queries
+    float s[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    const float* Yt = dk_warp ? Ot : Qt;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      FragA a;
+      load_a(a, Xw + kk * 8, L, g, t);
+      mma_step<NB>(s, a, Yt + kk * 8, L, g, t);
+    }
+    if (!dk_warp) {
+      // P^T = exp(S^T * scale - lse), masked entries exactly 0 (not
+      // exp(-lse), which may overflow); masks only where the tile crosses
+      // the diagonal, the window's edge, Sq or Sk
+      const bool masked = qt0 + Bq > Sq || kw0 + 16 > Sk ||
+                          (causal && qt0 < kw0 + 15) ||
+                          (window > 0 && qt0 + Bq - 1 - kw0 >= window);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int col = 8 * n + 2 * t + (r & 1);
+          const int qi = qt0 + col, kj = r < 2 ? key0 : key1;
+          float p = ex2(fmaf(s[n][r], scale_log2, -rs[col]));
+          if (masked && !(qi < Sq && kj < Sk && (!causal || qi >= kj) &&
+                          (window <= 0 || qi - kj < window)))
+            p = 0.f;
+          s[n][r] = p;
+          Pw[(n * 4 + r) * 32] = p;
+        }
+      __threadfence_block();
+      pair_arrive(1 + kg);
+    } else {
+      // dS^T = P^T (dP^T - delta), P^T from the pair's dV warp
+      pair_sync(1 + kg);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          s[n][r] = Pw[(n * 4 + r) * 32] *
+                    (s[n][r] - rs[Bq + 8 * n + 2 * t + (r & 1)]);
+    }
+    // dV += P^T dO, or dK += dS^T Q
+    FragA a[NB];
+    acc_as_a<NB>(a, s);
+    mma_acc<NB, D / 8>(acc, a, dk_warp ? Qt : Ot, L, g, t);
+    __syncthreads();  // every warp is done with this stage and its P^T
+  }
+
+  float* out = dk_warp ? dk + b * dkst.b + hk * dkst.h
+                       : dv + b * dvst.b + hk * dvst.h;
+  const int64_t os = dk_warp ? dkst.s : dvst.s;
+  const float f = dk_warp ? scale : 1.f;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (key0 < Sk)
+      *reinterpret_cast<float2*>(out + key0 * os + col) =
+          make_float2(acc[n][0] * f, acc[n][1] * f);
+    if (key1 < Sk)
+      *reinterpret_cast<float2*>(out + key1 * os + col) =
+          make_float2(acc[n][2] * f, acc[n][3] * f);
   }
 }
 
@@ -455,39 +530,40 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
            int causal, int window, float scale, const Strides* st,
            cudaStream_t stream) {
-  using C = Cfg<D>;
-  constexpr int kB = C::kB;
+  using QT = QTile<D>;
+  using KT = KVTile<D>;
   const Strides &qst = st[0], &kst = st[1], &vst = st[2], &ost = st[3],
                 &dost = st[4], &dqst = st[5], &dkst = st[6], &dvst = st[7];
   int err =
       launch_delta<float>(o, dout, delta, B, H, Sq, D, ost, dost, stream);
   if (err) return err;
+  const float scale_log2 = scale * kLog2e;
 
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)C::kSmemQ);
+      flash_bwd_dq_split<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      QT::kSmem);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_simt<D><<<dim3(B * H, (Sq + kB - 1) / kB), kThreads,
-                         C::kSmemQ, stream>>>(
+  flash_bwd_dq_split<D><<<dim3(B * H, (Sq + QT::kBq - 1) / QT::kBq),
+                          QT::kThreads, QT::kSmem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, delta, (float*)dq, H, H / KV, Sq, Sk, causal, window, scale, qst,
-      kst, vst, dost, dqst);
+      lse, delta, (float*)dq, H, H / KV, Sq, Sk, causal, window, scale,
+      scale_log2, qst, kst, vst, dost, dqst);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_simt<D>,
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_split<D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)C::kSmemKV);
+                           KT::kSmem);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_simt<D><<<dim3(B * KV, (Sk + kB - 1) / kB), kThreads,
-                           C::kSmemKV, stream>>>(
+  flash_bwd_dkdv_split<D><<<dim3(B * KV, (Sk + KT::kBk - 1) / KT::kBk),
+                            KT::kThreads, KT::kSmem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       lse, delta, (float*)dk, (float*)dv, H, H / KV, Sq, Sk, causal, window,
-      scale, qst, kst, vst, dost, dkst, dvst);
+      scale, scale_log2, qst, kst, vst, dost, dkst, dvst);
   return (int)cudaGetLastError();
 }
 
-}  // namespace simt
+}  // namespace fp32
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernels (wgmma, TMA, mbarriers; sm_90a only)
@@ -1050,8 +1126,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // contiguous head dim; all of one dtype (is_bf16 ? bf16 : fp32).  lse:
 // (B, H, Sq) fp32 contiguous, the forward's natural-log row log-sum-exp of
 // the scaled scores; delta: (B, H, Sq) fp32 scratch.  D must be 64, 128 or
-// 256.  bf16 (the tensor cores) needs 16-byte aligned q, k, v, dout
-// pointers and strides (TMA); fp32 (SIMT) needs no alignment.
+// 256.  Both types need 16-byte aligned q, k, v, dout pointers and
+// strides (bf16: TMA; fp32: cp.async).
 // Launches three kernels on `stream` (four for bf16 at D = 256); returns a
 // CUDA error code (0 on success).
 extern "C" int flash_attention_bwd(
@@ -1072,21 +1148,21 @@ extern "C" int flash_attention_bwd(
       return is_bf16 ? tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk,
                                       dv, B, H, KV, Sq, Sk, causal, window,
                                       scale, st, s)
-                     : simt::launch<64>(q, k, v, o, dout, lse, delta,
+                     : fp32::launch<64>(q, k, v, o, dout, lse, delta,
                                                dq, dk, dv, B, H, KV, Sq, Sk,
                                                causal, window, scale, st, s);
     case 128:
       return is_bf16 ? tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk,
                                        dv, B, H, KV, Sq, Sk, causal, window,
                                        scale, st, s)
-                     : simt::launch<128>(q, k, v, o, dout, lse, delta,
+                     : fp32::launch<128>(q, k, v, o, dout, lse, delta,
                                                 dq, dk, dv, B, H, KV, Sq, Sk,
                                                 causal, window, scale, st, s);
     case 256:
       return is_bf16 ? tc::launch<256>(q, k, v, o, dout, lse, delta, dq, dk,
                                        dv, B, H, KV, Sq, Sk, causal, window,
                                        scale, st, s)
-                     : simt::launch<256>(q, k, v, o, dout, lse, delta,
+                     : fp32::launch<256>(q, k, v, o, dout, lse, delta,
                                                 dq, dk, dv, B, H, KV, Sq, Sk,
                                                 causal, window, scale, st, s);
     default:

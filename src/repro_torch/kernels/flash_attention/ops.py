@@ -20,9 +20,17 @@ once, else 64; the result has the same bits either way.  The bf16
 backward rounds P and dS to bf16 before their products
 (``ref.attention_backward_rounded`` is its arithmetic on the CPU) at every
 head dim; at D = 256 its dK/dV pass runs as a dV pass and a dK pass, since
-one warpgroup's registers cannot hold both 256-wide accumulators.  fp32
-runs on the SIMT kernels with every product in fp32
-(``ref.attention_backward``), with no alignment condition.
+one warpgroup's registers cannot hold both 256-wide accumulators.
+
+fp32 runs on the tensor cores too, in both directions, each product a
+split TF32 product (``csrc/tf32.cuh``: every operand, P and dS included,
+split into TF32 hi + lo, three TF32 products into fp32 accumulators, the
+lo*lo term dropped): fp32-accurate where one TF32 pass is not
+(``ref.attention_split_tf32`` and ``ref.attention_backward_split_tf32``
+are its arithmetic on the CPU).  Its tiles come in by ``cp.async``, which
+also needs 16-byte aligned bases and (batch, head, seq) strides: an fp32
+q, k, v or output gradient off that grid is copied first (the kernel then
+reads the copy), so every head-contiguous fp32 view is taken.
 
 The kernels read q, k, v through their (batch, head, seq) strides, so the
 model passes ``(B, S, H, D)`` projections as transposed views without a
@@ -45,7 +53,7 @@ __all__ = ["attention", "flash_attention", "flash_attention_bwd",
 
 HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
-#: head dims whose bf16 backward runs on the tensor cores (TMA-aligned)
+#: head dims whose backward runs on the tensor cores (bf16 and fp32)
 TC_BWD_HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -87,14 +95,23 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
-def _tma_aligned(x):
+def _aligned16(x):
+    """Whether the base and the (batch, head, seq) strides of ``x`` are on
+    the 16-byte grid that TMA and cp.async read."""
     return not (x.data_ptr() % 16 or any(x.stride(i) * x.element_size() % 16
                                          for i in range(3)))
 
 
+def _aligned_copy(x):
+    """``x``, or a contiguous copy of it where its head dim is strided or
+    it is off the 16-byte grid (TMA's and cp.async's)."""
+    return x if x.stride(3) == 1 and _aligned16(x) else x.clone(
+        memory_format=torch.contiguous_format)
+
+
 def _check_tma_aligned(*xs):
     for x in xs:
-        if not _tma_aligned(x):
+        if not _aligned16(x):
             raise ValueError(
                 f"the bf16 kernel reads by TMA and needs a 16-byte aligned "
                 f"base and (batch, head, seq) strides; got a tensor at "
@@ -143,6 +160,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_tma_aligned(q, k, v)
+    else:
+        q, k, v = (_aligned_copy(x) for x in (q, k, v))
     with torch.cuda.device(q.device):
         err = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -194,8 +213,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``(B, Sq, H, D)`` buffer and dk, dv views of ``(B, Sk, KV, D)`` ones, so
     the gradients of the model's transposed projection views come back
     contiguous without a copy.  On CUDA the head dim must be 64, 128 or
-    256; bf16 runs on the tensor cores and needs q, k, v and o 16-byte
-    aligned (it raises otherwise; ``do`` is copied where it is not)."""
+    256; bf16 needs q, k, v and o 16-byte aligned (it raises otherwise);
+    fp32 copies a q, k or v that is not; ``do`` is copied where it is
+    not, in either type."""
     _check(q, k, v)
     _check_window(causal, window)
     b, h, sq, d = q.shape
@@ -229,11 +249,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if o.stride(3) != 1:
         raise ValueError("the head dim of o must be contiguous")
     bf16 = q.dtype == torch.bfloat16
-    tma = bf16 and d in TC_BWD_HEAD_DIMS
-    if tma:
+    if bf16:
         _check_tma_aligned(q, k, v, o)
-    if do.stride(3) != 1 or (tma and not _tma_aligned(do)):
-        do = do.clone(memory_format=torch.contiguous_format)
+    else:
+        q, k, v = (_aligned_copy(x) for x in (q, k, v))
+    do = _aligned_copy(do)
     lse = lse.contiguous()
     dq = torch.empty((b, sq, h, d), dtype=q.dtype,
                      device=q.device).transpose(1, 2)

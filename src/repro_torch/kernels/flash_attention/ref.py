@@ -6,7 +6,9 @@ forward's row log-sum-exp and :func:`attention_backward` the backward's
 arithmetic (``csrc/flash_attention_bwd.cu``): P recomputed from the lse,
 ``delta = rowsum(dO * O)``, ``dS = P * (dP - delta)``.
 :func:`attention_backward_rounded` adds the bf16 tensor-core kernel's
-roundings of P and dS.
+roundings of P and dS.  :func:`attention_split_tf32` and
+:func:`attention_backward_split_tf32` are the fp32 kernels' arithmetic:
+every product a split TF32 product (:func:`split_tf32_einsum`).
 """
 from __future__ import annotations
 
@@ -15,15 +17,54 @@ import math
 import torch
 
 __all__ = ["attention", "attention_lse", "attention_backward",
-           "attention_backward_rounded"]
+           "attention_backward_rounded", "tf32_round", "tf32_truncate",
+           "split_tf32_einsum",
+           "attention_split_tf32", "attention_backward_split_tf32"]
 
 
-def _scores(q, k, causal: bool, window: int):
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` does on the H100, by bit masks: the
+    low 13 bits cleared after adding half of their span to the magnitude (a
+    carry into the exponent is the rounding up it should be, up to inf past
+    the largest value); subnormals round on the same grid; inf stays.  A
+    NaN has its low 13 bits cleared without rounding, as the card does (one
+    whose payload lies only there becomes inf)."""
+    bits = x.to(torch.float32).view(torch.int32)
+    out = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    cut = (bits & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(x), cut, out)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` as the tensor cores read a TF32 operand: its low 13 bits
+    dropped (a truncation toward zero)."""
+    bits = x.to(torch.float32).view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                      terms: int = 3) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the fp32 kernels take a product on the
+    tensor cores: each operand split into ``hi = tf32(x)``
+    (:func:`tf32_round`) and ``lo = x - hi`` (exact), which the tensor
+    cores read truncated (:func:`tf32_truncate`), and ``a_hi b_hi + (a_hi
+    b_lo + a_lo b_hi)`` summed in fp32 (the ``lo lo`` term dropped).
+    ``terms=1`` is one TF32 pass, ``a_hi b_hi`` alone."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    out = torch.einsum(eq, a_hi, b_hi)
+    if terms == 1:
+        return out
+    a_lo, b_lo = tf32_truncate(a - a_hi), tf32_truncate(b - b_hi)
+    return out + (torch.einsum(eq, a_hi, b_lo) + torch.einsum(eq, a_lo, b_hi))
+
+
+def _scores(q, k, causal: bool, window: int, product=torch.einsum):
     """fp32 scaled scores (B, KV, G, Sq, Sk), masked entries -inf."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, kv, h // kv, sq, d).to(torch.float32)
-    scores = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32))
+    scores = product("bkgqd,bksd->bkgqs", qg, k.to(torch.float32))
     scores = scores / math.sqrt(d)
     if causal:
         diff = (torch.arange(sq, device=q.device)[:, None]
@@ -43,6 +84,27 @@ def attention(q, k, v, *, causal: bool = True,
     b, h, sq, d = q.shape
     w = torch.softmax(_scores(q, k, causal, window), dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v.to(torch.float32))
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def attention_split_tf32(q, k, v, *, causal: bool = True, window: int = 0,
+                         terms: int = 3) -> torch.Tensor:
+    """:func:`attention` in fp32 as the fp32 kernel computes it: S = Q K^T
+    and P V split TF32 products (:func:`split_tf32_einsum`), P = exp(S -
+    max) unnormalised into the product and divided by its row sum after,
+    every sum fp32.  ``terms=1``: one TF32 pass a product instead."""
+    b, h, sq, d = q.shape
+    kv = k.shape[1]
+
+    def product(eq, x, y):
+        return split_tf32_einsum(eq, x, y, terms)
+
+    scores = _scores(q, k, causal, window, product)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - torch.where(torch.isinf(m), 0.0, m))
+    l = p.sum(-1, keepdim=True)
+    out = product("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    out = out / l.clamp_min(1e-30)
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
@@ -75,9 +137,23 @@ def attention_backward_rounded(q, k, v, o, lse, do, *, causal: bool = True,
     return _backward(q, k, v, o, lse, do, causal, window, torch.bfloat16)
 
 
-def _backward(q, k, v, o, lse, do, causal, window, operand_dtype):
+def attention_backward_split_tf32(q, k, v, o, lse, do, *, causal: bool = True,
+                                  window: int = 0, terms: int = 3):
+    """:func:`attention_backward` as the fp32 kernels compute it: every
+    product (S, dP, dV, dQ, dK) a split TF32 product
+    (:func:`split_tf32_einsum`) with P and dS split like any operand, delta
+    and every sum fp32.  ``terms=1``: one TF32 pass a product instead."""
+    def product(eq, x, y):
+        return split_tf32_einsum(eq, x, y, terms)
+
+    return _backward(q, k, v, o, lse, do, causal, window, None, product)
+
+
+def _backward(q, k, v, o, lse, do, causal, window, operand_dtype,
+              product=torch.einsum):
     """The backward in fp32; ``operand_dtype`` (or None) is the type P and
-    dS are rounded to before their products."""
+    dS are rounded to before their products, ``product`` the einsum that
+    takes each product."""
     def operand(x):
         return x if operand_dtype is None else \
             x.to(operand_dtype).to(torch.float32)
@@ -92,13 +168,13 @@ def _backward(q, k, v, o, lse, do, causal, window, operand_dtype):
 
     qg, og, dog = grouped(q), grouped(o), grouped(do)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
-    p = torch.exp(_scores(q, k, causal, window)
+    p = torch.exp(_scores(q, k, causal, window, product)
                   - lse.reshape(b, kv, g, sq, 1).to(torch.float32))
-    dv = torch.einsum("bkgqs,bkgqd->bksd", operand(p), dog)
-    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vf)
+    dv = product("bkgqs,bkgqd->bksd", operand(p), dog)
+    dp = product("bkgqd,bksd->bkgqs", dog, vf)
     delta = (dog * og).sum(-1, keepdim=True)
     ds = operand(p * (dp - delta))
-    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
-    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
+    dq = product("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = product("bkgqs,bkgqd->bksd", ds, qg) * scale
     return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))

@@ -23,17 +23,23 @@ __all__ = ["greedy_decode", "greedy_reference"]
 
 
 def greedy_decode(params, cfg: ModelConfig, req, cache_len: int, *,
-                  device="cuda", expect=None):
+                  device="cuda", expect=None, cache_dtypes=None):
     """Greedy tokens of one request and the fp32 logits (T, V, on the
     host) each token was taken from.  The cast to the compute dtype is a
     no-op for params that are already cast.  With ``expect`` (another
     path's tokens) the decode stops after the first token that differs
-    from it: a parity check reads no further."""
+    from it: a parity check reads no further.  ``cache_dtypes`` (leaf name
+    -> dtype, e.g. an engine's ``{k: v.dtype for k, v in
+    engine.cache.items()}``) stores the cache as the engine does: the
+    prefill's cache is cast leaf by leaf, as the engine's ``slot_set``
+    casts a prefilled row, and each decode step writes into it in place."""
     params = lm.cast_params(params, cfg)
     prefill = make_prefill_step(cfg, cache_len)
     serve = make_serve_step(cfg)
     tokens = np.asarray(req.prompt, np.int32)[None]
     logits, cache = prefill(params, prefill_inputs(cfg, req, tokens, device))
+    if cache_dtypes is not None:
+        cache = {k: v.to(cache_dtypes[k]) for k, v in cache.items()}
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     steps = [logits[0]]
     pos0 = cfg.n_image_tokens + req.prompt_len

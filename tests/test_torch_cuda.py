@@ -321,12 +321,98 @@ def test_flash_tensor_core_refuses_misaligned_views(cuda_device):
             fa_ops.flash_attention(bad, k, v)
         with pytest.raises(ValueError, match="16-byte"):
             fa_ops.flash_attention(q, bad, v)
-    # fp32 runs on the SIMT kernel, which takes any head-contiguous view
+    # fp32 copies a view off the 16-byte grid (its tiles come in by
+    # cp.async), so it takes any head-contiguous view
     wide32 = torch.from_numpy(np.random.default_rng(1).normal(
         size=(1, 2, 64, 66)).astype(np.float32)).to(cuda_device)[..., :64]
     got = fa_ops.flash_attention(wide32, k.float(), v.float())
     want = fa_ref.attention(wide32.contiguous(), k.float(), v.float())
     torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
+
+
+# ---------------------------------------------------------------------------
+# B2's fp32 kernels: split TF32 on the tensor cores (csrc/tf32.cuh)
+# ---------------------------------------------------------------------------
+
+# the fp32 tiles' edges: 64 query rows a block (forward, dQ pass), 64 or 32
+# keys a K/V tile in two halves (forward), 64 or 16 keys (dQ pass), 64 or
+# 16 queries a dK/dV tile
+FA_FP32_EDGE_S = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s", FA_FP32_EDGE_S)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fp32_tile_edges(cuda_device, d, s, causal):
+    q, k, v = _qkv_on(cuda_device, 1, 4, 2, s, s, d, torch.float32, s + d)
+    _check_flash(q, k, v, causal=causal)
+    if causal:
+        _check_flash_bwd(q, k, v, _do_like(q, s), causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window", FA_TC_CASES)
+def test_flash_fp32_cases(cuda_device, b, h, kv, sq, sk, d, causal, window):
+    """The bf16 kernel's GQA, MQA, window and Sq != Sk cases in fp32, forward
+    and backward, at the fp32 limit."""
+    q, k, v = _qkv_on(cuda_device, b, h, kv, sq, sk, d, torch.float32,
+                      sq + sk + window)
+    _check_flash(q, k, v, causal=causal, window=window)
+    _check_flash_bwd(q, k, v, _do_like(q, sq), causal, window)
+
+
+@pytest.mark.cuda
+def test_fp32_runs_the_split_tf32_kernels(cuda_device):
+    """An fp32 call launches the tensor-core kernels (their names, in a
+    profile of one forward and one backward), and no other attention
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _qkv_on(cuda_device, 1, 4, 2, 200, 200, 128, torch.float32, 4)
+    do = _do_like(q, 5)
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+    fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+        fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_time_total > 0}
+    flash = {n for n in names if "flash" in n}
+    for want in ("flash_fwd_split", "flash_bwd_dq_split",
+                 "flash_bwd_dkdv_split", "flash_bwd_delta"):
+        assert any(want in n for n in flash), (want, flash)
+    assert all("_split<" in n or "flash_bwd_delta" in n for n in flash), flash
+
+
+@pytest.mark.cuda
+def test_tf32_rounding_matches_cvt_rna(cuda_device):
+    """The fp32 kernels round their operands' hi parts with two integer ops
+    (tf32::rna): the bits of cvt.rna.tf32.f32 for every non-NaN input; and
+    ``ref.tf32_round`` (the CPU emulation's rounding) gives the card's bits
+    for every input, NaNs included, on 2^20 seeded patterns and edges."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = _build.load("flash_attention").flash_tf32_round
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    edges = [0x00000001, 0x00001000, 0x007FFFFF, 0x3F801000, 0xBF801000,
+             0x7F7FEFFF, 0x7F7FFFFF, 0xFF7FFFFF, 0x7F800000, 0x7F800001,
+             0x7FFFFFFF, 0xFFC00000]
+    bits = np.concatenate([np.random.default_rng(0).integers(
+        0, 2 ** 32, 1 << 20, dtype=np.uint64), edges]).astype(np.uint32)
+    x = torch.from_numpy(bits.view(np.int32).copy())
+    xc = x.to(cuda_device).view(torch.float32)
+    cvt, rna = torch.empty_like(xc), torch.empty_like(xc)
+    assert fn(xc.data_ptr(), cvt.data_ptr(), rna.data_ptr(), xc.numel(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    cvt, rna = cvt.view(torch.int32).cpu(), rna.view(torch.int32).cpu()
+    finite = ~torch.isnan(x.view(torch.float32))
+    assert torch.equal(rna[finite], cvt[finite])
+    assert torch.equal(fa_ref.tf32_round(x.view(torch.float32))
+                       .view(torch.int32), cvt)
 
 
 @pytest.mark.cuda
@@ -704,7 +790,8 @@ def test_flash_backward_refuses_an_unported_head_dim(cuda_device):
 def test_flash_backward_refuses_misaligned_views(cuda_device):
     """The bf16 backward reads q, k, v and dO by TMA: a q, k, v or o off the
     16-byte grid raises (no fallback); a dO off it is copied, with the same
-    bits as the aligned dO; fp32 (SIMT) takes the same views."""
+    bits as the aligned dO; fp32 copies such views (cp.async) and gives the
+    aligned views' bits."""
     q, k, v = _qkv_on(cuda_device, 1, 2, 2, 64, 64, 64, torch.bfloat16, 7)
     o, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
     do = _do_like(q, 8)
@@ -949,7 +1036,8 @@ def test_train_replay_after_a_crash_is_bit_identical_on_card(cuda_device,
 # ---------------------------------------------------------------------------
 
 # B2 at D = 256 (bf16 on the tensor cores in 64-row tiles, with a dV pass
-# and a dK pass; fp32 on the SIMT kernels in 32-row tiles): recurrentgemma's
+# and a dK pass; fp32 split TF32 with 16-key dQ tiles and 16-query dK/dV
+# tiles): recurrentgemma's
 # 10 query heads on one KV head under windows 1, 37, 200 and 2048 (the
 # model's, past a 2100-token sequence's first rows), and both tiles' edges
 FA_BWD_256_CASES = [(1, 10, 1, 300, 256, True, 1),
