@@ -1,0 +1,10 @@
+"""Share of the traced window in which no operation ran on the card:
+1 - (union of the device operations' intervals) / window, in %.  The
+breakdown's idle gaps add up to it."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (t.window_s - t.busy_s) / t.window_s
