@@ -15,6 +15,7 @@ import torch
 
 from ..models import lm
 from ..models.config import ModelConfig
+from ..obs import trace
 from ..optim import AdamWConfig, adamw_update, cosine_schedule
 from ..tree import flatten, tree_map, unflatten
 from .sharding import (dtensor_zeros, is_dtensor, placements_for,
@@ -34,13 +35,16 @@ def make_grad_fn(cfg: ModelConfig, *, q_chunk: int = 1024,
 
     def grads_of(params, batch):
         leaves = [t.detach().requires_grad_() for _, t in flatten(params)]
-        loss, _ = lm.forward_train(unflatten(params, leaves), cfg, batch,
-                                   q_chunk=q_chunk, xent_chunk=xent_chunk)
+        with trace.range("train.forward"):
+            loss, _ = lm.forward_train(unflatten(params, leaves), cfg, batch,
+                                       q_chunk=q_chunk,
+                                       xent_chunk=xent_chunk)
+            if is_dtensor(loss):
+                loss = replicated(loss)
         # a leaf the loss does not reach (the cross-attention's q/k/v
         # biases) gets zeros, as JAX's gradient gives it
-        if is_dtensor(loss):
-            loss = replicated(loss)
-        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        with trace.range("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return loss.detach(), unflatten(params, list(grads))
 
     return grads_of
@@ -77,30 +81,35 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None, *,
     grads_of = make_grad_fn(cfg, q_chunk=q_chunk, xent_chunk=xent_chunk)
 
     def train_step(params, opt_state, batch):
-        first = flatten(params)[0][1]
-        device = first.device
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-        if accum_steps == 1:
-            loss, grads = grads_of(params, _laid_out(batch, first))
-        else:
-            mbs = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
-                                *v.shape[1:]) for k, v in batch.items()}
-            grads = (tree_map(_zeros_f32, params) if grad_shardings is None
-                     else tree_map(_zeros_f32, params, grad_shardings))
-            loss = torch.zeros((), dtype=torch.float32, device=device)
-            for i in range(accum_steps):
-                l, g = grads_of(params, _laid_out(
-                    {k: v[i] for k, v in mbs.items()}, first))
-                tree_map(lambda acc, x: acc.add_(_placed_like(x, acc)),
-                         grads, g)
-                loss = loss + l
-            grads = tree_map(lambda g: g / accum_steps, grads)
-            loss = loss / accum_steps
-        lr_scale = cosine_schedule(int(opt_state["step"]), warmup=warmup,
-                                   total=total_steps)
-        params, opt_state, om = adamw_update(opt_cfg, params, grads,
-                                             opt_state, lr_scale=lr_scale)
-        return params, opt_state, {"loss": loss, **om}
+        with trace.range("train.step"):
+            first = flatten(params)[0][1]
+            device = first.device
+            with trace.range("train.h2d"):
+                batch = {k: torch.as_tensor(v).to(device)
+                         for k, v in batch.items()}
+            if accum_steps == 1:
+                loss, grads = grads_of(params, _laid_out(batch, first))
+            else:
+                mbs = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
+                                    *v.shape[1:]) for k, v in batch.items()}
+                grads = (tree_map(_zeros_f32, params)
+                         if grad_shardings is None
+                         else tree_map(_zeros_f32, params, grad_shardings))
+                loss = torch.zeros((), dtype=torch.float32, device=device)
+                for i in range(accum_steps):
+                    l, g = grads_of(params, _laid_out(
+                        {k: v[i] for k, v in mbs.items()}, first))
+                    tree_map(lambda acc, x: acc.add_(_placed_like(x, acc)),
+                             grads, g)
+                    loss = loss + l
+                grads = tree_map(lambda g: g / accum_steps, grads)
+                loss = loss / accum_steps
+            with trace.range("train.optimizer"):
+                lr_scale = cosine_schedule(int(opt_state["step"]),
+                                           warmup=warmup, total=total_steps)
+                params, opt_state, om = adamw_update(
+                    opt_cfg, params, grads, opt_state, lr_scale=lr_scale)
+            return params, opt_state, {"loss": loss, **om}
 
     return train_step
 

@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from ..distributed.sharding import is_dtensor
+from ..obs import trace
 from ..obs.trace import NULL_TRACER
 from ..tree import flatten, leaf_name, unflatten
 
@@ -325,7 +326,10 @@ class CheckpointStore:
 
         def _runner() -> None:
             try:
-                _write(1)
+                # on this thread's own profiler timeline (the recorder gets
+                # the span below)
+                with trace.range("ckpt.save"):
+                    _write(1)
                 # complete() is thread-safe (bypasses the span stack), so
                 # the writer thread can report its own wall time
                 self.tracer.complete("ckpt.save", t_start,

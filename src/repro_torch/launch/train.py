@@ -40,7 +40,18 @@ report into it, the train step is profiled (``D/profile.json``, with
 ``capture_cost``'s FLOPs and bytes of one step), and the run ends with a
 dump and the metrics under ``D`` (``--trace-dump-on-fault`` also dumps at
 every fault and recovery); ``python -m repro_torch.obs.validate D
---require-span crosspod.partition`` checks the dumps.
+--require-span crosspod.partition`` checks the dumps.  ``--profile-steps
+A:B`` (with ``--trace-dir``, not with ``--pods``) runs the train step's
+calls A to B (from 0) under ``torch.profiler`` and writes its Chrome
+export to ``D/device_trace.json``: the card's kernels, the host's ops, the
+step's ranges (``train.step``, ``train.forward``, ``train.backward``,
+``train.optimizer``, the layers' ``layer.*`` and the MoE layer's
+``moe.*``) and the recorder's spans, on one clock (open it in Perfetto or
+``chrome://tracing``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+        --steps 6 --global-batch 2 --seq-len 32 --trace-dir D \
+        --profile-steps 2:3
 
 ``--mesh debug`` lays the params and the AdamW state out as DTensors under
 ``distributed.params.param_specs`` (the JAX launcher's placement) on a
@@ -79,7 +90,7 @@ from ..distributed.steps import make_train_step
 from ..ft import (CheckpointStore, DynamicInterval, FaultInjector,
                   PodTrainingCluster, TrainingCoordinator, tree_digest)
 from ..models import lm
-from ..obs import profile_jit, save_profiles
+from ..obs import ProfileSteps, profile_jit, save_profiles
 from ..optim import AdamWConfig, adamw_init
 from .mesh import destroy_group, mesh_from_flag
 from .serve import (add_chaos_args, add_trace_args, make_chaos, make_obs,
@@ -113,6 +124,17 @@ def in_rules(step_fn, mesh):
     return step
 
 
+def parse_steps(text: str) -> tuple[int, int]:
+    """``--profile-steps``' "A:B" as (A, B)."""
+    try:
+        a, b = (int(v) for v in text.split(":"))
+    except ValueError:
+        raise ValueError(f"--profile-steps {text!r}: expected A:B") from None
+    if not 0 <= a <= b:
+        raise ValueError(f"--profile-steps {text!r}: need 0 <= A <= B")
+    return a, b
+
+
 def build(cfg, args, *, params=None, ctx=None, mesh=None) -> dict:
     """The coordinator and what it runs, as the JAX launcher builds them:
     seeded params (or ``params``, e.g. converted from JAX), AdamW state
@@ -144,6 +166,12 @@ def build(cfg, args, *, params=None, ctx=None, mesh=None) -> dict:
         profiled = profile_jit(step_fn, name="train_step",
                                registry=ctx.registry, tracer=ctx.tracer)
         step_fn = profiled
+    window = None
+    if args.profile_steps:
+        first, last = parse_steps(args.profile_steps)
+        window = ProfileSteps(step_fn, first, last, os.path.join(
+            args.trace_dir, "device_trace.json"))
+        step_fn = window
     pipeline = SyntheticTokenPipeline(
         DataConfig(args.global_batch, args.seq_len, seed=args.seed), cfg)
     injector = (FaultInjector(mtbf_steps=args.inject_mtbf_steps,
@@ -161,7 +189,7 @@ def build(cfg, args, *, params=None, ctx=None, mesh=None) -> dict:
         registry=ctx.registry)
     return {"coord": coord, "chaos": chaos, "injector": injector,
             "step_fn": step_fn, "pipeline": pipeline, "obs": ctx,
-            "profiled": profiled, "mesh": mesh}
+            "profiled": profiled, "window": window, "mesh": mesh}
 
 
 def run(cfg, args, built: dict) -> dict:
@@ -205,6 +233,11 @@ def run(cfg, args, built: dict) -> dict:
               f"{prof['bytes_accessed']:.3g} bytes/step")
         save_profiles(os.path.join(args.trace_dir, "profile.json"),
                       [profiled])
+    window = built["window"]
+    if window is not None:
+        path = window.close()
+        print(f"device trace: {path or 'none (the run ended first)'} "
+              f"(step calls {window.first}:{window.last})")
     print_trace(args, built["obs"])
     if args.chaos_assert:
         if chaos is None or not chaos.applied:
@@ -358,6 +391,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "on this mesh (default: none, plain tensors)")
     add_chaos_args(ap)
     add_trace_args(ap)
+    ap.add_argument("--profile-steps", default="", metavar="A:B",
+                    help="with --trace-dir: run the train step's calls A "
+                         "to B (from 0) under torch.profiler and write "
+                         "D/device_trace.json")
     return ap
 
 
@@ -376,6 +413,13 @@ def main(argv=None) -> dict:
     if args.mesh and args.pods > 1:
         raise SystemExit("--mesh and --pods > 1 do not combine: the "
                          "cluster's pods hold plain tensors")
+    if args.profile_steps:
+        if not args.trace_dir or args.pods > 1:
+            raise SystemExit("--profile-steps needs --trace-dir and one pod")
+        try:
+            parse_steps(args.profile_steps)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
 
     def go():
         if args.pods > 1:

@@ -30,6 +30,7 @@ from ..distributed.sharding import (as_replicated, constrain, guard_spec,
                                     spec_to_placements, split_dim,
                                     split_last)
 from ..kernels.flash_attention import ops as fa_ops
+from ..obs import trace
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -490,58 +491,65 @@ def _moe(p, x, cfg: ModelConfig, to_experts, from_experts,
     else:
         g_count, g = b, s
     xt = x.reshape(g_count, g, d)
-    logits = (xt @ p["router"].to(dtype)).to(torch.float32)      # (B,G,E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_idx = top_k_indices(probs.detach(), k)                  # (B,G,k)
-    onehot = F.one_hot(gate_idx, e).to(torch.int32)              # (B,G,k,E)
-    # the chosen probabilities, by a product whose gradient is elementwise
-    gate_vals = (probs[..., None, :] * onehot).sum(-1)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
-    cap = max(int(math.ceil(g * k / e * cfg.capacity_factor)), 4)
-    # each pair's slot in its expert: the pairs before it, token-major (an
-    # integer scan along the innermost axis)
-    seen = onehot.reshape(g_count, g * k, e).transpose(1, 2).cumsum(
-        -1, dtype=torch.int32).transpose(1, 2).reshape(onehot.shape)
-    pos = (seen * onehot).sum(-1) - 1
-    keep = pos < cap
-    if route_log is not None:
-        route_log.append({"experts": gate_idx, "keep": keep,
-                          "probs": probs.detach()})
-    dev = x.device
-    n_tok, n_slot = g_count * g, e * g_count * cap
-    # slot id (expert, group, position): the expert rows are contiguous;
-    # a dropped pair's slot is the sentinel n_slot
-    group = torch.arange(g_count, device=dev)[:, None, None]
-    slot = torch.where(keep, (gate_idx * g_count + group) * cap + pos,
-                       n_slot).reshape(n_tok, k)
-    # the inverse map, by gathers: a group's pairs sorted by expert (stable,
-    # so token-major within one) put the pair of slot (e, group, c) at
-    # expert e's start + c, where c < the pairs that chose e
-    order = torch.sort(gate_idx.reshape(g_count, g * k), dim=1,
-                       stable=True)[1]
-    counts = onehot.sum(dim=(1, 2))                              # (B, E)
-    c = torch.arange(cap, device=dev)
-    at = (counts.cumsum(-1) - counts)[..., None] + c             # (B,E,C)
-    pair_at = torch.gather(order, 1, at.clamp(max=g * k - 1).reshape(
-        g_count, e * cap)).reshape(g_count, e, cap) + group * (g * k)
-    pair_at = torch.where(c < counts[..., None], pair_at, n_tok * k)
-    pair_at = pair_at.transpose(0, 1).reshape(n_slot)
-    token_at = torch.where(pair_at < n_tok * k, pair_at // k, n_tok)
+    with trace.range("moe.route"):
+        logits = (xt @ p["router"].to(dtype)).to(torch.float32)  # (B,G,E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_idx = top_k_indices(probs.detach(), k)              # (B,G,k)
+        onehot = F.one_hot(gate_idx, e).to(torch.int32)          # (B,G,k,E)
+        # the chosen probabilities, by a product whose gradient is
+        # elementwise
+        gate_vals = (probs[..., None, :] * onehot).sum(-1)
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                            min=1e-9)
+        cap = max(int(math.ceil(g * k / e * cfg.capacity_factor)), 4)
+        # each pair's slot in its expert: the pairs before it, token-major
+        # (an integer scan along the innermost axis)
+        seen = onehot.reshape(g_count, g * k, e).transpose(1, 2).cumsum(
+            -1, dtype=torch.int32).transpose(1, 2).reshape(onehot.shape)
+        pos = (seen * onehot).sum(-1) - 1
+        keep = pos < cap
+        if route_log is not None:
+            route_log.append({"experts": gate_idx, "keep": keep,
+                              "probs": probs.detach()})
+        dev = x.device
+        n_tok, n_slot = g_count * g, e * g_count * cap
+        # slot id (expert, group, position): the expert rows are
+        # contiguous; a dropped pair's slot is the sentinel n_slot
+        group = torch.arange(g_count, device=dev)[:, None, None]
+        slot = torch.where(keep, (gate_idx * g_count + group) * cap + pos,
+                           n_slot).reshape(n_tok, k)
+        # the inverse map, by gathers: a group's pairs sorted by expert
+        # (stable, so token-major within one) put the pair of slot
+        # (e, group, c) at expert e's start + c, where c < the pairs that
+        # chose e
+        order = torch.sort(gate_idx.reshape(g_count, g * k), dim=1,
+                           stable=True)[1]
+        counts = onehot.sum(dim=(1, 2))                          # (B, E)
+        c = torch.arange(cap, device=dev)
+        at = (counts.cumsum(-1) - counts)[..., None] + c         # (B,E,C)
+        pair_at = torch.gather(order, 1, at.clamp(max=g * k - 1).reshape(
+            g_count, e * cap)).reshape(g_count, e, cap) + group * (g * k)
+        pair_at = torch.where(c < counts[..., None], pair_at, n_tok * k)
+        pair_at = pair_at.transpose(0, 1).reshape(n_slot)
+        token_at = torch.where(pair_at < n_tok * k, pair_at // k, n_tok)
     # the gathers copy values, so they run in the compute dtype; the
     # gradients' sums run in fp32, as JAX's fp32 dispatch einsum's
-    xe = to_experts(_Route.apply(xt.reshape(n_tok, d), token_at,
-                                 slot).reshape(e, g_count * cap, d))
-    gate = F.silu(torch.bmm(xe, p["w_gate"].to(dtype)))
-    up = torch.bmm(xe, p["w_up"].to(dtype))
-    ye = from_experts(torch.bmm(gate * up, p["w_down"].to(dtype)))
-    got = _Route.apply(ye.reshape(n_slot, d), slot.reshape(-1),
-                       pair_at[:, None])
-    got = got.to(torch.float32).reshape(g_count, g, k, d)
-    weight = gate_vals.sum(-1, keepdim=True)
-    out = (got * weight[..., None]).sum(2).to(dtype)
+    with trace.range("moe.dispatch"):
+        xe = to_experts(_Route.apply(xt.reshape(n_tok, d), token_at,
+                                     slot).reshape(e, g_count * cap, d))
+    with trace.range("moe.experts"):
+        gate = F.silu(torch.bmm(xe, p["w_gate"].to(dtype)))
+        up = torch.bmm(xe, p["w_up"].to(dtype))
+        ye = torch.bmm(gate * up, p["w_down"].to(dtype))
+    with trace.range("moe.combine"):
+        got = _Route.apply(from_experts(ye).reshape(n_slot, d),
+                           slot.reshape(-1), pair_at[:, None])
+        got = got.to(torch.float32).reshape(g_count, g, k, d)
+        weight = gate_vals.sum(-1, keepdim=True)
+        out = (got * weight[..., None]).sum(2).to(dtype)
     # load-balancing auxiliary loss (Switch)
-    me = batch_mean(probs.mean(dim=(0, 1)))
-    ce = batch_mean(onehot.sum(2).to(torch.float32).mean(dim=(0, 1)))
-    aux = e * (me * ce).sum()
+    with trace.range("moe.route"):
+        me = batch_mean(probs.mean(dim=(0, 1)))
+        ce = batch_mean(onehot.sum(2).to(torch.float32).mean(dim=(0, 1)))
+        aux = e * (me * ce).sum()
     return out.reshape(b, s, d), aux

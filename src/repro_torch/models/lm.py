@@ -46,6 +46,7 @@ from ..distributed.sharding import (batch_grad, commit_rows, constrain,
                                     local_call,
                                     placements_for, redistribute, reduced,
                                     vocab_lookup, write_slice)
+from ..obs import trace
 from ..tree import tree_map
 from . import rglru as rg
 from . import rwkv6 as rw
@@ -352,16 +353,19 @@ def _xent_sums(logits, tc, mc):
 
 
 def _xent_piece(hc, w_out, tc, mc):
-    logits = (hc @ w_out).to(torch.float32)                  # (B, C, V)
-    if not is_dtensor(logits):
-        return _xent_sums(logits, tc, mc)
-    rows = placements_for(logits, {0})
-    if any(isinstance(p, Shard) and p.dim == 2 for p in logits.placements):
-        return _xent_vocab_split(logits, tc, mc, rows)
-    part = batch_grad(rows)
-    t, c = local_call(_xent_sums, (logits, tc, mc), (rows, rows, rows),
-                      (part, part))
-    return reduced(t), reduced(c)
+    # marked inside the remat unit, so that its recompute is marked too
+    with trace.range("lm.xent"):
+        logits = (hc @ w_out).to(torch.float32)              # (B, C, V)
+        if not is_dtensor(logits):
+            return _xent_sums(logits, tc, mc)
+        rows = placements_for(logits, {0})
+        if any(isinstance(p, Shard) and p.dim == 2
+               for p in logits.placements):
+            return _xent_vocab_split(logits, tc, mc, rows)
+        part = batch_grad(rows)
+        t, c = local_call(_xent_sums, (logits, tc, mc), (rows, rows, rows),
+                          (part, part))
+        return reduced(t), reduced(c)
 
 
 def _xent_vocab_split(logits, tc, mc, rows):
@@ -429,14 +433,18 @@ def _dense_block(p, x, cfg: ModelConfig, positions, mode="causal",
                  window=0):
     """One decoder layer: (x, its MoE aux loss).  A parallel block (Cohere)
     feeds one norm's output to attention and the MLP and adds both."""
-    h = apply_norm(cfg, p["ln1"], x)
-    a = attention_forward(p["attn"], h, cfg, positions=positions, mode=mode,
-                          window=window)
+    ffn = "layer.moe" if cfg.is_moe else "layer.mlp"
+    with trace.range("layer.attn"):
+        h = apply_norm(cfg, p["ln1"], x)
+        a = attention_forward(p["attn"], h, cfg, positions=positions,
+                              mode=mode, window=window)
     if cfg.block_type == "parallel":
-        m, aux = _ffn(p, h, cfg)
+        with trace.range(ffn):
+            m, aux = _ffn(p, h, cfg)
         return x + a + m, aux
     x = x + a
-    m, aux = _ffn(p, apply_norm(cfg, p["ln2"], x), cfg)
+    with trace.range(ffn):
+        m, aux = _ffn(p, apply_norm(cfg, p["ln2"], x), cfg)
     return x + m, aux
 
 
@@ -444,7 +452,8 @@ def _rec_block(p, x, cfg: ModelConfig):
     h = apply_norm(cfg, p["ln1"], x)
     r, _ = rg.rglru_block_forward(p["rec"], h, cfg)
     x = x + r
-    return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+    with trace.range("layer.mlp"):
+        return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
 
 
 def _super_block(p, x, cfg: ModelConfig, positions):
@@ -469,13 +478,16 @@ def _rwkv_block(p, x, cfg: ModelConfig):
 def _cross_block(p, x, cfg: ModelConfig, positions, enc_out):
     """An encoder-decoder decoder layer: causal self-attention, then
     cross-attention to ``enc_out``, then the MLP, each after its norm."""
-    h = apply_norm(cfg, p["ln1"], x)
-    x = x + attention_forward(p["attn"], h, cfg, positions=positions,
-                              mode="causal")
-    h = apply_norm(cfg, p["ln_x"], x)
-    x = x + attention_forward(p["xattn"], h, cfg, positions=positions,
-                              mode="cross", context=enc_out)
-    return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
+    with trace.range("layer.attn"):
+        h = apply_norm(cfg, p["ln1"], x)
+        x = x + attention_forward(p["attn"], h, cfg, positions=positions,
+                                  mode="causal")
+    with trace.range("layer.attn"):
+        h = apply_norm(cfg, p["ln_x"], x)
+        x = x + attention_forward(p["xattn"], h, cfg, positions=positions,
+                                  mode="cross", context=enc_out)
+    with trace.range("layer.mlp"):
+        return x + mlp_forward(p["mlp"], apply_norm(cfg, p["ln2"], x))
 
 
 def _unstack(layers, n: int):
@@ -565,7 +577,8 @@ def forward_train(params, cfg: ModelConfig, batch, *, q_chunk: int = 1024,
     del q_chunk
     dtype = compute_dtype(cfg)
     tokens = batch["tokens"]
-    x = _embed(params, tokens, dtype)
+    with trace.range("lm.embed"):
+        x = _embed(params, tokens, dtype)
     enc_out = None
     if cfg.is_encdec:
         enc_out = _encoder(params, cfg, batch["frames"])

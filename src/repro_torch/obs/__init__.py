@@ -5,11 +5,17 @@ The observability subsystem that makes the fault-taxonomy recovery paths
 *witnessable* instead of merely survivable:
 
 ``trace.py``
-    Zero-dependency structured span tracer: nested spans with
-    monotonic-clock timestamps (injectable for determinism), per-event
-    attributes, and ``fault.<kind>`` / ``recover.<kind>`` annotations.
+    Structured span tracer: nested spans with monotonic-clock timestamps
+    (injectable for determinism), per-event attributes, and
+    ``fault.<kind>`` / ``recover.<kind>`` annotations.
     :data:`NULL_TRACER` is the always-safe disabled default — one branch on
-    the hot path, no allocation.
+    the hot path, no allocation.  ``trace.range(name)`` is the profiler
+    mirror: a range on ``torch.profiler``'s timeline (the device trace's
+    clock) while a profiler records, the shared null span after one
+    attribute read otherwise.  The train step's phases, its layers and the
+    MoE layer's stages are marked so (``train.*``, ``lm.*``, ``layer.*``,
+    ``moe.*``), and an enabled tracer's spans open the same range; ranges
+    never reach the recorder.
 
 ``recorder.py``
     Bounded flight-recorder ring buffer; dumps the last-N-seconds window as
@@ -27,7 +33,9 @@ The observability subsystem that makes the fault-taxonomy recovery paths
     Wraps step functions: first-call time (the kernels' build and load on
     the card), per-step wall time, and ``capture_cost``'s FLOPs and bytes
     (aten ops by dispatch modes, hand-written kernels by their own
-    reports).
+    reports); :class:`ProfileSteps` records a window of steps under
+    ``torch.profiler`` into a Chrome trace (the train launcher's
+    ``--profile-steps``).
 
 ``validate.py``
     Dump schema validation + required-span assertions
@@ -47,7 +55,7 @@ import dataclasses
 import time
 
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
-from .profile import ProfiledFn, profile_jit, save_profiles
+from .profile import ProfiledFn, ProfileSteps, profile_jit, save_profiles
 from .recorder import FlightRecorder, load_jsonl, to_chrome
 from .trace import NULL_TRACER, Span, Tracer
 
@@ -59,6 +67,7 @@ __all__ = [
     "MetricsRegistry",
     "NULL_TRACER",
     "ObsContext",
+    "ProfileSteps",
     "ProfiledFn",
     "Span",
     "Tracer",

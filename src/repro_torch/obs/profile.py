@@ -20,6 +20,11 @@ metrics registry and (optionally) the span tracer:
 
 :func:`save_profiles` writes the collected profiles as ``profile.json``.
 
+:class:`ProfileSteps` runs a window of a step callable's calls under
+``torch.profiler`` and writes the profiler's Chrome export: the device's
+kernels, the host's ops, the program's ranges (``trace.range``) and the
+recorder's spans, on one clock.
+
 Synchronising makes the wrapper a synchronization point, so the hooks are
 opt-in (the launchers enable them only under ``--trace-dir``); results are
 bit-identical either way.
@@ -40,7 +45,7 @@ from ..kernels import _cost
 from .metrics import MetricsRegistry
 from .trace import NULL_TRACER
 
-__all__ = ["ProfiledFn", "profile_jit", "save_profiles"]
+__all__ = ["ProfileSteps", "ProfiledFn", "profile_jit", "save_profiles"]
 
 STEP_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
                 2.5, 5.0, 15.0, 60.0)
@@ -187,3 +192,49 @@ def save_profiles(path: str, profiled: list[ProfiledFn]) -> str:
         json.dump([p.report() for p in profiled], f, indent=1,
                   sort_keys=True)
     return path
+
+
+class ProfileSteps:
+    """A step callable whose calls ``first`` to ``last`` (counted from 0,
+    replays after a restore included) run under ``torch.profiler``: CPU
+    activity, and CUDA where a card is present.  The profiler starts as
+    call ``first`` begins and stops when call ``last`` has returned and its
+    outputs' devices are synchronised, so what runs between those calls
+    (the loss's copy, checkpoint saves) is in the window too; the Chrome
+    trace is then written to ``path`` (returned by :meth:`close`, which
+    also ends a window the run left open)."""
+
+    def __init__(self, fn, first: int, last: int, path: str):
+        self.fn, self.first, self.last, self.path = fn, first, last, path
+        self.calls = 0
+        self.written: str | None = None
+        self._prof = None
+
+    def __call__(self, *args, **kwargs):
+        i = self.calls
+        self.calls += 1
+        if i == self.first:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+        out = self.fn(*args, **kwargs)
+        if i == self.last:
+            self.close(out)
+        return out
+
+    def close(self, out=None) -> str | None:
+        """Stop a window that is open and write its trace."""
+        if self._prof is not None:
+            if out is not None:
+                _sync(out)
+            elif torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof, self._prof = self._prof, None
+            prof.__exit__(None, None, None)
+            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+            prof.export_chrome_trace(self.path)
+            self.written = self.path
+        return self.written

@@ -1,4 +1,4 @@
-"""Zero-dependency structured span tracer.
+"""Structured span tracer, and its mirror on the profiler's timeline.
 
 The tracing unit is a *span* — a named interval with monotonic-clock
 timestamps, key/value attributes, and a parent link (nesting follows the
@@ -23,11 +23,26 @@ Observability section of ROADMAP.md): every recovery path emits a
 ``recover.<fault_kind>`` annotation via :meth:`Tracer.recovery`, and every
 injected fault a ``fault.<fault_kind>`` annotation via :meth:`Tracer.fault`
 — both of which also arm the flight recorder's dump-on-fault trigger.
+
+The profiler mirror: :func:`range` marks a range on ``torch.profiler``'s
+own timeline (its host events are stamped on the clock its device events
+are), for the boundaries inside the train step that the recorder never
+sees (``train.forward``, ``layer.moe``, ``moe.route``, ...).  While no
+profiler records it returns the shared null span after one attribute
+read, so the call sites carry no guard and no flag; a profiler that
+records turns every range on.  An enabled tracer's spans open the same
+range around themselves while a profiler records, so the recorder's spans
+(``ckpt.save``, ``crosspod.commit``, ...) appear on the device trace too.
+Ranges never reach the recorder: its records are the same with a profiler
+running or not.
 """
 from __future__ import annotations
 
 import time
 
+from torch.autograd import profiler as _profiler
+
+# ``range`` is left out: a star import would shadow the builtin
 __all__ = ["Span", "Tracer", "NULL_TRACER"]
 
 
@@ -49,11 +64,20 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def range(name: str):
+    """A context manager marking ``name`` on the profiler's timeline while
+    a ``torch.profiler`` records (``record_function``); the shared null
+    span otherwise.  Nothing reaches the flight recorder."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _NULL_SPAN
+
+
 class Span:
     """One live span.  Use as a context manager; emitted on exit."""
 
     __slots__ = ("tracer", "name", "track", "attrs", "span_id", "parent_id",
-                 "t0", "t1")
+                 "t0", "t1", "_mirror")
 
     def __init__(self, tracer: "Tracer", name: str, track: str,
                  attrs: dict, span_id: int, parent_id: int | None):
@@ -65,6 +89,7 @@ class Span:
         self.parent_id = parent_id
         self.t0 = 0.0
         self.t1 = 0.0
+        self._mirror = _NULL_SPAN
 
     def set(self, **attrs) -> "Span":
         """Attach attributes mid-span (e.g. an outcome discovered late)."""
@@ -72,12 +97,15 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
+        self._mirror = range(self.name)
+        self._mirror.__enter__()
         self.t0 = self.tracer.clock()
         self.tracer._stack.append(self)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.t1 = self.tracer.clock()
+        self._mirror.__exit__(exc_type, exc, tb)
         stack = self.tracer._stack
         if stack and stack[-1] is self:
             stack.pop()

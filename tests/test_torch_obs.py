@@ -52,6 +52,7 @@ from repro_torch.obs import (NULL_TRACER, FlightRecorder,  # noqa: E402
                              profile_jit, setup, to_chrome)
 from repro_torch.obs.validate import (validate_chrome,  # noqa: E402
                                       validate_dir, validate_events)
+from repro_torch.obs import trace as otrace  # noqa: E402
 from repro_torch.obs import validate as tvalidate  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.serve.metrics import ServeMetrics  # noqa: E402
@@ -452,6 +453,134 @@ def test_coordinator_records_match_jax_and_validators_cross_read(
             assert summary["jsonl_files"] >= 5
 
 
+# ---------------------------------------------------- profiler ranges ----
+
+def _ranges(prof, names):
+    """(name, start_ns, end_ns) of the profile's host events named in
+    ``names``, in start order."""
+    return sorted(((e.name(), e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name() in names), key=lambda r: r[1])
+
+
+def _cpu_profile():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_range_is_the_shared_null_span_without_a_profiler(monkeypatch):
+    import torch.autograd.profiler as tprof
+
+    def refuse(*a, **k):
+        raise AssertionError("range() called into the profiler")
+
+    monkeypatch.setattr(tprof, "record_function", refuse)
+    null = NULL_TRACER.span("x")
+    for name in ("train.step", "moe.route", "anything"):
+        r = otrace.range(name)
+        assert r is null
+        with r as sp:
+            assert sp is null
+
+
+def test_the_profiler_flag_that_ranges_read_exists():
+    # a torch without this attribute would silently drop every range
+    import torch.autograd.profiler as tprof
+    assert tprof._is_profiler_enabled is False
+    with _cpu_profile():
+        assert tprof._is_profiler_enabled is True
+    assert tprof._is_profiler_enabled is False
+
+
+def test_ranges_nest_and_tracer_spans_mirror_under_the_profiler():
+    rec = FlightRecorder(64)
+    tracer = Tracer(rec, clock=FakeClock())
+    with _cpu_profile() as prof:
+        with otrace.range("outer"):
+            with otrace.range("inner"):
+                torch.ones(4).sum()
+            with tracer.span("ckpt.save", step=1):
+                torch.ones(4).sum()
+    got = _ranges(prof, {"outer", "inner", "ckpt.save"})
+    assert [g[0] for g in got] == ["outer", "inner", "ckpt.save"]
+    (_, oa, ob), (_, ia, ib), (_, ca, cb) = got
+    assert oa <= ia < ib <= ca < cb <= ob
+    # the recorder holds the tracer's span and none of the ranges
+    assert [(r["type"], r["name"]) for r in rec.snapshot()] == [
+        ("span", "ckpt.save")]
+
+
+#: the ranges of one train step (``train.h2d`` holds the batch's copy)
+STEP_RANGES = ("train.step", "train.h2d", "train.forward", "train.backward",
+               "train.optimizer", "lm.embed", "lm.xent", "layer.attn")
+MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-moe-1b-a400m"])
+def test_one_train_step_marks_every_range(arch):
+    cfg = get_config(arch, tiny=True)
+    assert cfg.remat
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    step = make_train_step(cfg, q_chunk=16, xent_chunk=16)
+    batch = SyntheticTokenPipeline(DataConfig(2, 32), cfg).batch_at(0)
+    names = set(STEP_RANGES + MOE_RANGES) | {"layer.mlp", "layer.moe"}
+    with _cpu_profile() as prof:
+        step(params, adamw_init(params), batch)
+    got = _ranges(prof, names)
+    count = collections.Counter(g[0] for g in got)
+    n, chunks = cfg.n_layers, 2          # 32 positions in chunks of 16
+    ffn = "layer.moe" if cfg.is_moe else "layer.mlp"
+    # every remat unit (a layer, a loss chunk) runs again in the backward
+    want = {"train.step": 1, "train.h2d": 1, "train.forward": 1,
+            "train.backward": 1, "train.optimizer": 1, "lm.embed": 1,
+            "lm.xent": 2 * chunks, "layer.attn": 2 * n, ffn: 2 * n}
+    if cfg.is_moe:
+        # the routing and, after the combine, the load-balancing loss
+        want.update({"moe.route": 4 * n, "moe.dispatch": 2 * n,
+                     "moe.experts": 2 * n, "moe.combine": 2 * n})
+    assert dict(count) == want
+    span = {g[0]: g[1:] for g in got if g[0].startswith("train.")}
+    (sa, sb) = span["train.step"]
+    order = ["train.h2d", "train.forward", "train.backward",
+             "train.optimizer"]
+    for a, b in zip(order, order[1:]):
+        assert span[a][1] <= span[b][0]
+    assert sa <= span["train.h2d"][0] and span["train.optimizer"][1] <= sb
+    fa, fb = span["train.forward"]
+    ba, bb = span["train.backward"]
+    for name, a, b in got:
+        if name.startswith(("layer.", "moe.", "lm.xent")):
+            # the first pass in the forward, the recompute in the backward
+            assert fa <= a < b <= fb or ba <= a < b <= bb, name
+    in_fwd = collections.Counter(name for name, a, _ in got if fa <= a <= fb)
+    assert in_fwd[ffn] == n and in_fwd["lm.xent"] == chunks
+
+
+def test_recorder_records_are_the_same_under_a_profiler(train_setup,
+                                                        tmp_path):
+    """Ranges never reach the flight recorder: the four-fault run under a
+    profiler gives the records of the same run without one."""
+    dirs = []
+    for i, profiled in enumerate((False, True)):
+        d = str(tmp_path / f"trace{i}")
+        ctx = setup(d, dump_on_fault=True)
+        if profiled:
+            with _cpu_profile() as prof:
+                run_chaos_coordinator(train_setup, str(tmp_path / f"c{i}"),
+                                      tracer=ctx.tracer,
+                                      registry=ctx.registry)
+            mirrored = {g[0] for g in _ranges(prof, {"ckpt.save",
+                                                     "train.step"})}
+            assert mirrored == {"ckpt.save", "train.step"}
+        else:
+            run_chaos_coordinator(train_setup, str(tmp_path / f"c{i}"),
+                                  tracer=ctx.tracer, registry=ctx.registry)
+        ctx.finish()
+        dirs.append(d)
+    assert _records(dirs[0]) == _records(dirs[1])
+    assert sorted(os.listdir(dirs[0])) == sorted(os.listdir(dirs[1]))
+
+
 # ------------------------------------------------- fingerprint gating ----
 
 def test_exchange_round_skips_fingerprint_on_request():
@@ -507,6 +636,31 @@ def test_train_launcher_trace_dir_writes_dumps_metrics_and_profile(
         "--tiny", "--device", "cpu", "--steps", "3", "--global-batch", "2",
         "--seq-len", "32"])
     assert out["profiled"] is None and not out["obs"].enabled
+
+
+def test_train_launcher_profile_steps_writes_the_device_trace(tmp_path):
+    tdir = tmp_path / "trace"
+    out = launch_train.main([
+        "--arch", "granite-moe-1b-a400m", "--tiny", "--device", "cpu",
+        "--steps", "5", "--global-batch", "2", "--seq-len", "32",
+        "--trace-dir", str(tdir), "--profile-steps", "2:3"])
+    window = out["window"]
+    assert window.calls == 5 and window.written == str(
+        tdir / "device_trace.json")
+    events = json.load(open(tdir / "device_trace.json"))["traceEvents"]
+    count = collections.Counter(e["name"] for e in events)
+    # two steps in the window, each with its phases and its MoE stages
+    for name in ("train.step", "train.forward", "train.backward",
+                 "train.optimizer"):
+        assert count[name] == 2, name
+    assert count["moe.experts"] == 2 * 2 * 2
+    with pytest.raises(SystemExit):
+        launch_train.main(["--tiny", "--device", "cpu", "--steps", "2",
+                           "--profile-steps", "1:2"])      # no --trace-dir
+    with pytest.raises(SystemExit):
+        launch_train.main(["--tiny", "--device", "cpu", "--steps", "2",
+                           "--trace-dir", str(tmp_path / "t2"),
+                           "--profile-steps", "3:1"])
 
 
 def test_serve_launcher_trace_dir_writes_dumps_and_metrics(tmp_path):
