@@ -314,6 +314,15 @@ FA_BWD_CASES = [(2, 4, 4, 200, 128, 0), (2, 4, 2, 200, 128, 0),
 # 12 (command-r-plus-104b, 96:8) and 48 (granite-20b's MQA, 48:1) with
 # every query head of the family, at a short S
 FA_BWD_MOE_MAIN = (4, 16, 8, 2048, 64)
+# the MoE layer's row kernels (kernels/moe_rows): their entry points, and
+# (groups, tokens a group, k, experts, capacity factor, d) at granite-moe-
+# 1b's benchmark step (8 x 2048 tokens, top 8 of 32, d 1024; timed) and at
+# phi3.5-moe's widths (top 2 of 16, d 4096), with drops and a decode group
+MOE_ROW_ENTRIES = ("dispatch_fwd", "combine_fwd", "combine_bwd",
+                   "dispatch_bwd")
+MOE_ROWS_MAIN = (8, 2048, 8, 32, 1.25, 1024)
+MOE_ROWS_CASES = [(2, 2048, 8, 32, 0.3, 1024), (1, 4, 8, 32, 1.25, 1024),
+                  (2, 2048, 2, 16, 1.25, 4096), (1, 4, 2, 16, 0.3, 4096)]
 FA_BWD_GROUP_CASES = [(1, 56, 8, 256, 128), (1, 96, 8, 256, 128),
                       (1, 48, 1, 512, 128)]
 
@@ -553,6 +562,7 @@ def tree_bytes(tree):
 def wrappers():
     """Kernel name -> its wrapper, which carries the launch count."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_rows import ops as moe_ops
     from repro_torch.kernels.pairwise_affinity import ops as pa_ops
     from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.rwkv6_scan import ops as wk_ops
@@ -561,7 +571,8 @@ def wrappers():
             "flash_attention_bwd": fa_ops.flash_attention_bwd,
             "wkv6": wk_ops.wkv6, "wkv6_bwd": wk_ops.wkv6_bwd,
             "lru_scan": lru_ops.lru_scan,
-            "lru_scan_bwd": lru_ops.lru_scan_bwd}
+            "lru_scan_bwd": lru_ops.lru_scan_bwd,
+            **{f"moe_{n}": getattr(moe_ops, n) for n in MOE_ROW_ENTRIES}}
 
 
 def time_ms(fn, iters=25, warmup=3, queued=False):
@@ -1416,6 +1427,120 @@ def decoder_kernel_cases(recs):
               f"of 64 keys)")
 
 
+def moe_rows_case(g_count, g, k, e, cf, d, dtype_name, *, timed):
+    """The MoE row kernels' four entry points against the plain version on
+    the card, on routes built as ``layers._moe`` builds them (random router
+    probabilities): the gathers to the bit, the sums within fp32 rounding
+    (one bf16 ulp after the cast; d_w within 1e-5 of its terms' magnitudes).
+    Timed: each entry point's ``ms``/``device_ms``, its plain version's (a
+    backward by ``torch.autograd.grad`` on a kept graph) and its bound.
+    Returns {entry point: record}."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_rows import ops, ref
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(g_count * g * k + d)
+    probs = torch.rand((g_count, g, e), generator=gen, device="cuda")
+    gate_idx = probs.argsort(-1, descending=True)[..., :k]
+    cap = max(int(math.ceil(g * k / e * cf)), 4)
+    onehot = F.one_hot(gate_idx, e)
+    seen = onehot.reshape(g_count, g * k, e).cumsum(1).reshape(onehot.shape)
+    pos = (seen * onehot).sum(-1) - 1
+    n_tok, n_slot = g_count * g, e * g_count * cap
+    group = torch.arange(g_count, device="cuda")[:, None, None]
+    slot = torch.where(pos < cap, (gate_idx * g_count + group) * cap + pos,
+                       n_slot).reshape(n_tok, k)
+    kept = slot.reshape(-1) < n_slot
+    pair_at = torch.full((n_slot,), n_tok * k, dtype=torch.int64,
+                         device="cuda")
+    pair_at[slot.reshape(-1)[kept]] = torch.arange(
+        n_tok * k, device="cuda")[kept]
+    token_at = torch.where(pair_at < n_tok * k, pair_at // k, n_tok)
+    gates = torch.rand((g_count, g, k), generator=gen, device="cuda") + 0.05
+    gates = gates / gates.sum(-1, keepdim=True)
+    x, ye, dxe, gy = (torch.randn(shape, generator=gen, device="cuda",
+                                  dtype=dt)
+                      for shape in ((n_tok, d), (n_slot, d), (n_slot, d),
+                                    (n_tok, d)))
+    w = gates.sum(-1).reshape(-1)
+    xr, yr, gr = (t.clone().requires_grad_() for t in (x, ye, gates))
+    xe_ref = ref.dispatch(xr, slot, token_at)
+    out_ref = ref.combine(yr, gr, slot, pair_at)
+    d_ye_ref, d_gates = torch.autograd.grad(out_ref, [yr, gr],
+                                            gy.reshape(out_ref.shape),
+                                            retain_graph=True)
+    (dx_ref,) = torch.autograd.grad(xe_ref, [xr], dxe, retain_graph=True)
+    d_ye, d_w = ops.combine_bwd(gy, ye, w, slot, token_at)
+    got = {"dispatch_fwd": ops.dispatch_fwd(x, token_at),
+           "combine_fwd": ops.combine_fwd(ye, slot, w),
+           "combine_bwd": d_ye, "dispatch_bwd": ops.dispatch_bwd(dxe, slot)}
+    want = {"dispatch_fwd": xe_ref, "combine_fwd": out_ref.reshape(n_tok, d),
+            "combine_bwd": d_ye_ref, "dispatch_bwd": dx_ref}
+    torch.cuda.synchronize()
+    ye_rows = torch.cat([ye, torch.zeros_like(ye[:1])]).float()[slot]
+    terms = (gy.float()[:, None, :] * ye_rows).abs().sum((1, 2))
+    dw_err = float(((d_w - d_gates.reshape(n_tok, k)[:, 0]).abs()
+                    / (terms + 1e-30)).max())
+    del ye_rows
+    tol = (dict(atol=2e-6, rtol=1e-5) if dt == torch.float32
+           else dict(atol=1e-5, rtol=2 ** -7))
+    calls = {"dispatch_fwd": (lambda: ops.dispatch_fwd(x, token_at),
+                              lambda: ref.dispatch(x, slot, token_at)),
+             "combine_fwd": (lambda: ops.combine_fwd(ye, slot, w),
+                             lambda: ref.combine(ye, gates, slot, pair_at)),
+             "combine_bwd": (lambda: ops.combine_bwd(gy, ye, w, slot,
+                                                     token_at),
+                             lambda: torch.autograd.grad(
+                                 out_ref, [yr, gr], gy.reshape(out_ref.shape),
+                                 retain_graph=True)),
+             "dispatch_bwd": (lambda: ops.dispatch_bwd(dxe, slot),
+                              lambda: torch.autograd.grad(
+                                  xe_ref, [xr], dxe, retain_graph=True))}
+    recs = {}
+    shape = [g_count, g, k, e, cf, d]
+    for name in MOE_ROW_ENTRIES:
+        a, b = got[name], want[name]
+        err = float((a.float() - b.float()).abs().max())
+        exact = name in ("dispatch_fwd", "combine_bwd")
+        ok = bool(torch.equal(a, b) if exact
+                  else torch.allclose(a, b, **tol))
+        if name == "combine_bwd":
+            ok = ok and dw_err <= 1e-5
+        rec = {"shape": shape, "dtype": dtype_name, "max_abs_err": err,
+               "ok": ok}
+        if timed:
+            kernel, plain = calls[name]
+            time_kernel(rec, kernel)
+            rec["plain_ms"] = time_plain(plain)
+            rec["library_ms"] = None   # no single PyTorch call computes it
+            rec["library_device_ms"] = None
+            add_bound(rec, *launch_cost(kernel), "bfloat16")
+        print(f"  moe_rows {name} {shape} {dtype_name}: max_abs_err "
+              f"{err:.3g} ({'bitwise' if exact else 'fp32 sums'}"
+              + (f", d_w {dw_err:.3g} of its terms" if name == "combine_bwd"
+                 else "")
+              + f") {'ok' if ok else 'FAIL'}"
+              + (_timing_text(rec, "library") if timed else ""))
+        check(ok, f"moe_rows {name} {shape} {dtype_name} disagrees with its "
+                  f"plain version")
+        recs[name] = rec
+    return recs
+
+
+def moe_rows_cases(recs):
+    """The MoE row kernels at :data:`MOE_ROWS_MAIN` (bf16 timed, fp32) and
+    :data:`MOE_ROWS_CASES` (both dtypes); the timed records go to ``recs``
+    as ``moe_<entry point>``."""
+    for name, rec in moe_rows_case(*MOE_ROWS_MAIN, "bfloat16",
+                                   timed=True).items():
+        recs[f"moe_{name}"] = rec
+    moe_rows_case(*MOE_ROWS_MAIN, "float32", timed=False)
+    for case in MOE_ROWS_CASES:
+        for dt in ("float32", "bfloat16"):
+            moe_rows_case(*case, dt, timed=False)
+
+
 def tf32_round_case():
     """The fp32 kernels' rounding of their operands' hi parts (tf32::rna in
     csrc/tf32.cuh: two integer ops) against cvt.rna.tf32.f32 over all 2^32
@@ -1642,6 +1767,7 @@ def phase_kernels():
                            window=window)
     fp32_kernel_cases(recs)
     decoder_kernel_cases(recs)
+    moe_rows_cases(recs)
     multimodal_kernel_cases(recs)
     recs["wkv6_bwd"] = wkv6_bwd_case(*WKV_BWD_MAIN, "bfloat16", False,
                                      timed=True)
@@ -1902,7 +2028,8 @@ def _prefill_len(cfg, plen):
 
 # the port's own kernels, by the names the profiler gives them
 PORT_KERNELS = ("pairwise_distance_kernel", "flash_fwd", "flash_bwd",
-                "wkv6_", "lru_chunk", "lru_bwd")
+                "wkv6_", "lru_chunk", "lru_bwd", "moe_gather_rows",
+                "moe_sum_rows", "moe_combine_bwd")
 
 
 def _profile(label, fn, reps):
@@ -3660,6 +3787,11 @@ KERNEL_SOURCES = {
     # (src/repro/models/rglru.py:75)
     "lru_scan_bwd": ("src/repro_torch/kernels/csrc/lru_scan.cu",
                      "src/repro/kernels/rglru_scan/kernel.py:20"),
+    # the MoE layer's dispatch and combine: no Pallas kernel, JAX multiplies
+    # one-hot tensors (src/repro/models/layers.py, moe_forward)
+    **{f"moe_{n}": ("src/repro_torch/kernels/csrc/moe_rows.cu",
+                    "none: src/repro/models/layers.py moe_forward's einsums")
+       for n in MOE_ROW_ENTRIES},
 }
 TIMED_KEYS = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "bound_share", "library_ms",

@@ -23,7 +23,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "load"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pairwise_distance", "flash_attention", "flash_attention_bwd",
-           "wkv6", "lru_scan")
+           "wkv6", "lru_scan", "moe_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -13,7 +13,8 @@ no kernel there either).
 Every op is differentiable: weights are cast to the compute dtype at each
 use (``.to(dtype)``), so training keeps fp32 parameters.  The MoE layer
 routes each kept (token, choice) pair to its (expert, slot) row by gathers,
-forward and backward (:class:`_Route`), where the JAX function multiplies
+forward and backward (``kernels/moe_rows``: hand-written kernels on the
+card, the plain version on the CPU), where the JAX function multiplies
 one-hot dispatch and combine tensors.
 """
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..distributed.sharding import (as_replicated, constrain, guard_spec,
                                     spec_to_placements, split_dim,
                                     split_last)
 from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.moe_rows import ops as moe_rows
 from ..obs import trace
 from .config import ModelConfig
 
@@ -339,38 +341,11 @@ MOE_GROUP = 2048  # tokens per dispatch group (GShard-style local capacity)
 route_log: list | None = None
 
 
-def _pick(x, idx):
-    """Rows of ``x`` at ``idx`` (any shape); index ``x.shape[0]`` picks a
-    zero row."""
-    n = x.shape[0]
-    return x[idx.clamp(max=n - 1)].masked_fill_((idx == n)[..., None], 0)
-
-
 def top_k_indices(x, k: int):
     """Indices of the ``k`` largest entries of the last axis, largest
     first; equal values in index order, as ``jax.lax.top_k`` gives them
     (``torch.topk`` promises no order among equals)."""
     return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
-
-
-class _Route(torch.autograd.Function):
-    """``out[i] = x[idx[i]]`` (a zero row for ``idx[i] == len(x)``); the
-    gradient is gathered too: row r of ``dx`` sums the output rows listed in
-    ``inv[r]`` (the same sentinel for none) in column order, in fp32, and
-    rounds once.  With ``inv`` the exact inverse of ``idx`` this is the
-    gather's gradient, reduced in one fixed order without atomics, so a
-    train step replays bit for bit."""
-
-    @staticmethod
-    def forward(ctx, x, idx, inv):
-        ctx.save_for_backward(inv)
-        return _pick(x, idx)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (inv,) = ctx.saved_tensors
-        dx = _pick(grad, inv).sum(1, dtype=torch.float32)
-        return dx.to(grad.dtype), None, None
 
 
 def moe_forward(p, x, cfg: ModelConfig):
@@ -535,18 +510,16 @@ def _moe(p, x, cfg: ModelConfig, to_experts, from_experts,
     # the gathers copy values, so they run in the compute dtype; the
     # gradients' sums run in fp32, as JAX's fp32 dispatch einsum's
     with trace.range("moe.dispatch"):
-        xe = to_experts(_Route.apply(xt.reshape(n_tok, d), token_at,
-                                     slot).reshape(e, g_count * cap, d))
+        xe = to_experts(moe_rows.dispatch(xt.reshape(n_tok, d), slot,
+                                          token_at).reshape(e, g_count * cap,
+                                                            d))
     with trace.range("moe.experts"):
         gate = F.silu(torch.bmm(xe, p["w_gate"].to(dtype)))
         up = torch.bmm(xe, p["w_up"].to(dtype))
         ye = torch.bmm(gate * up, p["w_down"].to(dtype))
     with trace.range("moe.combine"):
-        got = _Route.apply(from_experts(ye).reshape(n_slot, d),
-                           slot.reshape(-1), pair_at[:, None])
-        got = got.to(torch.float32).reshape(g_count, g, k, d)
-        weight = gate_vals.sum(-1, keepdim=True)
-        out = (got * weight[..., None]).sum(2).to(dtype)
+        out = moe_rows.combine(from_experts(ye).reshape(n_slot, d),
+                               gate_vals, slot, token_at, pair_at)
     # load-balancing auxiliary loss (Switch)
     with trace.range("moe.route"):
         me = batch_mean(probs.mean(dim=(0, 1)))

@@ -21,6 +21,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.moe_rows import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_rows import ref as moe_ref  # noqa: E402
 from repro_torch.kernels.pairwise_affinity import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.pairwise_affinity import ref as pa_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
@@ -989,6 +991,142 @@ def test_moe_layer_on_card_matches_cpu_and_repeats_its_bits(cuda_device, s):
         assert torch.equal(g, a)
         torch.testing.assert_close(g.detach().cpu(), w.detach(), atol=2e-4,
                                    rtol=2e-4)
+
+
+# the MoE layer's row kernels: (groups, tokens a group, k, experts,
+# capacity factor, d) at granite-moe-1b's widths (top 8 of 32, d 1024) and
+# phi3.5-moe's (top 2 of 16, d 4096), two 2048-token groups; capacity
+# drops at factor 0.3; a decode group of 4 rows; rows off the 16-byte grid
+# (d 998: the kernels' element-at-a-time instance, both dtypes)
+MOE_ROW_CASES = {"odd_width": (2, 64, 3, 8, 1.0, 998),
+                 "granite": (2, 2048, 8, 32, 1.25, 1024),
+                 "granite_drops": (2, 2048, 8, 32, 0.3, 1024),
+                 "granite_decode": (1, 4, 8, 32, 1.25, 1024),
+                 "phi35": (2, 2048, 2, 16, 1.25, 4096),
+                 "phi35_drops": (2, 2048, 2, 16, 0.3, 4096),
+                 "phi35_decode": (1, 4, 2, 16, 1.25, 4096)}
+
+
+def _moe_routes(g_count, g, k, e, cf, gen):
+    """Index maps as ``layers._moe`` builds them (random router
+    probabilities, top k, token-major slots, drops past the capacity):
+    slot (n_tok, k), token_at and pair_at (n_slot,), gates (G, g, k)."""
+    import math
+    import torch.nn.functional as F
+    probs = torch.rand((g_count, g, e), generator=gen)
+    gate_idx = probs.argsort(-1, descending=True)[..., :k]
+    cap = max(int(math.ceil(g * k / e * cf)), 4)
+    onehot = F.one_hot(gate_idx, e)
+    seen = onehot.reshape(g_count, g * k, e).cumsum(1).reshape(onehot.shape)
+    pos = (seen * onehot).sum(-1) - 1
+    n_tok, n_slot = g_count * g, e * g_count * cap
+    group = torch.arange(g_count)[:, None, None]
+    slot = torch.where(pos < cap, (gate_idx * g_count + group) * cap + pos,
+                       n_slot).reshape(n_tok, k)
+    kept = slot.reshape(-1) < n_slot
+    pairs = torch.arange(n_tok * k)[kept]
+    pair_at = torch.full((n_slot,), n_tok * k, dtype=torch.int64)
+    pair_at[slot.reshape(-1)[kept]] = pairs
+    token_at = torch.where(pair_at < n_tok * k, pair_at // k, n_tok)
+    gates = torch.rand((g_count, g, k), generator=gen) + 0.05
+    return slot, token_at, pair_at, gates / gates.sum(-1, keepdim=True)
+
+
+def _moe_row_outputs(x, ye, dxe, g, gates, slot, token_at, pair_at):
+    """The four entry points' outputs: the kernels' and the plain
+    version's (its gradients by autograd)."""
+    n_tok, k = slot.shape
+    w = gates.sum(-1).reshape(-1)
+    d_ye, d_w = moe_ops.combine_bwd(g, ye, w, slot, token_at)
+    got = {"xe": moe_ops.dispatch_fwd(x, token_at),
+           "out": moe_ops.combine_fwd(ye, slot, w), "d_ye": d_ye,
+           "d_w": d_w, "dx": moe_ops.dispatch_bwd(dxe, slot)}
+    xr, yr, gr = (t.detach().clone().requires_grad_() for t in (x, ye, gates))
+    xe = moe_ref.dispatch(xr, slot, token_at)
+    out = moe_ref.combine(yr, gr, slot, pair_at)
+    torch.autograd.backward([xe, out], [dxe, g.reshape(out.shape)])
+    want = {"xe": xe, "out": out.reshape(n_tok, -1), "d_ye": yr.grad,
+            "d_w": gr.grad.reshape(n_tok, k)[:, 0], "dx": xr.grad}
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(MOE_ROW_CASES))
+def test_moe_row_kernels_match_the_plain_version(cuda_device, case, dtype):
+    """Each entry point against the plain version on the card: the
+    gathers (dispatch, the combine's d_ye) to the bit; the sums in fp32
+    within its rounding (the combine and dispatch backward: one rounding
+    to bf16 may land one ulp apart; d_w: 1e-5 of the sum of its terms'
+    magnitudes); a second run under deterministic algorithms gives the
+    same bits."""
+    g_count, g, k, e, cf, d = MOE_ROW_CASES[case]
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(7)
+    maps = _moe_routes(g_count, g, k, e, cf, gen)
+    slot, token_at, pair_at, gates = (t.cuda() for t in maps)
+    n_tok, n_slot = slot.shape[0], token_at.shape[0]
+    if case.endswith("drops"):
+        assert int((slot == n_slot).sum()) > 0
+    x, ye, dxe, gy = (torch.randn(shape, generator=gen).to(dt).cuda()
+                      for shape in ((n_tok, d), (n_slot, d), (n_slot, d),
+                                    (n_tok, d)))
+    launches = [f.launches for f in (moe_ops.dispatch_fwd,
+                                     moe_ops.combine_fwd, moe_ops.combine_bwd,
+                                     moe_ops.dispatch_bwd)]
+    got, want = _moe_row_outputs(x, ye, dxe, gy, gates, slot, token_at,
+                                 pair_at)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(
+        (moe_ops.dispatch_fwd, moe_ops.combine_fwd, moe_ops.combine_bwd,
+         moe_ops.dispatch_bwd), launches)] == [1, 1, 1, 1]
+    for name in ("xe", "d_ye"):
+        assert torch.equal(got[name], want[name]), name
+    tol = (dict(atol=2e-6, rtol=1e-5) if dt == torch.float32
+           else dict(atol=1e-5, rtol=2 ** -7))
+    for name in ("out", "dx"):
+        torch.testing.assert_close(got[name], want[name], msg=name, **tol)
+    ye_rows = torch.cat([ye, torch.zeros_like(ye[:1])]).float()[slot]
+    terms = (gy.float()[:, None, :] * ye_rows).abs().sum((1, 2))
+    err = (got["d_w"] - want["d_w"]).abs()
+    assert bool((err <= 1e-5 * terms + 1e-6).all()), float(err.max())
+    torch.use_deterministic_algorithms(True)
+    try:
+        again, _ = _moe_row_outputs(x, ye, dxe, gy, gates, slot, token_at,
+                                    pair_at)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in got:
+        assert torch.equal(got[name], again[name]), name
+
+
+@pytest.mark.cuda
+def test_moe_train_step_runs_the_row_kernels(cuda_device):
+    """One bf16 train step of a small MoE preset (granite-moe's tiny
+    config at head dim 64) launches each row kernel once a layer a pass:
+    dispatch and combine forward twice a layer (remat recomputes the
+    forward), their backwards once."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.distributed import make_train_step
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", tiny=True),
+                              d_model=128, n_heads=2, n_kv_heads=2,
+                              head_dim=64, compute_dtype="bfloat16")
+    assert cfg.remat
+    step = make_train_step(cfg, q_chunk=96, xent_chunk=32, warmup=1)
+    params = _card_train_params(cfg, cuda_device)
+    state = adamw_init(params)
+    batch = SyntheticTokenPipeline(DataConfig(2, 96, seed=3), cfg).batch_at(0)
+    entries = (moe_ops.dispatch_fwd, moe_ops.combine_fwd,
+               moe_ops.combine_bwd, moe_ops.dispatch_bwd)
+    before = [f.launches for f in entries]
+    params, state, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert [f.launches - b for f, b in zip(entries, before)] == [
+        2 * n, 2 * n, n, n]
+    assert np.isfinite(float(m["loss"]))
 
 
 @pytest.mark.cuda
