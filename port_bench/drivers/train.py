@@ -19,28 +19,38 @@ the plain reference, on params drawn again from the seed.
 """
 from __future__ import annotations
 
+import dataclasses
 import tempfile
 
 import torch
 
-from .. import spec, traffic as gen, weights
+from .. import arch, spec, traffic as gen, weights
 from ..model import Model
 
 __all__ = ["System", "program_config", "reference_readings"]
 
 
 def program_config(m: Model):
-    """The port's ``ModelConfig`` of the benchmark's :class:`Model`."""
+    """The port's ``ModelConfig`` of the benchmark's :class:`Model`: its
+    fields, and each ``run`` key of ``m.arch`` by name (a key the port's
+    config lacks raises, naming it)."""
     from repro_torch.models.config import ModelConfig
+    have = {f.name for f in dataclasses.fields(ModelConfig)}
+    lacking = sorted(set(m.passed) - have)
+    if lacking:
+        raise ValueError(f"the port's ModelConfig has no field "
+                         f"{', '.join(lacking)} (configuration {m.name!r})")
     return ModelConfig(
         name=m.name, family=m.family, n_layers=m.n_layers, d_model=m.d_model,
         n_heads=m.n_heads, n_kv_heads=m.n_kv_heads, d_ff=m.d_ff,
-        vocab_size=m.vocab_size, block_type=m.block_type,
+        vocab_size=m.vocab_size, head_dim=m.head_dim,
+        block_type=m.block_type,
         norm_type=m.norm_type, mlp_type=m.mlp_type, use_bias=m.use_bias,
         tie_embeddings=m.tie_embeddings, rope_theta=m.rope_theta,
         n_experts=m.n_experts, top_k=m.top_k,
         capacity_factor=m.capacity_factor, param_dtype=m.param_dtype,
-        compute_dtype=m.compute_dtype, remat=m.remat)
+        compute_dtype=m.compute_dtype, remat=m.remat,
+        **{k: m.arch[k] for k in m.passed})
 
 
 def _launcher_args(traffic: dict, seed: int, device: str, ckpt_dir: str):
@@ -119,8 +129,9 @@ class System:
             finally:
                 log, layers.route_log = layers.route_log, None
             if routes is not None:
-                # the forward's calls, a layer each (the recompute's follow)
-                routes.append([r["experts"] for r in log[:self.m.n_layers]])
+                # the forward's calls, one an MoE layer (the recompute's
+                # follow)
+                routes.append([r["experts"] for r in log[:arch.moe_layers(self.m)]])
             loss = float(loss_t)
             losses.append(loss)
             if loss == loss and abs(loss) != float("inf"):
@@ -143,7 +154,9 @@ def _delta_norms(m: Model, params, seed: int, device) -> dict:
     again a leaf at a time)."""
     flat = weights.flat(params)
     out = {}
-    for path, shape, fan_in in weights.leaf_specs(m):
+    for path, shape, fan_in in arch.leaf_specs(m):
+        if shape is None:
+            continue
         start = weights.draw_leaf(path, shape, fan_in, seed, device)
         out[path] = float(torch.linalg.vector_norm(
             flat[path].float() - start))

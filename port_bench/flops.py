@@ -6,14 +6,18 @@ from ``chip_smoke.py`` (decoder-only branches), and ``attended_pairs`` with
 the flash-attention wrappers' counts (``_report_fwd``, ``_report_bwd`` in
 ``src/repro_torch/kernels/flash_attention/ops.py``): each input read once,
 each output written once, the operations these inputs need.  They read the
-benchmark's :class:`~port_bench.model.Model`, not the program's config.
+benchmark's :class:`~port_bench.model.Model`, not the program's config,
+and are the defaults of an architecture whose reference module defines no
+``forward_flops`` or ``attention_layers`` hook (:mod:`port_bench.arch`).
 """
 from __future__ import annotations
 
+from . import arch
 from .model import Model
 
 __all__ = ["attended_pairs", "matmul_params", "forward_flops",
-           "train_model_flops", "attention_fwd_work", "attention_bwd_work"]
+           "train_model_flops", "attention_fwd_work", "attention_bwd_work",
+           "attention_layers"]
 
 
 def attended_pairs(s: int, causal: bool, window: int = 0,
@@ -47,9 +51,9 @@ def forward_flops(m: Model, b: int, s: int) -> int:
 
 def train_model_flops(m: Model, b: int, s: int) -> int:
     """Model FLOPs of a train step: three forwards (the forward, and a
-    backward of twice its products); what remat recomputes is not
-    counted."""
-    return 3 * forward_flops(m, b, s)
+    backward of twice its products); what remat recomputes is not counted.
+    A forward is the architecture's (:func:`port_bench.arch.forward_flops`)."""
+    return 3 * arch.forward_flops(m, b, s)
 
 
 def attention_fwd_work(m: Model, b: int, s: int, dtype_bytes: int = 2,
@@ -73,3 +77,11 @@ def attention_bwd_work(m: Model, b: int, s: int,
     nbytes = dtype_bytes * (4 * b * h * s * d + 4 * b * kv * s * d) \
         + 4 * b * h * s
     return 10 * b * h * pairs * d, nbytes
+
+
+def attention_layers(m: Model, b: int, s: int) -> list:
+    """((fwd FLOPs, fwd bytes), (bwd FLOPs, bwd bytes)) of each attention
+    layer of a forward at b x s tokens, every one of ``n_layers`` causal and
+    full-width."""
+    return [(attention_fwd_work(m, b, s), attention_bwd_work(m, b, s))] \
+        * m.n_layers

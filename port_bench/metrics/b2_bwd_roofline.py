@@ -1,8 +1,9 @@
 """B2's backward (``flash_bwd*`` kernels: delta, dQ, dK/dV): the card's
 least time for the backward calls in the traced window (one ``delta``
 launch a call), over the device time of all their kernels, in %; work as
-:mod:`b2_fwd_roofline` counts it, for the backward's five products."""
-from port_bench import flops, peaks
+:mod:`b2_fwd_roofline` counts it, for the backward's five products, a call
+counting the mean of the attention layers' least times."""
+from port_bench import arch, peaks
 
 
 def read(run):
@@ -13,6 +14,7 @@ def read(run):
     secs = t.seconds(lambda k: "flash_bwd" in k)
     if not calls or secs <= 0:
         return None
-    work = flops.attention_bwd_work(run.model, int(run.traffic["batch"]),
-                                    int(run.traffic["seq_len"]))
-    return 100.0 * calls * peaks.least_seconds(*work, p) / secs
+    layers = arch.attention_layers(run.model, int(run.traffic["batch"]),
+                                   int(run.traffic["seq_len"]))
+    least = sum(peaks.least_seconds(*b, p) for _, b in layers)
+    return 100.0 * calls * least / len(layers) / secs

@@ -1,0 +1,10 @@
+"""Device milliseconds a step of what the program launches while its
+``train.backward`` range is open (every remat unit's recompute and the
+gradients)
+(``port_bench.spans.step_metrics``, from the traced window's
+``Trace.spans``; none where the program marks no such range)."""
+from port_bench import spans
+
+
+def read(run):
+    return spans.read_step(run, "backward_ms")

@@ -1,0 +1,9 @@
+"""Device operations launched a step under the program's ``train.step``
+range
+(``port_bench.spans.step_metrics``, from the traced window's
+``Trace.spans``; none where the program marks no such range)."""
+from port_bench import spans
+
+
+def read(run):
+    return spans.read_step(run, "step_launches")

@@ -8,13 +8,15 @@ Builds the cell as a run of the harness does (:func:`port_bench.harness.
 run_cell`'s set-up: the driver's system from ``--seed``, its warm-up steps,
 ``gc.freeze()``), then records one step and the traffic's ``trace_steps``
 steps inside the window's range, as the harness's ``--trace 1`` run does.
-It prints the per-step numbers of :func:`spans.step_metrics`, the
-harness's busy and idle time of the same window, the top ranges by device
-and by idle seconds, two checks of the attribution (the phases' share of
-the kernels' device time, and of all device operations'; the share of the
-experts' batched products, forward and backward, that lands in
-``moe.experts``) and the host cost of a range
-(nanoseconds a call, with no profiler and under one).  Needs a CUDA card.
+It prints the per-step numbers of :func:`spans.step_metrics` (the
+harness's per-layer readers read the same from ``Trace.spans``), the host
+seconds of the harness's reduction of the window with its attribution
+(``reduce_s``), the harness's busy and idle time of the window, the top
+ranges by device and by idle seconds, two checks of the attribution (the
+phases' share of the kernels' device time, and of all device operations';
+the share of the experts' batched products, forward and backward, that
+lands in ``moe.experts``) and the host cost of a range (nanoseconds a
+call, with no profiler and under one).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -121,9 +123,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
     gc.unfreeze()
     t0 = time.perf_counter()
+    trace = tr.reduce(prof, n, enq)          # the harness's reduction
+    reduce_s = time.perf_counter() - t0
+    spans = trace.spans
     device, host, window = sp.events_of(prof)
-    spans = sp.attribute(device, host, window)
-    trace = tr.reduce(prof, n, enq)
     kernels = trace.seconds(lambda k: tr.group(k) != "copy")
     only = sp.attribute([d for d in device if tr.group(d.name) != "copy"],
                         host, window)
@@ -150,7 +153,7 @@ def main(argv=None) -> int:
         "spans": sp.top(spans, "device_s", 40),
         "idle_spans": sp.top(spans, "idle_s", 15),
         "self_host_ms": {k: 1e3 * v.self_s / n for k, v in spans.items()},
-        "attribute_s": time.perf_counter() - t0,
+        "reduce_s": reduce_s,
         **_range_cost(),
     }
     system.close()

@@ -43,7 +43,7 @@ from .trace import DEVICE_WORK, WINDOW, union
 
 __all__ = ["AUTOGRAD_NODE", "OUTSIDE", "PHASE", "STEP", "Device", "Host",
            "Index", "Span", "attribute", "events_of", "from_profile",
-           "step_metrics", "top"]
+           "step_metrics", "read_step", "top"]
 
 #: the prefix of the step's phases, which enclose by time
 PHASE = "train."
@@ -272,7 +272,11 @@ def attribute(device, host, window) -> dict:
 def events_of(prof):
     """(device [:class:`Device`], host [:class:`Host`], window) of a
     finished ``torch.profiler.profile`` whose steps ran inside the
-    harness's :data:`~port_bench.trace.WINDOW` range."""
+    harness's :data:`~port_bench.trace.WINDOW` range.  A range recorded on
+    the host is mirrored on the device's timeline (kineto's
+    ``gpu_user_annotation``) and is no work: where the events carry no
+    activity type, a device event that is a user annotation is taken for
+    such a mirror and left out."""
     from torch.autograd import DeviceType
     events = list(prof.profiler.kineto_results.events())
     device, host, window = [], [], None
@@ -320,6 +324,13 @@ def step_metrics(spans: dict, steps: int) -> dict:
         "step_idle_ms": ms(STEP, field="idle_s"),
         "step_launches": None if step is None else step.launches / steps,
     }
+
+
+def read_step(run, name: str):
+    """:func:`step_metrics`' ``name`` of a run's traced window
+    (``run.trace.spans``), None without a trace or without the range."""
+    t = run.trace
+    return None if t is None else step_metrics(t.spans, t.steps)[name]
 
 
 def top(spans: dict, field: str, n: int = 10) -> list:

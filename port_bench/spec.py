@@ -12,7 +12,11 @@ file of its own under ``port_bench/``, found by name:
 - ``limits/<cell>.json``: the limits of the numbers that decide
   ``correct``;
 - ``reference/<name>.py``: a plain reference, named by a configuration's
-  ``reference`` key.
+  ``reference`` key, and the one place the harness asks about an
+  architecture: beside the reference itself it may define the hooks
+  ``ARCH_KEYS``, ``leaf_specs``, ``forward_flops``, ``attention_layers``
+  and ``moe_layers``, which :mod:`port_bench.arch` resolves, each against
+  the decoder-only llama tree's default.
 """
 from __future__ import annotations
 

@@ -170,3 +170,101 @@ def test_every_node_under_moe_resolves_to_it_on_a_cpu_profile():
             seen.add(inner.name)
     assert seen == {"moe.route", "moe.dispatch", "moe.experts",
                     "moe.combine"}
+
+
+class _Event:
+    """A kineto event as :func:`trace.reduce` and :func:`spans.events_of`
+    read one."""
+
+    def __init__(self, name, a, b, *, cpu=True, kind="cpu_op", thread=1,
+                 corr=0, link=0, seq=-1):
+        self._v = (name, a, b, cpu, kind, thread, corr, link, seq)
+
+    def name(self):
+        return self._v[0]
+
+    def start_ns(self):
+        return int(self._v[1] * 1e9)
+
+    def end_ns(self):
+        return int(self._v[2] * 1e9)
+
+    def device_type(self):
+        from torch.autograd import DeviceType
+        return DeviceType.CPU if self._v[3] else DeviceType.CUDA
+
+    def activity_type(self):
+        return self._v[4]
+
+    def is_user_annotation(self):
+        return self._v[4] == "user_annotation"
+
+    def start_thread_id(self):
+        return self._v[5]
+
+    def correlation_id(self):
+        return self._v[6]
+
+    def linked_correlation_id(self):
+        return self._v[7]
+
+    def sequence_nr(self):
+        return self._v[8]
+
+    def fwd_thread_id(self):
+        return 0
+
+
+def synthetic_profile():
+    """Two traced steps in the window [0, 20) (seconds): each step's
+    forward launches a routing kernel of 0.5 s and an experts' kernel of 1,
+    its backward one of 3, its optimizer one of 0.5.  The card idles in
+    [0, 1), [2.5, 3.5) and [12.5, 13.5), whose middles lie in a step, and in
+    [7, 11) and [17, 20), whose middles lie outside the steps (the first
+    step's gap before its first kernel joins the gap between the steps)."""
+    def ann(name, a, b):
+        return _Event(name, a, b, kind="user_annotation")
+
+    events = [ann(tr.WINDOW, 0.0, 20.0)]
+    corr = 0
+    for t0 in (0.0, 10.0):
+        events += [ann("pb.step", t0, t0 + 10), ann("train.step", t0, t0 + 8),
+                   ann("train.forward", t0, t0 + 3),
+                   ann("layer.moe", t0, t0 + 3),
+                   ann("moe.route", t0, t0 + 1),
+                   ann("moe.experts", t0 + 1, t0 + 3),
+                   ann("train.backward", t0 + 3, t0 + 6),
+                   ann("train.optimizer", t0 + 6, t0 + 8)]
+        # (launched at, kernel start, kernel end)
+        for at, a, b in ((0.5, 1.0, 1.5), (1.5, 1.5, 2.5), (3.5, 3.5, 6.5),
+                         (6.5, 6.5, 7.0)):
+            corr += 1
+            events += [_Event("cudaLaunchKernel", t0 + at, t0 + at + 0.01,
+                              kind="cuda_runtime", corr=corr),
+                       _Event("kern", t0 + a, t0 + b, cpu=False,
+                              kind="kernel", corr=corr)]
+    from types import SimpleNamespace
+    return SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: list(events))))
+
+
+def test_trace_spans_of_a_profile_feed_the_seven_readers():
+    from port_bench import harness, spec
+    t = tr.reduce(synthetic_profile(), 2, [0.1, 0.1])
+    assert t.busy_s == pytest.approx(10.0) and t.window_s == 20.0
+    assert t.spans["train.step"].launches == 8
+    run = harness.Run(model=None, traffic={}, kind="cpu", setup_s=0.0,
+                      window_s=20.0, steps=2, tokens=0, peak_bytes=0,
+                      trace=t)
+    want = {"forward_ms": 1500.0, "backward_ms": 3000.0,
+            "optimizer_ms": 500.0, "moe_route_ms": 500.0,
+            "moe_experts_ms": 1000.0, "step_idle_ms": 1500.0,
+            "step_launches": 4}
+    for name, value in want.items():
+        assert spec.reader(name)(run) == pytest.approx(value), name
+    b = t.breakdown()
+    assert b["spans"][0] == ["train.step", pytest.approx(10.0)]
+    assert dict(b["idle_spans"])[sp.OUTSIDE] == pytest.approx(7.0)
+    # a window with no program range: the readers say nothing
+    run.trace = tr.Trace(20.0, 10.0, {}, {}, 2, [0.1])
+    assert all(spec.reader(n)(run) is None for n in want)

@@ -50,9 +50,10 @@ def test_per_layer_moves_an_end_to_end_metric():
     e2e = {m["name"] for m in BENCH["end_to_end"]}
     layers = {m["layer"] for m in BENCH["per_layer"]}
     assert layers == {"step loop", "model and optimizer on the card",
-                      "kernels", "device"}
+                      "MoE layer", "kernels", "device"}
     for m in BENCH["per_layer"]:
         assert m["moves"] in e2e
+        assert set(m.get("workloads", CELLS)) <= set(CELLS)
         assert set(m) <= {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
 

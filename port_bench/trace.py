@@ -8,6 +8,9 @@ it, the union of their intervals (``busy_s``), the range's length
 (``window_s``), and each idle gap on the device named by what the host was
 doing at its middle: the innermost host event then open, on any thread.  So
 the gaps add up to ``window_s - busy_s``, the idle share the run reports.
+It also attributes the same window to the program's ranges
+(:func:`port_bench.spans.attribute`), which readers find by name in
+``Trace.spans``.
 
 Kernels are grouped by name as ``chip_smoke.py::_profile`` (commit 93b320d)
 groups them: the port's own (:data:`PORT_KERNELS`), the library's matrix
@@ -48,13 +51,15 @@ def group(name: str) -> str:
 class Trace:
     """One traced window: ``ops`` {name: [seconds, count]} of the device
     operations in it, ``gaps`` {host activity: idle seconds}, ``steps``
-    traced and the step calls' host seconds (``enqueue_s``)."""
+    traced, the step calls' host seconds (``enqueue_s``) and ``spans``
+    {program range: :class:`port_bench.spans.Span`}."""
     window_s: float
     busy_s: float
     ops: dict
     gaps: dict
     steps: int
     enqueue_s: list
+    spans: dict = dataclasses.field(default_factory=dict)
 
     def seconds(self, pred) -> float:
         """Device seconds of the operations whose name ``pred`` accepts."""
@@ -64,13 +69,21 @@ class Trace:
         return sum(v[1] for k, v in self.ops.items() if pred(k))
 
     def breakdown(self, n: int = 10) -> dict:
-        """The ``n`` device operations that took most time and the ``n``
-        host activities with the most idle device time, in seconds."""
+        """The ``n`` device operations that took most time, the ``n`` host
+        activities with the most idle device time, and the ``n`` program
+        ranges with the most device time (``spans``) and idle time
+        (``idle_spans``), each as [name, seconds]."""
+        from .spans import top as top_spans
+
         def top(pairs):
             return [[k[:64], v] for k, v in
                     sorted(pairs, key=lambda kv: -kv[1])[:n]]
         return {"device_ops": top((k, v[0]) for k, v in self.ops.items()),
-                "idle_gaps": top(self.gaps.items())}
+                "idle_gaps": top(self.gaps.items()),
+                "spans": [[r[0], r[1]] for r in
+                          top_spans(self.spans, "device_s", n)],
+                "idle_spans": [[r[0], r[4]] for r in
+                               top_spans(self.spans, "idle_s", n)]}
 
 
 def union(intervals, lo: float, hi: float):
@@ -134,28 +147,17 @@ DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def reduce(prof, steps: int, enqueue_s) -> Trace:
-    """:func:`reduce_events` of a finished ``torch.profiler.profile``.  A
-    range recorded on the host is mirrored on the device's timeline (kineto's
-    ``gpu_user_annotation``) and is no work: where the events carry no
-    activity type, a device event named as a host event is taken for such a
-    mirror and left out."""
-    from torch.autograd import DeviceType
-    events = list(prof.profiler.kineto_results.events())
-    host_names = {e.name() for e in events
-                  if e.device_type() == DeviceType.CPU}
-    device, host, window = [], [], None
-    for e in events:
-        a, b = e.start_ns() * 1e-9, e.end_ns() * 1e-9
-        name = e.name()
-        if e.device_type() == DeviceType.CPU:
-            if name == WINDOW:
-                window = (a, b)
-            host.append((name, a, b))
-        elif (e.activity_type() in DEVICE_WORK
-              if hasattr(e, "activity_type") else name not in host_names):
-            device.append((name, a, b))
+    """:func:`reduce_events` of a finished ``torch.profiler.profile``, with
+    its ``spans`` attributed (:func:`port_bench.spans.attribute`) from the
+    same events, read once (:func:`port_bench.spans.events_of`)."""
+    from . import spans
+    device, host, window = spans.events_of(prof)
     if window is None:
         raise RuntimeError(f"the trace holds no {WINDOW!r} range")
     if not device:
         raise RuntimeError("the trace holds no device operation")
-    return reduce_events(device, host, window, steps, enqueue_s)
+    out = reduce_events([(d.name, d.start, d.end) for d in device],
+                        [(h.name, h.start, h.end) for h in host], window,
+                        steps, enqueue_s)
+    out.spans = spans.attribute(device, host, window)
+    return out

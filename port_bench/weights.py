@@ -7,7 +7,9 @@ generator of its own on the device, seeded from (``--seed``, the leaf's
 path), in one call, in fp32 (the type training keeps): so any leaf can be
 drawn again alone, as the comparison does for the parameters' change.
 Dense leaves are a normal truncated to [-2, 2] over the square root of the
-fan-in, as the port's ``dense_init``; norm scales are ones.
+fan-in, as the port's ``dense_init``; norm scales are ones.  The tree of
+an architecture is its reference module's ``leaf_specs`` hook where it has
+one (:func:`specs`).
 """
 from __future__ import annotations
 
@@ -16,15 +18,17 @@ import math
 
 import torch
 
+from . import arch
 from .model import Model
 from .traffic import SEED_MASK
 
 __all__ = ["leaf_specs", "draw_leaf", "draw", "nest", "flat"]
 
 
-def leaf_specs(m: Model) -> list[tuple[str, tuple, int]]:
-    """[(path, shape, fan_in)] in a fixed order; ``fan_in`` 0 marks a norm
-    scale (ones)."""
+def leaf_specs(m: Model) -> list[tuple[str, tuple | None, int]]:
+    """[(path, shape, fan_in)] of the decoder-only llama tree, in a fixed
+    order; ``fan_in`` 0 marks a norm scale (ones), ``shape`` None an empty
+    node (a non-parametric norm)."""
     if m.block_type != "llama":
         raise NotImplementedError(f"block {m.block_type!r}")
     d, ff, L = m.d_model, m.d_ff, m.n_layers
@@ -52,6 +56,9 @@ def leaf_specs(m: Model) -> list[tuple[str, tuple, int]]:
         specs += [("layers/mlp/w_gate", (L, d, ff), d),
                   ("layers/mlp/w_up", (L, d, ff), d),
                   ("layers/mlp/w_down", (L, ff, d), ff)]
+    if m.norm_type == "nonparametric_ln":
+        specs += [("final_norm", None, 0), ("layers/ln1", None, 0),
+                  ("layers/ln2", None, 0)]
     return specs
 
 
@@ -73,26 +80,22 @@ def draw_leaf(path: str, shape: tuple, fan_in: int, seed: int,
 
 
 def nest(flat: dict) -> dict:
-    """{"a/b": t} -> {"a": {"b": t}}; a non-parametric norm's empty dicts
-    (``final_norm``, ``ln1``, ``ln2``) are made where the tree has them."""
+    """{"a/b": t} -> {"a": {"b": t}}; a path whose value is None becomes an
+    empty dict (a non-parametric norm's node)."""
     out: dict = {}
     for path, t in flat.items():
         node = out
         *head, last = path.split("/")
         for k in head:
             node = node.setdefault(k, {})
-        node[last] = t
+        node[last] = {} if t is None else t
     return out
 
 
 def draw(m: Model, seed: int, device) -> dict:
     """The whole tree of seed ``seed``, as the program takes it."""
-    tree = nest({p: draw_leaf(p, s, f, seed, device)
-                 for p, s, f in leaf_specs(m)})
-    if m.norm_type == "nonparametric_ln":
-        tree["final_norm"] = {}
-        tree["layers"]["ln1"], tree["layers"]["ln2"] = {}, {}
-    return tree
+    return nest({p: None if s is None else draw_leaf(p, s, f, seed, device)
+                 for p, s, f in arch.leaf_specs(m)})
 
 
 def flat(tree, prefix: str = "") -> dict:
